@@ -29,7 +29,6 @@ donation.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -56,14 +55,6 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def columnar_plan_enabled() -> bool:
-    """The columnar planner (INTERNALS §10) is the default; the legacy
-    per-change planner stays available as the parity comparator behind
-    ``AMTPU_COLUMNAR_PLAN=0`` (read per call so tests can pin either
-    path)."""
-    return os.environ.get("AMTPU_COLUMNAR_PLAN", "1") != "0"
 
 
 class _GroupedRound(list):
@@ -345,12 +336,11 @@ class CausalDeviceDoc:
         # small batches keep the dict scan (model call overhead beats
         # the win below ~8 keys), and an unpackable table falls through.
         missing = None
-        if len(ts) >= 8 and learned_index.site_enabled("actor_rank"):
+        if len(ts) >= 8:
             m = learned_index.doc_actor_model(self)
             if m is not None:
                 got = learned_index.actor_positions(
-                    self.actor_table, np.asarray(ts, object),
-                    "actor_rank", model=m)
+                    self.actor_table, np.asarray(ts, object), m)
                 if got is not None:
                     fnd = got[1]
                     missing = ([] if fnd.all() else
@@ -515,12 +505,12 @@ class CausalDeviceDoc:
     def _schedule_inner(self, batch, clock=None, prior_queue=None):
         prior_queue = list(self.queue if prior_queue is None
                            else prior_queue)
-        # columnar planner (default; INTERNALS §10): admission over the
-        # batch's per-change struct-of-arrays — rounds come back already
-        # GROUPED ((batch, rows, mask) triples), no per-change tuples.
-        # Plan-equivalent to the legacy paths below by construction;
-        # pinned by tests/test_columnar_plan.py.
-        if not prior_queue and batch.n_changes and columnar_plan_enabled():
+        # columnar planner (INTERNALS §10): admission over the batch's
+        # per-change struct-of-arrays — rounds come back already GROUPED
+        # ((batch, rows, mask) triples), no per-change tuples. It covers
+        # every batch of at least _BULK_SCHEDULE_MIN changes with an
+        # empty queue; the per-change loop below takes the rest.
+        if not prior_queue and batch.n_changes:
             out = self._schedule_columnar(
                 batch, self.clock if clock is None else clock, prior_queue)
             if out is not None:
@@ -549,14 +539,6 @@ class CausalDeviceDoc:
                         and not (actor_set & clock.keys())):
                     return ([[(batch, r) for r in range(batch.n_changes)]],
                             [], prior_queue)
-        # bulk path — any other large batch with an empty queue: admission
-        # becomes numpy round passes over (actor rank, seq, deps group)
-        # columns instead of a per-change Python walk per round (the
-        # multi-round causal shapes, cfg5c, paid O(rounds x changes) dict
-        # work here). Bit-equivalent to the loop below by construction;
-        # pinned by tests/test_pipeline.py::test_schedule_bulk_parity.
-        if not prior_queue and batch.n_changes >= _BULK_SCHEDULE_MIN:
-            return self._schedule_bulk(batch, clock, prior_queue)
         while pending:
             ready, not_ready = [], []
             for item in pending:
@@ -590,76 +572,15 @@ class CausalDeviceDoc:
             pending = not_ready
         return rounds, queue_after, prior_queue
 
-    def _schedule_bulk(self, batch, clock0: dict, prior_queue: list):
-        """Vectorized admission for a whole batch (empty prior queue).
-
-        One numpy pass per causal ROUND instead of one Python iteration
-        per change per round: rows carry dense local actor ids and a deps
-        GROUP id (dep dicts interned by identity at batch construction,
-        then deduplicated by content), so the per-round readiness test is
-        a handful of boolean column ops plus one small loop over unique
-        dep groups. Semantics are the loop path's exactly: idempotent
-        duplicate skips, the implicit self-dep override, first-occurrence
-        wins for same-(actor, seq) rows inside one round."""
-        n = batch.n_changes
-        actors = batch.actors
-        seqs = np.asarray(batch.seqs, np.int64)
-
-        aid: dict = {}
-        aidx = np.empty(n, np.int64)
-        for i, a in enumerate(actors):
-            j = aid.get(a)
-            if j is None:
-                j = aid[a] = len(aid)
-            aidx[i] = j
-
-        # deps groups: identity first (intern_deps collapses equal dicts
-        # at batch construction), then content-dedup the handful of
-        # distinct objects so hand-built batches group too
-        gid_by_id: dict = {}
-        group_deps: list = []
-        dgid = np.empty(n, np.int64)
-        for i, d in enumerate(batch.deps):
-            g = gid_by_id.get(id(d))
-            if g is None:
-                g = gid_by_id[id(d)] = len(group_deps)
-                group_deps.append(d)
-            dgid[i] = g
-        by_content: dict = {}
-        remap_g = np.empty(len(group_deps), np.int64)
-        for g, d in enumerate(group_deps):
-            remap_g[g] = by_content.setdefault(
-                tuple(sorted(d.items())), g)
-        dgid = remap_g[dgid]
-
-        for d in group_deps:         # dep-referenced actors need clock rows
-            for a in d:
-                if a not in aid:
-                    aid[a] = len(aid)
-        clock = np.zeros(len(aid), np.int64)
-        for a, j in aid.items():
-            clock[j] = clock0.get(a, 0)
-        g_actor = [np.asarray([aid[a] for a in d], np.int64)
-                   for d in group_deps]
-        g_seq = [np.asarray([s for _, s in d.items()], np.int64)
-                 for d in group_deps]
-
-        round_rows, remaining = self._admission_rounds(
-            aidx, seqs, dgid, g_actor, g_seq, len(group_deps), clock)
-        rounds = [[(batch, int(r)) for r in r_idx] for r_idx in round_rows]
-        queue_after = [(batch, int(r)) for r in np.flatnonzero(remaining)]
-        return rounds, queue_after, prior_queue
-
     @staticmethod
     def _admission_rounds(aidx, seqs, dgid, g_actor, g_seq,
                           n_groups: int, clock):
         """The ONE vectorized admission loop (one numpy pass per causal
-        round) shared by `_schedule_bulk` and `_schedule_columnar` — the
-        admission SEMANTICS (idempotent dup skip, implicit self-dep
-        override via single-failure forgiveness, first-occurrence-wins
-        for same-(actor, seq) rows in one round) live here and nowhere
-        else, so the default planner and the parity comparator cannot
-        drift. `clock` is mutated in place. Returns (round index arrays,
+        round) of `_schedule_columnar` — the admission SEMANTICS
+        (idempotent dup skip, implicit self-dep override via
+        single-failure forgiveness, first-occurrence-wins for
+        same-(actor, seq) rows in one round) live here and nowhere else.
+        `clock` is mutated in place. Returns (round index arrays,
         remaining mask: rows still pending = the queue)."""
         n = len(seqs)
         round_rows: list = []
@@ -719,11 +640,9 @@ class CausalDeviceDoc:
         no (batch, row) tuple lists. Returns None for shapes the columns
         do not cover (small batches without the wide-merge shape fall to
         the per-change loop, whose cost at that size is the setup's).
-        Admission decisions are exactly the legacy paths' — the fast
-        path tests the same frontier/new-actor conditions at dep-CONTENT
-        level (the legacy identity test plus `_schedule_bulk`'s content
-        dedup reach the same partition), and the bulk loop mirrors
-        `_schedule_bulk` row for row."""
+        Admission decisions are exactly the loop path's — the fast path
+        tests the same frontier/new-actor conditions at dep-CONTENT
+        level, and `_admission_rounds` keeps the loop's semantics."""
         n = batch.n_changes
         cols = getattr(batch, "_change_columns", None)
         if cols is None and n < _BULK_SCHEDULE_MIN:
@@ -759,10 +678,9 @@ class CausalDeviceDoc:
         if n < _BULK_SCHEDULE_MIN:
             return None         # loop path: setup costs more than the walk
 
-        # bulk columnar rounds — `_schedule_bulk`'s per-round vector pass
-        # with every per-call derivation (dense ids, dep grouping, group
-        # arrays) replaced by the batch's cached columns. Only the clock
-        # vector is per-document.
+        # bulk columnar rounds — one vector pass per causal round over the
+        # batch's cached columns (dense ids, dep grouping, group arrays).
+        # Only the clock vector is per-document.
         aidx = cols.actor_idx.astype(np.int64)
         seqs = cols.seqs.astype(np.int64)
         dgid = cols.dep_gid
@@ -869,8 +787,7 @@ class CausalDeviceDoc:
         round; rows_l/seqs_l are the materialized lists the mixed path
         consumes (only built when actually needed)."""
         actors = b.actors
-        cols = (getattr(b, "_change_columns", None)
-                if columnar_plan_enabled() else None)
+        cols = getattr(b, "_change_columns", None)
         if (cols is not None and len(rows_arr)
                 and cols.all_seq1 and cols.single_group):
             pairs = (cols.pairs_all(actors, b.seqs)

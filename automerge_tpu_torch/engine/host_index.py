@@ -16,30 +16,21 @@ the host, where the op columns originate anyway. Two facts make this cheap:
 Keys pack as (actor_rank << 32 | ctr); counters stay < 2^31 so keys within a
 range are consecutive integers and slot arithmetic is a subtraction.
 
-Two index structures implement the same contract (INTERNALS §16.2):
-
-- :class:`BatchRangeIndex` (default) — Jiffy-style batch-update tiers: a
-  round's minted ranges land as ONE immutable sorted run appended to a
-  small tier list, with amortized size-doubling compaction; every
-  instance is persistent (``merge``/``remap_actors`` return NEW
-  indexes, nothing published is ever written again), so readers —
-  checkpoint ``grab()``, pull paths, the stacked gather — take
-  zero-coordination O(1) snapshots (``snapshot()`` is ``self``) that can
-  never observe a torn merge. Per-round cost is O(K log K + K log R)
-  instead of the sorted-insert array's O(R) whole-array copy; the index
-  grows with document lifetime, the round's ranges do not.
-- :class:`SortedInsertIndex` — the earlier sorted-insert array, kept
-  verbatim behind ``AMTPU_BATCH_INDEX=0`` as the parity comparator
-  (tests/test_batch_index.py pins lookup/merge/flatten byte-identity).
-
-Both coalesce key- and slot-contiguous neighbors in their flattened view,
-so checkpoint bundles (``idx_starts``/``idx_lens``/``idx_slots``) are
-byte-identical across the flag.
+The structure is :class:`BatchRangeIndex` (INTERNALS §16.2), Jiffy-style
+batch-update tiers: a round's minted ranges land as ONE immutable sorted
+run appended to a small tier list, with amortized size-doubling
+compaction; every instance is persistent (``merge``/``remap_actors``
+return NEW indexes, nothing published is ever written again), so readers
+take zero-coordination O(1) snapshots (``snapshot()`` is ``self``) that
+can never observe a torn merge. Per-round cost is O(K log K + K log R)
+instead of a sorted-insert array's O(R) whole-array copy; the index grows
+with document lifetime, the round's ranges do not. The flattened view
+coalesces key- and slot-contiguous neighbors, so its rows match the JAX
+package's index rows byte for byte.
 """
 
 from __future__ import annotations
 
-import os
 
 import numpy as np
 
@@ -47,40 +38,10 @@ from .._common import check_int32_envelope
 from .. import obs
 from . import learned_index as _learned
 
-#: Process-wide bulk-merge accounting: the cfg12t budget — one bulk merge
-#: per doc per round, never one insert per range — is asserted against
-#: these counters (engine/stacked.assert_round_budget, bench.py cfg12t).
-MERGE_STATS = {"bulk_merges": 0, "ranges_inserted": 0, "compactions": 0}
-
 #: Below this many ranges in the base run, ``lookup_learned`` skips the
 #: model-fit attempt outright: a binary search over a handful of ranges
 #: is already cheaper than any model's fixed probe cost.
 _MIN_MODEL_RANGES = 8
-
-
-def merge_stats_snapshot() -> dict:
-    return dict(MERGE_STATS)
-
-
-def batch_index_enabled() -> bool:
-    """The batch-update tiered index (INTERNALS §16.2) is the default;
-    the legacy sorted-insert array stays available as the parity
-    comparator behind ``AMTPU_BATCH_INDEX=0`` (read per call so tests
-    can pin either structure)."""
-    return os.environ.get("AMTPU_BATCH_INDEX", "1") != "0"
-
-
-def new_index():
-    """A fresh empty index of the configured structure."""
-    return BatchRangeIndex() if batch_index_enabled() \
-        else SortedInsertIndex()
-
-
-def index_from_rows(starts, lens, slots):
-    """Rebuild an index of the configured structure from flattened rows
-    (checkpoint restore; rows are trusted sorted + disjoint)."""
-    cls = BatchRangeIndex if batch_index_enabled() else SortedInsertIndex
-    return cls.from_rows(starts, lens, slots)
 
 
 def pack_keys(actor: np.ndarray, ctr: np.ndarray) -> np.ndarray:
@@ -131,8 +92,7 @@ def _sort_new(starts, lens, slots):
 
 def _coalesce(starts, lens, slots):
     """Coalesce key- AND slot-contiguous neighbors of one sorted,
-    non-overlapping run (the legacy per-merge pass, shared so the two
-    structures' flattened views are byte-identical)."""
+    non-overlapping run."""
     if len(starts) > 1:
         ends = starts + lens
         joined = (ends[:-1] == starts[1:]) & \
@@ -159,141 +119,9 @@ def _merge_runs(a, b):
     return _coalesce(starts[order], lens[order], slots[order])
 
 
-class SortedInsertIndex:
-    """Sorted, coalesced (key range -> slot range) map — the legacy
-    sorted-insert array (parity comparator, ``AMTPU_BATCH_INDEX=0``).
-
-    Persistent like its replacement: ``merge`` and ``remap_actors``
-    return NEW indexes and published array attributes are only ever
-    rebound, never written — so ``snapshot()`` is a cheap consistent
-    view here too."""
-
-    __slots__ = ("starts", "lens", "slots", "_slot_view")
-
-    def __init__(self):
-        self.starts = np.empty(0, np.int64)   # packed first key of each range
-        self.lens = np.empty(0, np.int64)
-        self.slots = np.empty(0, np.int64)    # device slot of the first key
-        self._slot_view = None                # lazy slot-sorted view
-
-    @classmethod
-    def from_rows(cls, starts, lens, slots) -> "SortedInsertIndex":
-        out = cls()
-        out.starts = np.asarray(starts, np.int64)
-        out.lens = np.asarray(lens, np.int64)
-        out.slots = np.asarray(slots, np.int64)
-        return out
-
-    @property
-    def n_ranges(self) -> int:
-        return len(self.starts)
-
-    def rows(self) -> tuple:
-        """Flattened (starts, lens, slots) view (checkpoint encode)."""
-        return self.starts, self.lens, self.slots
-
-    def snapshot(self) -> "SortedInsertIndex":
-        """A consistent read view: array refs are shared (every mutation
-        rebinds, so a snapshot can never observe a torn merge)."""
-        out = SortedInsertIndex()
-        out.starts, out.lens, out.slots = self.starts, self.lens, self.slots
-        return out
-
-    def merge(self, starts: np.ndarray, lens: np.ndarray,
-              slots: np.ndarray) -> "SortedInsertIndex":
-        """Return a new index with the ranges inserted (the caller commits it
-        only after every other validity check passes, so a raising batch
-        leaves the document untouched). Raises ValueError on any key overlap
-        (the reference's duplicate-elemId inconsistency, op_set.js
-        applyInsert)."""
-        if len(starts) == 0:
-            return self
-        _t0 = obs.now() if obs.ENABLED else 0
-        # sort only the NEW ranges (K log K), then place them into the
-        # already-sorted index with one searchsorted + insert (O(R + K))
-        # instead of re-argsorting all R + K ranges per round — the index
-        # grows with document lifetime, the round's minted ranges do not.
-        # Equal-start collisions order new-before-old; both orders raise
-        # DuplicateElemId below (every range has len >= 1).
-        new_starts = starts.astype(np.int64)
-        new_lens = lens.astype(np.int64)
-        new_slots = slots.astype(np.int64)
-        if len(new_starts) > 1:
-            order = np.argsort(new_starts, kind="stable")
-            new_starts = new_starts[order]
-            new_lens = new_lens[order]
-            new_slots = new_slots[order]
-        if self.n_ranges == 0:
-            starts, lens, slots = new_starts, new_lens, new_slots
-        else:
-            pos = np.searchsorted(self.starts, new_starts, side="left")
-            starts = np.insert(self.starts, pos, new_starts)
-            lens = np.insert(self.lens, pos, new_lens)
-            slots = np.insert(self.slots, pos, new_slots)
-        ends = starts + lens
-        if len(starts) > 1:
-            bad = np.flatnonzero(ends[:-1] > starts[1:])
-            if len(bad):
-                raise DuplicateElemId(int(starts[bad[0] + 1]))
-        # count AFTER validation (as the batch structure does), so the
-        # process-wide accounting agrees across the flag on raising merges
-        MERGE_STATS["bulk_merges"] += 1
-        MERGE_STATS["ranges_inserted"] += len(new_starts)
-        # coalesce key- and slot-contiguous neighbors to keep the index small
-        starts, lens, slots = _coalesce(starts, lens, slots)
-        out = SortedInsertIndex()
-        out.starts, out.lens, out.slots = starts, lens, slots
-        if obs.ENABLED:
-            obs.span("plan", "index_merge", _t0, args={
-                "structure": "sorted_insert", "n_new": len(new_starts),
-                "n_ranges": len(starts)})
-        return out
-
-    def lookup(self, keys: np.ndarray):
-        """-> (slots int64, found bool) for packed query keys."""
-        if self.n_ranges == 0:
-            return (np.zeros(len(keys), np.int64),
-                    np.zeros(len(keys), bool))
-        pos = np.searchsorted(self.starts, keys, side="right") - 1
-        safe = np.clip(pos, 0, None)
-        found = (pos >= 0) & (keys < self.starts[safe] + self.lens[safe])
-        slot = np.where(found, self.slots[safe] + (keys - self.starts[safe]), 0)
-        return slot, found
-
-    def slot_to_key(self, slots: np.ndarray):
-        """Reverse lookup: device slots -> (actor_rank, ctr) of the element
-        occupying each slot. Every live slot >= 1 is covered (each was
-        registered when its insert was planned); raises on a slot outside
-        every range. The slot-sorted view is cached — instances are
-        immutable after construction."""
-        view = self._slot_view
-        if view is None:
-            order = np.argsort(self.slots, kind="stable")
-            view = (self.slots[order], self.lens[order], self.starts[order])
-            self._slot_view = view
-        return _slot_to_key(view, slots)
-
-    def remap_actors(self, remap: np.ndarray) -> "SortedInsertIndex":
-        """Re-rank the actor halves of the keys after interning inserted a
-        new actor id below existing ones (rank order == lex order).
-        Returns the remapped index (pure — the receiver is unchanged, so
-        outstanding snapshots stay valid)."""
-        if self.n_ranges == 0:
-            return self
-        actor = (self.starts >> 32).astype(np.int64)
-        ctr = self.starts & 0xFFFFFFFF
-        starts = (remap[actor].astype(np.int64) << 32) | ctr
-        order = np.argsort(starts, kind="stable")
-        out = SortedInsertIndex()
-        out.starts = starts[order]
-        out.lens = self.lens[order]
-        out.slots = self.slots[order]
-        return out
-
-
 def _slot_to_key(view, slots):
-    """Shared reverse-lookup body over a (slots, lens, starts) slot-sorted
-    view (both index structures)."""
+    """Reverse-lookup body over a (slots, lens, starts) slot-sorted
+    view."""
     s_slots, s_lens, s_starts = view
     slots = np.asarray(slots, np.int64)
     pos = np.searchsorted(s_slots, slots, side="right") - 1
@@ -340,7 +168,7 @@ class BatchRangeIndex:
         self._slot_view = None
         self._model = None     # lazy learned model over the base run;
         # inherited across merges while runs[0] is identity-preserved
-        # (engine/learned_index.py; the exact `lookup` never consults it)
+        # (engine/learned_index.py)
 
     @classmethod
     def from_rows(cls, starts, lens, slots) -> "BatchRangeIndex":
@@ -353,7 +181,7 @@ class BatchRangeIndex:
             out._flat = run
         return out
 
-    # -- flattened view (checkpoint encode, parity with the legacy) -----
+    # -- flattened view ---------------------------------------------------
 
     def _flatten(self) -> tuple:
         flat = self._flat
@@ -381,8 +209,7 @@ class BatchRangeIndex:
         return self._flatten()[2]
 
     def rows(self) -> tuple:
-        """Flattened (starts, lens, slots) view (checkpoint encode);
-        byte-identical to the legacy structure's arrays."""
+        """Flattened, coalesced (starts, lens, slots) view."""
         return self._flatten()
 
     def snapshot(self) -> "BatchRangeIndex":
@@ -395,7 +222,7 @@ class BatchRangeIndex:
     def _check_overlap(self, new_starts, new_lens):
         """Raise DuplicateElemId when any new range overlaps a resident
         one. Probe-based (O(K log R) per tier); the offending key matches
-        the legacy sorted-insert report: the later range's start in the
+        a sorted-insert merge's report: the later range's start in the
         merged order (new-before-old on equal starts, so an exact
         collision reports the OLD start — both carry the same key half
         anyway)."""
@@ -431,8 +258,6 @@ class BatchRangeIndex:
         _t0 = obs.now() if obs.ENABLED else 0
         new_run = _sort_new(starts, lens, slots)
         self._check_overlap(new_run[0], new_run[1])
-        MERGE_STATS["bulk_merges"] += 1
-        MERGE_STATS["ranges_inserted"] += len(new_run[0])
         runs = list(self._runs)
         runs.append(_coalesce(*new_run))
         # amortized doubling compaction: merge the newest run downward
@@ -443,7 +268,6 @@ class BatchRangeIndex:
             b = runs.pop()
             a = runs.pop()
             runs.append(_merge_runs(a, b))
-            MERGE_STATS["compactions"] += 1
         for run in runs:
             for arr in run:
                 arr.setflags(write=False)
@@ -455,7 +279,7 @@ class BatchRangeIndex:
         # the learned base-run model survives every merge that leaves
         # runs[0] untouched (the common case under doubling compaction);
         # a compaction that reaches the base invalidates it — the next
-        # learned probe refits (counted on the "range_index" site)
+        # learned probe refits
         if self._runs and runs[0][0] is self._runs[0][0]:
             out._model = self._model
         if obs.ENABLED:
@@ -465,24 +289,6 @@ class BatchRangeIndex:
         return out
 
     # -- reads -----------------------------------------------------------
-
-    def lookup(self, keys: np.ndarray):
-        """-> (slots int64, found bool) for packed query keys. One
-        binary-search pass per tier; a key lives in at most one tier
-        (ranges are globally disjoint), so the per-tier hits combine by
-        masked select."""
-        n = len(keys)
-        slot = np.zeros(n, np.int64)
-        found = np.zeros(n, bool)
-        for starts, lens, slots_r in self._runs:
-            pos = np.searchsorted(starts, keys, side="right") - 1
-            safe = np.clip(pos, 0, None)
-            hit = (pos >= 0) & (keys < starts[safe] + lens[safe])
-            if hit.any():
-                slot = np.where(hit, slots_r[safe] + (keys - starts[safe]),
-                                slot)
-                found |= hit
-        return slot, found
 
     def scalar_affine(self, keys: np.ndarray):
         """The ε=0 degenerate model, evaluated in scalars: when the
@@ -506,18 +312,18 @@ class BatchRangeIndex:
             hit = 0 <= off < l0
             found.append(hit)
             slots.append(z0 + off if hit else 0)
-        _learned.RANGE_SITE.note_hits(len(slots))
         return slots, found
 
     def lookup_learned(self, keys: np.ndarray):
-        """``lookup`` with the base-run probe routed through the learned
-        position model: exact same (slots, found) — the model
-        predicts the range position ± ε and the windowed verify makes it
-        exact, with counted fallback on miss. Tail tiers (small, freshly
-        merged runs) probe exactly; the base run is where the document's
-        lifetime of ranges lives, so it is where the binary search
-        depth was. Callers gate on ``learned_index.site_enabled``."""
-        from . import learned_index as LI
+        """-> (slots int64, found bool) for packed query keys. One probe
+        per tier; a key lives in at most one tier (ranges are globally
+        disjoint), so the per-tier hits combine by masked select. The
+        base-run probe goes through the learned position model: the
+        model predicts the range position ± ε and the windowed verify
+        makes it exact, with exact fallback on miss. Tail tiers (small,
+        freshly merged runs) probe exactly; the base run is where the
+        document's lifetime of ranges lives, so it is where the binary
+        search depth was."""
         runs = self._runs
         n = len(keys)
         if len(runs) == 1:
@@ -532,7 +338,6 @@ class BatchRangeIndex:
                 # the serving bench
                 off = keys - starts[0]
                 hit = (off >= 0) & (off < lens[0])
-                _learned.RANGE_SITE.note(n, 0)
                 return np.where(hit, slots_r[0] + off, 0), hit
         slot = np.zeros(n, np.int64)
         found = np.zeros(n, bool)
@@ -545,8 +350,7 @@ class BatchRangeIndex:
                     if ent is None or ent[0] is not starts:
                         # (source array, model | None): a refused fit is
                         # cached too, not re-attempted per probe
-                        ent = (starts,
-                               _learned.fit_model(starts, "range_index"))
+                        ent = (starts, _learned.fit_model(starts))
                         self._model = ent
                     m = ent[1]
                 else:
@@ -596,9 +400,3 @@ class BatchRangeIndex:
         out._runs = tuple(runs)
         out.n_ranges = self.n_ranges
         return out
-
-
-#: Default structure under the configured flag — the name the engine and
-#: annotations use. Constructions in engine code go through
-#: :func:`new_index` so the flag is honored per document.
-ElemRangeIndex = BatchRangeIndex

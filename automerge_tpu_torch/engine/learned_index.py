@@ -1,15 +1,13 @@
 """Bounded-error learned position models for host planning.
 
-After earlier work cut detection and admission to near-zero, the committed
-cfg12t terms left ``rank_resolve`` — the per-lookup ``np.searchsorted``
-/ hash probes in actor interning, the cross-doc rank join, the range
-index, and the residency router — as the top host share of the planning
-floor. This module removes the per-lookup term the way the RocksDB
-learned-index work does (PAPERS.md): a **piecewise-linear model over the
-sorted key space** predicts each query's position to within a proven
-error bound ε, and a vectorized ε-window verify turns the prediction
-into the EXACT answer — a model miss is a **counted fallback to the
-exact probe, never a wrong answer**.
+The per-lookup ``np.searchsorted`` / dict probes of actor interning and
+the range index are the top host share of the planning floor. This
+module removes the per-lookup term the way the RocksDB learned-index
+work does (PAPERS.md): a **piecewise-linear model over the sorted key
+space** predicts each query's position to within a proven error bound
+ε, and a vectorized ε-window verify turns the prediction into the EXACT
+answer — a model miss falls back to the exact probe, never a wrong
+answer.
 
 Model form and contract
 -----------------------
@@ -20,256 +18,38 @@ Model form and contract
   *closed form at fit time* as the exact max |prediction − position|
   over every table key, so the bound is a measurement, not an estimate.
   Refit is O(n) vectorized — cheap enough to run on every
-  interning-generation bump (the rank-cache invalidation token
-  doubles as the retrain trigger; tests pin refit-on-gen-bump).
+  interning-generation bump (the rank-cache invalidation token doubles
+  as the retrain trigger).
 - ``searchsorted``: predict ± ε, then an exact windowed rank count
   (one (Q, 2ε+3) gather + one comparison reduce) yields the candidate
   position; a final boundary check proves it equals
-  ``np.searchsorted``'s answer. Queries that fail the check (model
-  drift, float rounding at the int64 edge) fall back to the exact probe
-  — counted per site, asserted zero-wrong in the bench's audit mode.
+  ``np.searchsorted``'s answer. Queries that fail the check (float
+  rounding at the int64 edge) fall back to the exact probe.
 - Monotonicity is by construction (anchor positions are increasing), so
   the table-key bound extends to arbitrary queries: a query between two
   table keys predicts between their predictions, within ε+1 of its
   insertion point.
 
-Sites and demotion
-------------------
-
-Every hot probe site registers under a site name (`SITES`): the
-``wire_columns`` actor-rank resolution / ``_intern_batch_actors``
-positional ranks ("actor_rank"), ``cross_doc.seed_ranks``' per-shape
-joins ("cross_doc_seed"), the ``host_index.BatchRangeIndex`` tier
-probes ("range_index"), and the residency router's stored-clock doc
-lookups ("residency_clock"). Per-site counters (lookups / keys / model
-hits / misses / refits / demotions) feed the ``amtpu_index_*`` prom
-families (service/server.py scrape()).
-
-Drift — non-append workloads, actor churn — shows up as a rising miss
-rate: a sliding window per site demotes the site to the exact path when
-the windowed miss rate crosses ``AMTPU_LEARNED_DEMOTE_RATE`` (the
-model is *advisory*; the exact path is always correct), and the next
-refit (generation bump / new run) re-arms it. A model whose measured ε
-exceeds ``AMTPU_LEARNED_MAX_EPS`` refuses to build — a window that wide
-would gather more than a binary search reads.
-
-Flag discipline: ``AMTPU_LEARNED_INDEX`` default ON; every
-consumer keeps its exact probe verbatim as the byte-identical parity
-comparator behind the flag (tests/test_learned_index.py pins the
-``AMTPU_LEARNED_INDEX`` × ``AMTPU_CROSS_DOC_PLAN`` ×
-``AMTPU_BATCH_INDEX`` matrix).
+Sites: ``_intern_batch_actors`` / ``_plan_round``'s actor-rank
+resolution (``actor_positions`` over the doc's sorted actor table) and
+the ``host_index.BatchRangeIndex`` base-run probe (``fit_model``).
 """
 
 from __future__ import annotations
 
-import os
-import threading
-
 import numpy as np
 
-__all__ = [
-    "learned_index_enabled", "audit_enabled", "PositionModel", "fit_model",
-    "pack_str_keys", "actor_positions", "doc_actor_model", "site_state",
-    "site_enabled", "index_lookup", "note_refit", "stats_snapshot",
-    "reset_stats", "families", "describe", "SITES", "RANGE_SITE",
-]
+__all__ = ["PositionModel", "fit_model", "pack_str_keys",
+           "actor_positions", "doc_actor_model"]
 
-_LOCK = threading.Lock()
+#: Tables below this size take the exact probe (binary search over a
+#: handful of keys beats any model's fixed overhead).
+_MIN_KEYS = 16
+#: A fit whose measured ε exceeds this refuses to build: the verify
+#: window would gather more than the binary search it replaces.
+_MAX_EPS = 64
+_ANCHORS = 64
 
-
-def learned_index_enabled() -> bool:
-    """THE flag (default ON; read per call so tests and the bench A/B
-    can flip it per leg). Off = every site takes its exact path,
-    verbatim."""
-    return os.environ.get("AMTPU_LEARNED_INDEX", "1") != "0"
-
-
-def audit_enabled() -> bool:
-    """``AMTPU_LEARNED_AUDIT=1``: every learned probe ALSO runs the
-    exact probe and asserts agreement (counting ``wrong`` instead of
-    silently diverging). The bench's zero-model-wrong-answers assert
-    runs a full stream under this; never on by default (it doubles the
-    probe cost)."""
-    return os.environ.get("AMTPU_LEARNED_AUDIT", "0") == "1"
-
-
-def _env_int(name: str, default: int) -> int:
-    try:
-        return int(os.environ.get(name, str(default)))
-    except ValueError:
-        return default
-
-
-def _min_keys() -> int:
-    """Tables below this size take the exact probe (binary search over a
-    handful of keys beats any model's fixed overhead)."""
-    return _env_int("AMTPU_LEARNED_MIN_KEYS", 16)
-
-
-def _max_eps() -> int:
-    """A fit whose measured ε exceeds this refuses to build: the verify
-    window would gather more than the binary search it replaces."""
-    return _env_int("AMTPU_LEARNED_MAX_EPS", 64)
-
-
-def _anchors() -> int:
-    return _env_int("AMTPU_LEARNED_ANCHORS", 64)
-
-
-_DEMOTE_WINDOW = 256      # sliding miss window per site
-_DEMOTE_RATE = float(os.environ.get("AMTPU_LEARNED_DEMOTE_RATE", "0.25"))
-
-
-class SiteState:
-    """Per-site counters + the miss-rate demotion window.
-
-    ``misses``/``hits`` count per KEY (the per-lookup quantity the model
-    exists to kill); ``lookups`` counts batched probe calls. The window
-    tracks the last ``_DEMOTE_WINDOW`` keys' hit/miss outcomes; crossing
-    ``_DEMOTE_RATE`` demotes the site — consumers then take their exact
-    path until the next refit re-arms it."""
-
-    __slots__ = ("name", "lookups", "keys", "hits", "misses", "refits",
-                 "demotions", "wrong", "exact_fallbacks", "eps_last",
-                 "_win_keys", "_win_misses", "demoted")
-
-    def __init__(self, name: str):
-        self.name = name
-        self.lookups = 0
-        self.keys = 0
-        self.hits = 0
-        self.misses = 0
-        self.refits = 0
-        self.demotions = 0
-        self.wrong = 0            # audit-mode disagreements (must stay 0)
-        self.exact_fallbacks = 0  # whole probes routed exact (demoted /
-        #                           unmodelable table), not per-key misses
-        self.eps_last = -1        # ε of the most recent fit (-1: none)
-        self._win_keys = 0
-        self._win_misses = 0
-        self.demoted = False
-
-    def note(self, n_keys: int, n_misses: int):
-        with _LOCK:
-            self.lookups += 1
-            self.keys += n_keys
-            self.misses += n_misses
-            self.hits += n_keys - n_misses
-            self._win_keys += n_keys
-            self._win_misses += n_misses
-            if self._win_keys >= _DEMOTE_WINDOW:
-                if (not self.demoted
-                        and self._win_misses > _DEMOTE_RATE
-                        * self._win_keys):
-                    self.demoted = True
-                    self.demotions += 1
-                self._win_keys = 0
-                self._win_misses = 0
-
-    def note_hits(self, n_keys: int):
-        """Lock-free all-hit counting for the scalar fast path: the
-        counters are advisory (exactness never depends on them), a
-        zero-miss probe cannot trip the demotion window, and the GIL
-        keeps the lost-update window negligible — so the hot path skips
-        the lock it would otherwise take once per plan."""
-        self.lookups += 1
-        self.keys += n_keys
-        self.hits += n_keys
-
-    def note_exact(self):
-        with _LOCK:
-            self.lookups += 1
-            self.exact_fallbacks += 1
-
-    def note_refit(self, eps: int):
-        """A fresh fit re-arms a demoted site (the drift that demoted it
-        is what the refit absorbs)."""
-        with _LOCK:
-            self.refits += 1
-            self.eps_last = int(eps)
-            self.demoted = False
-            self._win_keys = 0
-            self._win_misses = 0
-
-    def reset(self):
-        """Zero in place — module-level references (host_index's
-        RANGE_SITE fast-path handle) stay valid across bench/test
-        resets."""
-        with _LOCK:
-            self.lookups = self.keys = self.hits = self.misses = 0
-            self.refits = self.demotions = self.wrong = 0
-            self.exact_fallbacks = 0
-            self.eps_last = -1
-            self._win_keys = self._win_misses = 0
-            self.demoted = False
-
-    def miss_rate(self) -> float:
-        return self.misses / self.keys if self.keys else 0.0
-
-    def snapshot(self) -> dict:
-        return {"lookups": self.lookups, "keys": self.keys,
-                "hits": self.hits, "misses": self.misses,
-                "refits": self.refits, "demotions": self.demotions,
-                "wrong": self.wrong,
-                "exact_fallbacks": self.exact_fallbacks,
-                "eps_last": self.eps_last,
-                "miss_rate": round(self.miss_rate(), 6),
-                "demoted": self.demoted}
-
-
-#: The registered hot probe sites. Consumers
-#: fetch by name; an unknown name registers lazily (tests).
-SITES: dict = {}
-for _name in ("actor_rank", "cross_doc_seed", "range_index",
-              "residency_clock"):
-    SITES[_name] = SiteState(_name)
-
-#: Direct handle for the hottest site (host_index.lookup_learned's
-#: affine fast path skips the registry dict probe per call).
-RANGE_SITE = SITES["range_index"]
-
-
-def site_state(name: str) -> SiteState:
-    st = SITES.get(name)
-    if st is None:
-        with _LOCK:
-            st = SITES.setdefault(name, SiteState(name))
-    return st
-
-
-def note_refit(name: str, eps: int):
-    site_state(name).note_refit(eps)
-
-
-def site_enabled(name: str) -> bool:
-    """Flag on AND the site not currently demoted — the per-probe gate
-    every consumer checks before leaving its exact path."""
-    return learned_index_enabled() and not site_state(name).demoted
-
-
-def index_lookup(index, keys: np.ndarray):
-    """Route one batched key probe through the index's learned path when
-    it has one (BatchRangeIndex), else its exact lookup (the
-    SortedInsertIndex comparator stays verbatim — learned mode composes
-    with AMTPU_BATCH_INDEX=0 by simply probing exactly)."""
-    f = getattr(index, "lookup_learned", None)
-    return f(keys) if f is not None else index.lookup(keys)
-
-
-def stats_snapshot() -> dict:
-    return {name: st.snapshot() for name, st in sorted(SITES.items())}
-
-
-def reset_stats():
-    """Zero every site in place (bench/test isolation; module-level
-    site handles stay valid)."""
-    for st in list(SITES.values()):
-        st.reset()
-
-
-# --------------------------------------------------------------------------
-# the model
-# --------------------------------------------------------------------------
 
 class PositionModel:
     """One fitted piecewise-linear position model over a sorted key
@@ -278,18 +58,15 @@ class PositionModel:
     (dtype max) so the verify gather never branches on the right edge;
     ``keys`` is its length-n prefix view."""
 
-    __slots__ = ("keys", "padded", "n", "anchor_keys", "anchor_pos",
-                 "eps", "site")
+    __slots__ = ("keys", "padded", "n", "anchor_keys", "anchor_pos", "eps")
 
-    def __init__(self, padded, anchor_keys, anchor_pos, eps: int,
-                 site: str):
+    def __init__(self, padded, anchor_keys, anchor_pos, eps: int):
         self.padded = padded
         self.keys = padded[:-1]
         self.n = len(padded) - 1
         self.anchor_keys = anchor_keys
         self.anchor_pos = anchor_pos
         self.eps = eps
-        self.site = site
 
     def predict(self, q: np.ndarray) -> np.ndarray:
         """Monotone position prediction (float64; ONE model evaluation
@@ -300,11 +77,9 @@ class PositionModel:
     def searchsorted(self, q: np.ndarray, side: str = "left") -> np.ndarray:
         """Exact ``np.searchsorted(self.keys, q, side)`` through the
         model: predict ± ε, windowed rank count, boundary verify, exact
-        fallback on the (counted) misses."""
-        st = site_state(self.site)
+        fallback on the misses."""
         n = self.n
-        nq = len(q)
-        if nq == 0:
+        if len(q) == 0:
             return np.zeros(0, np.int64)
         p = np.rint(self.predict(q)).astype(np.int64)
         w = self.eps + 1
@@ -331,28 +106,18 @@ class PositionModel:
             ok = ((pos == 0) | (pad[np.maximum(pos - 1, 0)] <= qf)) \
                 & ((pos == n) | (pad[np.minimum(pos, n)] > qf))
         miss = ~ok
-        n_miss = int(miss.sum())
-        if n_miss:
+        if miss.any():
             pos[miss] = np.searchsorted(self.keys, qf[miss], side=side)
-        st.note(nq, n_miss)
-        if audit_enabled():
-            exact = np.searchsorted(self.keys, qf, side=side)
-            bad = int((pos != exact).sum())
-            if bad:
-                with _LOCK:
-                    st.wrong += bad
-                pos = exact
         return pos
 
 
-def fit_model(keys: np.ndarray, site: str):
+def fit_model(keys: np.ndarray):
     """Fit a model over one sorted, strictly-increasing key column.
     Returns None (caller takes the exact path) when the table is too
     small, not strictly increasing (prefix-collided packed strings), or
-    the measured ε exceeds the window budget. Counts the refit on the
-    site when a model is produced."""
+    the measured ε exceeds the window budget."""
     n = len(keys)
-    if n < _min_keys():
+    if n < _MIN_KEYS:
         return None
     if keys.dtype not in (np.dtype(np.int64), np.dtype(np.uint64)):
         keys = keys.astype(np.int64)
@@ -362,30 +127,27 @@ def fit_model(keys: np.ndarray, site: str):
     # order there)
     if not bool((keys[1:] > keys[:-1]).all()):
         return None
-    S = min(_anchors(), n)
+    S = min(_ANCHORS, n)
     idx = np.linspace(0, n - 1, S).astype(np.int64)
     anchor_keys = keys[idx].astype(np.float64)
     anchor_pos = idx.astype(np.float64)
     # closed-form ε: the exact max |prediction - position| over every
     # table key (one vectorized pass — this IS the online refit cost)
     pred = np.interp(keys.astype(np.float64), anchor_keys, anchor_pos)
-    eps = int(np.ceil(np.abs(pred - np.arange(n)).max())) if n else 0
-    if eps > _max_eps():
+    eps = int(np.ceil(np.abs(pred - np.arange(n)).max()))
+    if eps > _MAX_EPS:
         return None
     # sentinel-pad ONCE: index n must compare above every real key for
     # both int64 (packing keeps keys >= 0) and uint64 prefix keys
-    sentinel = np.iinfo(keys.dtype).max
     padded = np.empty(n + 1, keys.dtype)
     padded[:n] = keys
-    padded[n] = sentinel
+    padded[n] = np.iinfo(keys.dtype).max
     padded.setflags(write=False)
-    m = PositionModel(padded, anchor_keys, anchor_pos, eps, site)
-    site_state(site).note_refit(eps)
-    return m
+    return PositionModel(padded, anchor_keys, anchor_pos, eps)
 
 
 # --------------------------------------------------------------------------
-# string-keyed tables (actor ids, doc ids)
+# string-keyed tables (actor ids)
 # --------------------------------------------------------------------------
 
 def pack_str_keys(values) -> "np.ndarray | None":
@@ -404,67 +166,34 @@ def pack_str_keys(values) -> "np.ndarray | None":
     return out.reshape(-1)
 
 
-def actor_positions(table, queries, site: str, model=None):
+def actor_positions(table, queries, model):
     """Exact positions of ``queries`` within the sorted string ``table``
-    via the learned path: pack both to prefix keys, model (or exact
-    packed searchsorted when no model fits), then a full-key equality
-    gate — a query whose table entry does not match EXACTLY reports not
-    found, so prefix collisions can never alias.
+    via ``doc_actor_model``'s prefitted ``(packed_keys, model_or_None)``
+    pair: prefix-key probe (model, or packed searchsorted for a
+    below-threshold table), then a full-key equality gate — a query
+    whose table entry does not match EXACTLY reports not found, so prefix
+    collisions can never alias.
 
-    Returns ``(pos int64, found bool)`` or None when the site must take
-    its exact path (flag off, site demoted, unpackable keys). ``model``
-    may carry ``doc_actor_model``'s prefitted ``(packed_keys,
-    model_or_None)`` pair for the table — None model there means a
-    below-threshold table probed by packed searchsorted (still exact,
-    still vectorized)."""
-    st = site_state(site)
-    if not learned_index_enabled() or st.demoted:
-        return None
+    Returns ``(pos int64, found bool)`` or None for unpackable queries
+    (the caller takes its exact path)."""
     qk = pack_str_keys(queries)
     if qk is None:
-        st.note_exact()
         return None
-    if model is not None:
-        tk, m = model
-        if m is None:
-            pos = np.searchsorted(tk, qk)
-            st.note(len(qk), 0)
-            tbl = np.asarray(table, object)
-            safe = np.clip(pos, 0, max(len(tbl) - 1, 0))
-            found = ((pos < len(tbl)) & (tbl[safe] == np.asarray(
-                queries, object))) if len(tbl) else np.zeros(len(qk), bool)
-            return pos, found
-        model = m
-    if model is None:
-        tk = pack_str_keys(table)
-        if tk is None or (len(tk) > 1
-                          and not bool((tk[1:] > tk[:-1]).all())):
-            # unpackable or prefix-collided table: exact path
-            st.note_exact()
-            return None
-        model = fit_model(tk, site)
-        if model is None:
-            # below the model threshold: the packed searchsorted is
-            # still the vectorized win over per-key dict/object probes
-            pos = np.searchsorted(tk, qk)
-            st.note(len(qk), 0)
-            tbl = np.asarray(table, object)
-            safe = np.clip(pos, 0, max(len(tbl) - 1, 0))
-            found = ((pos < len(tbl)) & (tbl[safe] == np.asarray(
-                queries, object))) if len(tbl) else np.zeros(len(qk), bool)
-            return pos, found
-    pos = model.searchsorted(qk, side="left")
+    tk, m = model
+    pos = (np.searchsorted(tk, qk) if m is None
+           else m.searchsorted(qk, side="left"))
     tbl = np.asarray(table, object)
-    safe = np.clip(pos, 0, max(len(tbl) - 1, 0))
-    found = ((pos < len(tbl)) & (tbl[safe] == np.asarray(
-        queries, object))) if len(tbl) else np.zeros(len(qk), bool)
+    if not len(tbl):
+        return pos, np.zeros(len(qk), bool)
+    safe = np.clip(pos, 0, len(tbl) - 1)
+    found = (pos < len(tbl)) & (tbl[safe] == np.asarray(queries, object))
     return pos, found
 
 
 def doc_actor_model(doc):
     """The per-(doc, intern-gen) packed actor-table model: cached on the
     doc, invalidated by the SAME generation token that invalidates the
-    the rank caches — an interning bump IS the retrain trigger. Returns
+    rank caches — an interning bump IS the retrain trigger. Returns
     (packed_keys, model_or_None) or None when the table cannot pack
     (model None = small table: packed searchsorted, still exact)."""
     gen = doc._intern_gen
@@ -474,70 +203,6 @@ def doc_actor_model(doc):
     tk = pack_str_keys(doc.actor_table)
     ent = None
     if tk is not None and (len(tk) < 2 or bool((tk[1:] > tk[:-1]).all())):
-        ent = (tk, fit_model(tk, "actor_rank"))
+        ent = (tk, fit_model(tk))
     doc._learned_actor_model = (gen, ent)
     return ent
-
-
-# --------------------------------------------------------------------------
-# observability (satellite: amtpu_index_* families + describe block)
-# --------------------------------------------------------------------------
-
-def families(prefix: str = "amtpu_index") -> list:
-    """Prometheus families over the per-site stats (rendered on
-    SyncService.scrape(); validate_prom-clean)."""
-    snaps = stats_snapshot()
-    counters = (
-        ("lookups_total", "lookups",
-         "Batched learned-index probe calls per site."),
-        ("keys_total", "keys",
-         "Keys resolved through the learned path per site."),
-        ("model_hits_total", "hits",
-         "Keys whose model prediction verified exactly."),
-        ("model_misses_total", "misses",
-         "Keys that fell back to the exact probe (counted, never "
-         "wrong)."),
-        ("refits_total", "refits",
-         "Model refits (interning-generation bumps / new runs)."),
-        ("demotions_total", "demotions",
-         "Miss-rate window demotions to the exact path."),
-        ("exact_fallbacks_total", "exact_fallbacks",
-         "Whole probes routed to the exact path (demoted site or "
-         "unmodelable table)."),
-        ("wrong_answers_total", "wrong",
-         "Audit-mode disagreements with the exact probe (must be 0)."),
-    )
-    fams = []
-    for suffix, field, help_ in counters:
-        fams.append((f"{prefix}_{suffix}", "counter", help_,
-                     [({"site": name}, snap[field])
-                      for name, snap in snaps.items()]))
-    fams.append((f"{prefix}_eps", "gauge",
-                 "Measured epsilon (verify half-window) of each site's "
-                 "most recent fit; -1 before any fit.",
-                 [({"site": name}, snap["eps_last"])
-                  for name, snap in snaps.items()]))
-    fams.append((f"{prefix}_miss_rate", "gauge",
-                 "Lifetime model miss rate per site.",
-                 [({"site": name}, snap["miss_rate"])
-                  for name, snap in snaps.items()]))
-    fams.append((f"{prefix}_demoted", "gauge",
-                 "1 when the site is currently demoted to the exact "
-                 "path (miss-rate window tripped; refit re-arms).",
-                 [({"site": name}, int(snap["demoted"]))
-                  for name, snap in snaps.items()]))
-    return fams
-
-
-def describe() -> dict:
-    """The postmortem block (service describe()): per-site stats plus
-    the demotion roster — a failed soak names the site that fell off the
-    learned path, not just a latency diff."""
-    snaps = stats_snapshot()
-    return {
-        "schema": "amtpu-learned-index-v1",
-        "enabled": learned_index_enabled(),
-        "sites": snaps,
-        "demoted_sites": sorted(n for n, s in snaps.items()
-                                if s["demoted"]),
-    }

@@ -38,7 +38,6 @@ wire to the device, instead of 2k op rows.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -53,8 +52,8 @@ from .base import CausalDeviceDoc
 from .columnar import TextChangeBatch
 from .pipeline import stage_h2d
 from .runs import detect_runs
-from .host_index import (DuplicateElemId, ElemRangeIndex, new_index,
-                         pack_keys, unpack_key)
+from .host_index import (BatchRangeIndex, DuplicateElemId, pack_keys,
+                         unpack_key)
 from . import learned_index
 from .segments import SegmentMirror
 
@@ -90,8 +89,7 @@ def _resolve_refs_learned(merged_index, head_parent_pre, n_runs, rpos,
     column instead of up to three separate tier-loop lookups — and the
     residual refs pack with ONE int32-envelope guard pair instead of one
     per section. Results, error messages, and the raise order across
-    sections are identical to the exact blocks in `_plan_round` (kept
-    verbatim as the parity comparator behind AMTPU_LEARNED_INDEX=0)."""
+    sections are those of the JAX package's exact resolver."""
     n_res = len(rpos)
     k0 = n_runs
     is_head0 = keys0 = None
@@ -124,8 +122,7 @@ def _resolve_refs_learned(merged_index, head_parent_pre, n_runs, rpos,
             else np.concatenate([keys0, packed])
     else:
         keys_all = keys0
-    slots_all, found_all = learned_index.index_lookup(
-        merged_index, keys_all)
+    slots_all, found_all = merged_index.lookup_learned(keys_all)
     if n_runs:
         missing = ~(found_all[:k0] | is_head0)
         if missing.any():
@@ -167,7 +164,7 @@ class _RoundExec:
     """A planned causally-ready round: staged device inputs + the host
     state deltas `_execute_plan` commits (see `_plan_round`)."""
 
-    index_after: ElemRangeIndex
+    index_after: BatchRangeIndex
     n_elems_after: int
     out_cap: int
     dense: bool
@@ -216,17 +213,17 @@ class DeviceTextDoc(CausalDeviceDoc):
 
     # Kernel choice for materialization: the host-PLANNED variant feeds the
     # device a packed segplan so it skips the structural S-stage (the
-    # JAX package's default). AMTPU_PLANNED=0 (or the attribute) selects
-    # the self-contained programs, whose scans run the fused_segment_scans
+    # JAX package's default). False (per instance) selects the
+    # self-contained programs, whose scans run the fused_segment_scans
     # kernel. The mirror is maintained either way (it tightens _seg_bound).
-    prefer_planned = os.environ.get("AMTPU_PLANNED", "1") == "1"
+    prefer_planned = True
 
     # Incremental text pulls: `text()` keeps the last materialized string
     # on the host plus a per-segment (head slot, visible count, text
     # position) table; a later pull ships only CHANGED spans d2h —
     # O(edits) bytes, not O(doc) — reconciling new/split/touched segments
-    # against the cache (see `_text_incremental`). Off: AMTPU_INCR_PULL=0.
-    incremental_pull = os.environ.get("AMTPU_INCR_PULL", "1") == "1"
+    # against the cache (see `_text_incremental`).
+    incremental_pull = True
     incremental_pull_min = 4096   # below this, a full pull is cheaper than
     # the extra seg-info fetch the cache costs
 
@@ -253,7 +250,7 @@ class DeviceTextDoc(CausalDeviceDoc):
         super().__init__(obj_id, device)
         self.all_ascii = True                 # every value ever set is 7-bit
         self.n_elems = 0                      # live element count (excl. head)
-        self.index = new_index()              # elemId -> slot (host)
+        self.index = BatchRangeIndex()        # elemId -> slot (host)
         # host mirror of the chain/segment structure; None = degraded (the
         # self-contained device kernels take over — see _scalars self-heal)
         self.seg_mirror = SegmentMirror.empty()
@@ -406,19 +403,16 @@ class DeviceTextDoc(CausalDeviceDoc):
             # any not-found query falls through to the exact path whose
             # KeyError is the parity-identical unknown-actor signal.
             batch_rank = row_actor_rank = None
-            if learned_index.site_enabled("actor_rank"):
-                m = learned_index.doc_actor_model(self)
-                if m is not None:
-                    gb = learned_index.actor_positions(
-                        self.actor_table, np.asarray(b.actor_table, object),
-                        "actor_rank", model=m)
-                    gr = learned_index.actor_positions(
-                        self.actor_table, np.asarray(b.actors, object),
-                        "actor_rank", model=m)
-                    if (gb is not None and gr is not None
-                            and gb[1].all() and gr[1].all()):
-                        batch_rank = gb[0].astype(np.int64)
-                        row_actor_rank = gr[0].astype(np.int32)
+            m = learned_index.doc_actor_model(self)
+            if m is not None:
+                gb = learned_index.actor_positions(
+                    self.actor_table, np.asarray(b.actor_table, object), m)
+                gr = learned_index.actor_positions(
+                    self.actor_table, np.asarray(b.actors, object), m)
+                if (gb is not None and gr is not None
+                        and gb[1].all() and gr[1].all()):
+                    batch_rank = gb[0].astype(np.int64)
+                    row_actor_rank = gr[0].astype(np.int32)
             if batch_rank is None:
                 rank = self._actor_rank
                 batch_rank = np.asarray(
@@ -519,89 +513,38 @@ class DeviceTextDoc(CausalDeviceDoc):
             merged_index = base_index
 
         _tq = obs.now() if obs.ENABLED else 0
-        if learned_index.learned_index_enabled() \
-                and not learned_index.RANGE_SITE.demoted:
-            # learned fast path: one batched probe for every reference of
-            # the round (exact results; misses fall back and are counted).
-            # The dominant serving shape — a pure-runs round with a
-            # sub-vector-width parent column against a single-affine-range
-            # index — resolves inline in scalars (three int ops per key);
-            # everything else goes through the batched model resolver.
-            got = None
-            if not len(rpos) and 0 < n_runs <= 4:
-                sc = getattr(merged_index, "scalar_affine", None)
-                got = sc(head_parent_pre[1]) if sc is not None else None
-            if got is not None:
-                slots_l, found_l = got
-                is_head0 = head_parent_pre[0]
-                run_parent_slot = np.empty(n_runs, np.int64)
-                for i in range(n_runs):
-                    if is_head0[i]:
-                        run_parent_slot[i] = 0
-                    elif found_l[i]:
-                        run_parent_slot[i] = slots_l[i]
-                    else:
-                        raise ValueError(
-                            "ins references unknown parent element "
-                            f"{decode(int(head_parent_pre[1][i]))} "
-                            f"in {self.obj_id}")
-                res_parent_slot = res_target_slot = res_is_assign = None
-            else:
-                run_parent_slot, res_parent_slot, res_target_slot = \
-                    _resolve_refs_learned(
-                        merged_index, head_parent_pre, n_runs, rpos,
-                        res_is_ins, n_res_ins, batch_rank, ta, tc, pa,
-                        pc, decode, self.obj_id)
-                res_is_assign = ~res_is_ins if len(rpos) else None
-        else:
-            # exact comparator path (AMTPU_LEARNED_INDEX=0 / demoted),
-            # kept verbatim
-            def resolve_parent(p_actor, p_ctr, pre=None):
-                """Parent refs -> slots (HEAD_PARENT -> slot 0). `pre`
-                is a cached (is_head, packed keys) pair — the
-                doc-interning-keyed half of the resolution; only the
-                index lookup is per-state."""
-                if pre is None:
-                    is_head = p_actor == HEAD_PARENT
-                    keys = pack_keys(
-                        batch_rank[np.where(is_head, 0, p_actor)],
-                        p_ctr.astype(np.int64))
+        # learned fast path: one batched probe for every reference of
+        # the round (exact results; model misses fall back to the exact
+        # probe).
+        # The dominant serving shape — a pure-runs round with a
+        # sub-vector-width parent column against a single-affine-range
+        # index — resolves inline in scalars (three int ops per key);
+        # everything else goes through the batched model resolver.
+        got = None
+        if not len(rpos) and 0 < n_runs <= 4:
+            got = merged_index.scalar_affine(head_parent_pre[1])
+        if got is not None:
+            slots_l, found_l = got
+            is_head0 = head_parent_pre[0]
+            run_parent_slot = np.empty(n_runs, np.int64)
+            for i in range(n_runs):
+                if is_head0[i]:
+                    run_parent_slot[i] = 0
+                elif found_l[i]:
+                    run_parent_slot[i] = slots_l[i]
                 else:
-                    is_head, keys = pre
-                slots, found = merged_index.lookup(keys)
-                missing = ~(found | is_head)
-                if missing.any():
                     raise ValueError(
                         "ins references unknown parent element "
-                        f"{decode(int(keys[np.flatnonzero(missing)[0]]))} "
+                        f"{decode(int(head_parent_pre[1][i]))} "
                         f"in {self.obj_id}")
-                return np.where(is_head, 0, slots)
-
-            if n_runs:
-                run_parent_slot = resolve_parent(None, None,
-                                                 pre=head_parent_pre)
-            else:
-                run_parent_slot = np.empty(0, np.int64)
-
-            res_parent_slot = res_target_slot = None
-            if len(rpos):
-                res_parent_slot = np.zeros(len(rpos), np.int64)
-                if n_res_ins:
-                    res_parent_slot[res_is_ins] = resolve_parent(
-                        pa[rpos[res_is_ins]], pc[rpos[res_is_ins]])
-                res_is_assign = ~res_is_ins
-                res_target_slot = np.zeros(len(rpos), np.int64)
-                if res_is_assign.any():
-                    ai = rpos[res_is_assign]
-                    keys = pack_keys(batch_rank[ta[ai]],
-                                     tc[ai].astype(np.int64))
-                    slots, found = merged_index.lookup(keys)
-                    if not found.all():
-                        bad = int(keys[np.flatnonzero(~found)[0]])
-                        raise ValueError(
-                            f"assignment to unknown element {decode(bad)} "
-                            f"in {self.obj_id}")
-                    res_target_slot[res_is_assign] = slots
+            res_parent_slot = res_target_slot = res_is_assign = None
+        else:
+            run_parent_slot, res_parent_slot, res_target_slot = \
+                _resolve_refs_learned(
+                    merged_index, head_parent_pre, n_runs, rpos,
+                    res_is_ins, n_res_ins, batch_rank, ta, tc, pa,
+                    pc, decode, self.obj_id)
+            res_is_assign = ~res_is_ins if len(rpos) else None
         if obs.ENABLED:
             obs.span("plan", "rank_resolve", _tq, args={
                 "doc": self.obj_id, "what": "resolve_refs",

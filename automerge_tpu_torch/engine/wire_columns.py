@@ -25,8 +25,7 @@ Scope and layering:
   batch (text or map). Interning is vectorized (`np.unique` over the actor
   strings gives the sorted-distinct table and the dense inverse in one C
   pass); dep dicts group by identity first (`intern_deps` collapsed equal
-  dicts at construction) and content second, exactly the grouping
-  `_schedule_bulk` used to rebuild per call.
+  dicts at construction) and content second.
 - `decode_text_changes_columnar(data, obj_id)` — protocol-boundary
   decoder: JSON (str/bytes) goes through the Python JSON decoder,
   wire dicts through the vectorized numpy
@@ -37,10 +36,6 @@ Scope and layering:
   and elemIds (each DISTINCT elemId string parses once, not once per
   op). Falls back to the per-op walk for shapes outside its scope (rich
   values, datatypes); both produce identical batches.
-
-The legacy per-change planner remains available behind
-``AMTPU_COLUMNAR_PLAN=0`` as the parity comparator
-(tests/test_columnar_plan.py pins byte-identical committed state).
 """
 
 from __future__ import annotations
@@ -153,7 +148,7 @@ def change_columns(batch) -> ColumnarChangeBatch:
 
     # dep grouping: identity first (columnar.intern_deps collapsed equal
     # dicts at construction, so the common wide-merge shape is one id),
-    # then content — the exact grouping _schedule_bulk derived per call
+    # then content
     gid_by_id: dict = {}
     raw_groups: list = []
     dgid = np.empty(n, np.int32)
@@ -275,8 +270,7 @@ def _from_changes_numpy(changes, obj_id: str):
     searchsorted inverse). Values outside the plain single-character /
     small-int scope return None — the caller falls back to the per-op
     decoder, which handles the rich shapes. Identical output to
-    `TextChangeBatch.from_changes` on everything it accepts
-    (tests/test_columnar_plan.py pins it)."""
+    `TextChangeBatch.from_changes` on everything it accepts."""
     from .._common import HEAD_PARENT, KIND_DEL, KIND_INC, KIND_INS, KIND_SET
     from .columnar import TextChangeBatch, _int32_col, intern_deps
     if not isinstance(changes, list) or not changes:

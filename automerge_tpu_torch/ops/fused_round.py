@@ -66,14 +66,18 @@ def _fused_expand(tables, desc, blob, *, out_cap: int):
     d_ws = torch.where(first, ws_v, ws_v - _prev(ws_v))
     d_has = torch.where(first, has_v, has_v - _prev(has_v))
 
-    # (N, 6) so the run-boundary scatter is along dim 0; channels 0/1
-    # (ctr, slot) step +1 per element, the rest are piecewise constant.
-    # Padding runs have elem_base == N: out of range, dropped.
-    deltas = torch.zeros((N, 6), dtype=I32, device=dev)
-    deltas[:, :2] = 1
-    deltas = _set_drop(deltas, run_elem_base, torch.stack(
-        [d_ctr, d_slot, d_actor, d_wa, d_ws, d_has], dim=1))
-    cols = multi_scan(deltas.t().contiguous())
+    # (6, N), the layout multi_scan reads: channels 0/1 (ctr, slot) step
+    # +1 per element, the rest are piecewise constant. A run's first
+    # element takes its delta in place of the step; live run starts are
+    # distinct, so that is one add of (delta - step) per column. Padding
+    # runs (elem_base == N) add zero at a clamped column instead.
+    step = (torch.arange(6, device=dev) < 2).to(I32)   # [1, 1, 0, 0, 0, 0]
+    deltas = step[:, None].expand(6, N).contiguous()
+    upd = torch.stack([d_ctr, d_slot, d_actor, d_wa, d_ws, d_has]) \
+        - step[:, None]
+    upd = torch.where(run_elem_base < N, upd, 0)
+    deltas.index_add_(1, run_elem_base.clamp(0, N - 1), upd)
+    cols = multi_scan(deltas)
     ctr_col, slot_col = cols[0], cols[1]
 
     j = torch.arange(N, dtype=I32, device=dev)

@@ -12,8 +12,9 @@ Semantics that differ between JAX and PyTorch are made explicit here
 rather than inherited:
 
 - `.at[i].set(v, mode="drop")` drops indices outside the array (and wraps
-  negatives). `_set_drop` reproduces it without a host sync: dropped rows
-  are redirected to one scratch row past the end, which is cut off.
+  negatives). `_set_drop` / `_set_drop_rows` reproduce it without a host
+  sync: dropped indices are redirected to one scratch row (column) past
+  the end, which is cut off.
 - a JAX gather clamps an out-of-range index; `_take` does so explicitly.
 - uint32 hashing wraps; torch has no uint32 shift on the CPU, so the
   hashes run in int64 with explicit 32-bit masks (`_mix32`).
@@ -76,35 +77,33 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return a[idx]
 
 
+def _drop_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """JAX `mode="drop"` scatter indices for a length-`n` axis: negatives
+    inside [-n, 0) wrap, everything else outside [0, n) maps to `n` — a
+    scratch position past the end that the caller cuts off again."""
+    idx = idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    return torch.where((idx >= 0) & (idx < n), idx, n)
+
+
 def _set_drop(dst: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     """`dst.at[idx].set(vals, mode="drop")` along dim 0, out of place.
 
-    Indices outside [-n, n) are dropped (negatives inside wrap, as JAX
-    does). Instead of a mask, which would need a host sync to compact,
-    dropped rows write to one scratch row appended past the end and cut
-    off again; only they may collide, so live writes stay deterministic."""
+    Instead of a mask, which would need a host sync to compact, dropped
+    rows write to one scratch row appended past the end and cut off
+    again; only they may collide, so live writes stay deterministic."""
     n = dst.shape[0]
-    idx = idx.to(torch.int64)
-    idx = torch.where(idx < 0, idx + n, idx)
-    idx = torch.where((idx >= 0) & (idx < n), idx, n)
     out = torch.cat([dst, dst.new_zeros((1,) + tuple(dst.shape[1:]))])
     if not torch.is_tensor(vals):
-        vals = torch.tensor(vals, dtype=dst.dtype, device=dst.device)
-    out.index_put_((idx,), vals.to(dst.dtype))
+        # a fill on the device: a pageable h2d copy would sync the stream
+        vals = dst.new_full((), vals)
+    out.index_put_((_drop_index(idx, n),), vals.to(dst.dtype))
     return out[:n]
 
 
 def _prev(a: torch.Tensor) -> torch.Tensor:
     """[0, a[0], ..., a[-2]]"""
     return torch.cat([a.new_zeros(1), a[:-1]])
-
-
-def _ext(a: torch.Tensor, fill, out_cap: int) -> torch.Tensor:
-    C = a.shape[0]
-    if C >= out_cap:
-        return a
-    return torch.cat([a, torch.full((out_cap - C,), fill, dtype=a.dtype,
-                                    device=a.device)])
 
 
 def _lexsort(keys) -> torch.Tensor:
@@ -122,22 +121,29 @@ def _cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 # ------------------------------------------------------- table scatters
 
+def _set_drop_rows(rows, fills, idx, updates, n: int) -> torch.Tensor:
+    """Write K aligned rows at `idx` as ONE column scatter into a
+    (K, n + 1) int32 buffer: row r is `rows[r]` padded with `fills[r]` to
+    length n, and out-of-range `idx` drops into the scratch column n.
+    Returns the (K, n) view; each of its rows is contiguous, so no
+    transpose copy is needed."""
+    C = rows[0].shape[0]
+    buf = torch.empty((len(rows), n + 1), dtype=I32, device=rows[0].device)
+    for r, (t, fill) in enumerate(zip(rows, fills)):
+        buf[r, :C] = t
+        buf[r, C:] = fill
+    buf[:, _drop_index(idx, n)] = torch.stack([u.to(I32) for u in updates])
+    return buf[:, :n]
+
+
 def _scatter_rows_9(tables, idx, updates, out_cap: int):
-    """Write 9 aligned element-table rows at `idx` as ONE (C, 9) scatter
-    (shared index vector; out-of-range `idx` drops). Column order:
-    (parent, ctr, actor, value, has_value, win_actor, win_seq,
-    win_counter, chain); bool columns ride as int32."""
-    parent, ctr, actor, value, has_value, win_actor, win_seq, \
-        win_counter, chain = tables
-    tbl = torch.stack([
-        _ext(parent, 0, out_cap), _ext(ctr, 0, out_cap),
-        _ext(actor, 0, out_cap), _ext(value, 0, out_cap),
-        _ext(has_value, False, out_cap).to(I32),
-        _ext(win_actor, -1, out_cap), _ext(win_seq, 0, out_cap),
-        _ext(win_counter, False, out_cap).to(I32),
-        _ext(chain, False, out_cap).to(I32)], dim=1)
-    upd = torch.stack([u.to(I32) for u in updates], dim=1)
-    out = _set_drop(tbl, idx, upd).t().contiguous()
+    """Write 9 aligned element-table rows at `idx` as ONE scatter (shared
+    index vector; out-of-range `idx` drops), the tables first extended to
+    `out_cap` with their padding fills. Row order: (parent, ctr, actor,
+    value, has_value, win_actor, win_seq, win_counter, chain); bool rows
+    ride as int32."""
+    out = _set_drop_rows(tables, (0, 0, 0, 0, 0, -1, 0, 0, 0), idx, updates,
+                         max(tables[0].shape[0], out_cap))
     return (out[0], out[1], out[2], out[3], out[4].bool(), out[5], out[6],
             out[7].bool(), out[8].bool())
 
@@ -190,12 +196,11 @@ def _register_fast_path(value_n, has_n, wa_n, ws_n, wc_n, kind, is_assign,
             & ~cmask[tclip] & (op_value >= 0))
     f_idx = torch.where(fast, tslot, out_cap)
     M = f_idx.shape[0]
-    regs = torch.stack([value_n, has_n.to(I32), wa_n, ws_n, wc_n.to(I32)],
-                       dim=1)
     ones = torch.ones(M, dtype=I32, device=value_n.device)
-    upd = torch.stack([op_value, ones, op_win_actor, op_win_seq,
-                       torch.zeros_like(ones)], dim=1)
-    regs = _set_drop(regs, f_idx, upd).t().contiguous()
+    regs = _set_drop_rows(
+        (value_n, has_n, wa_n, ws_n, wc_n), (0,) * 5, f_idx,
+        (op_value, ones, op_win_actor, op_win_seq, torch.zeros_like(ones)),
+        value_n.shape[0])
     value_n, has_n, wa_n, ws_n, wc_n = (
         regs[0], regs[1].bool(), regs[2], regs[3], regs[4].bool())
 

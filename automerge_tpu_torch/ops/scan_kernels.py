@@ -194,8 +194,9 @@ def fused_segment_scans(chain: torch.Tensor, has_value: torch.Tensor,
         raise ValueError("fused_segment_scans: chain and has_value differ "
                          f"in length ({C} vs {has_value.shape[0]})")
     if not torch.is_tensor(n_elems):
-        n_elems = torch.tensor(int(n_elems), dtype=torch.int32,
-                               device=chain.device)
+        # a fill on the device: a pageable h2d copy would sync the stream
+        n_elems = torch.full((), int(n_elems), dtype=torch.int32,
+                             device=chain.device)
     if (n_elems.device != chain.device or n_elems.dtype != torch.int32
             or n_elems.numel() != 1):
         raise ValueError("fused_segment_scans: n_elems must be one int32 "

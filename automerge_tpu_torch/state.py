@@ -16,7 +16,7 @@ import copy
 import numpy as np
 import torch
 
-from .engine.host_index import index_from_rows
+from .engine.host_index import BatchRangeIndex
 from .engine.segments import SegmentMirror
 
 #: element table -> dtype (the padding fills travel with the arrays)
@@ -78,7 +78,7 @@ def load_text_doc_state(port_doc, state: dict):
     port_doc.n_elems = state["n_elems"]
     port_doc._cap = state["cap"]
     port_doc._seg_bound = state["seg_bound"]
-    port_doc.index = index_from_rows(*state["index_rows"])
+    port_doc.index = BatchRangeIndex.from_rows(*state["index_rows"])
     sm = state["seg_mirror"]
     port_doc.seg_mirror = None if sm is None else SegmentMirror(
         *(np.array(a) for a in sm))

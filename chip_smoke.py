@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile DIR]
 
 It builds the CUDA kernels from csrc/, holds each kernel bit-exact against
 its plain PyTorch version at the main path's shapes (and ragged ones),
@@ -11,6 +11,10 @@ times them, then drives the port's DeviceTextDoc through the headline text
 merge at full width (a 1,000,000-char document taking a 10,000-actor x
 1,000-op concurrent batch), the self-contained materialization, and a
 residual round with the incremental pull. Every phase raises on failure.
+With --profile, it then runs the headline commit (commit_prepared +
+_materialize + _scalars) of each materialization path once more under
+torch.profiler, prints the device's busy share and the kernels that took
+the most device time, and writes the Chrome traces to DIR.
 
 The output ends with three lines: one JSON object describing every
 kernel, the card's name and power limit as nvidia-smi reports them, and
@@ -20,6 +24,7 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import logging
@@ -256,8 +261,9 @@ def heal_watch(logging_mod):
     return h
 
 
-def drive_stream(torch, DeviceTextDoc, TB, C, device, planned: bool):
-    """The headline stream through the user-facing entry points."""
+def prepare_stream(DeviceTextDoc, TB, C, device, planned: bool):
+    """The headline stream up to the prepared merge: a fresh document
+    holding the base text, and the merge batch planned and staged."""
     doc = DeviceTextDoc("bench-text", device=device)
     doc.eager_materialize = True
     doc.prefer_planned = planned
@@ -267,11 +273,23 @@ def drive_stream(torch, DeviceTextDoc, TB, C, device, planned: bool):
                         BASE_LEN)
     t0 = time.perf_counter()
     prepared = doc.prepare_batch(merge)
-    prepare_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    return doc, prepared, base_text, time.perf_counter() - t0
+
+
+def commit_stream(doc, prepared):
+    """Commit the prepared merge and materialize; `_scalars` is the one
+    device sync."""
     doc.commit_prepared(prepared)
     doc._materialize(with_pos=False)
-    scal = doc._scalars()                 # the one device sync
+    return doc._scalars()
+
+
+def drive_stream(DeviceTextDoc, TB, C, device, planned: bool):
+    """The headline stream through the user-facing entry points."""
+    doc, prepared, base_text, prepare_s = prepare_stream(
+        DeviceTextDoc, TB, C, device, planned)
+    t0 = time.perf_counter()
+    scal = commit_stream(doc, prepared)
     commit_s = time.perf_counter() - t0
     n_vis = int(scal[0])
     t0 = time.perf_counter()
@@ -280,6 +298,43 @@ def drive_stream(torch, DeviceTextDoc, TB, C, device, planned: bool):
     return doc, dict(base_text=base_text, text=text, n_vis=n_vis,
                      prepare_s=prepare_s, commit_s=commit_s, pull_s=pull_s,
                      pull=dict(doc.pull_stats or {}))
+
+
+def profile_commit(torch, DeviceTextDoc, TB, C, planned: bool, out_dir: str,
+                   top: int = 14):
+    """One headline commit under torch.profiler (the earlier phases have
+    warmed the allocator and the kernels): its wall time, the summed
+    device time of its kernels, and the kernels that took the most."""
+    from torch.profiler import ProfilerActivity, profile
+    label = "planned" if planned else "self-contained"
+    doc, prepared, _, _ = prepare_stream(DeviceTextDoc, TB, C, None, planned)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scal = commit_stream(doc, prepared)
+        wall = time.perf_counter() - t0
+    if int(scal[0]) != BASE_LEN + N_ACTORS * (OPS_PER_CHANGE // 2):
+        raise AssertionError(f"profiled {label} commit: wrong n_vis")
+    # device-side events only (kernels, memcpy, memset): the CPU-side
+    # operator rows carry their kernels' time too and would count it twice
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in events)
+    if dev_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    log(f"profile {label} commit+materialize+sync: wall "
+        f"{wall * 1e3:.3f} ms, device kernel time {dev_us / 1e3:.3f} ms, "
+        f"device busy share {dev_us / 1e3 / (wall * 1e3):.3f}")
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    log("self device ms | calls | kernel")
+    for e in events[:top]:
+        log(f"{e.self_device_time_total / 1e3:14.4f} | {e.count:5d} | "
+            f"{e.key[:90]}")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"torch_commit_{label}.json")
+    prof.export_chrome_trace(path)
+    log(f"trace: {path}")
 
 
 def residual_changes(base_n: int):
@@ -304,6 +359,11 @@ def residual_changes(base_n: int):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="also profile the headline commit of both "
+                         "materialization paths; traces go to DIR")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -346,7 +406,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     S.reset_launches()
     t_main = time.perf_counter()
-    doc, r = drive_stream(torch, DeviceTextDoc, TB, C, None, planned=True)
+    doc, r = drive_stream(DeviceTextDoc, TB, C, None, planned=True)
     main_launches = dict(S.launches)
     t_main = time.perf_counter() - t_main
     peak = torch.cuda.max_memory_allocated()
@@ -371,7 +431,7 @@ def main() -> int:
         f"wall {t_main:.2f} s; text sha256 {sha(r['text'])[:16]}")
 
     t0 = time.perf_counter()
-    cpu_doc, rc = drive_stream(torch, DeviceTextDoc, TB, C, "cpu",
+    cpu_doc, rc = drive_stream(DeviceTextDoc, TB, C, "cpu",
                                planned=True)
     log(f"cpu reference run (plain versions): {time.perf_counter() - t0:.2f}"
         f" s, text sha256 {sha(rc['text'])[:16]}")
@@ -380,7 +440,7 @@ def main() -> int:
 
     # 5. self-contained materialization on a fresh doc
     S.reset_launches()
-    doc2, r2 = drive_stream(torch, DeviceTextDoc, TB, C, None,
+    doc2, r2 = drive_stream(DeviceTextDoc, TB, C, None,
                             planned=False)
     sc_launches = dict(S.launches)
     log(f"self-contained path launches: {sc_launches}")
@@ -396,8 +456,9 @@ def main() -> int:
     before = dict(accounting.LABELS["dispatch"].get("fused_mixed_round",
                                                     {"n": 0}))
     S.reset_launches()
-    for d in (doc, cpu_doc):
-        d.apply_changes(residual_changes(BASE_LEN))
+    doc.apply_changes(residual_changes(BASE_LEN))
+    res_launches = dict(S.launches)
+    cpu_doc.apply_changes(residual_changes(BASE_LEN))
     mixed = (accounting.LABELS["dispatch"]["fused_mixed_round"]["n"]
              - before["n"])
     inc = doc.text()
@@ -406,9 +467,9 @@ def main() -> int:
     full = doc.text()
     cpu_text = cpu_doc.text()
     log(f"residual round: fused_mixed_round dispatches {mixed}, launches "
-        f"{dict(S.launches)}, pull {inc_stats}, conflicts "
+        f"{res_launches}, pull {inc_stats}, conflicts "
         f"{len(doc.conflicts)}")
-    if mixed < 1 or S.launches["multi_scan"] < 1:
+    if mixed < 1 or res_launches["multi_scan"] < 1:
         raise AssertionError("the residual round missed the mixed round")
     if inc_stats.get("mode") != "incremental":
         raise AssertionError(f"pull was not incremental: {inc_stats}")
@@ -419,19 +480,29 @@ def main() -> int:
     if any("diverged" in m for m in heals.records):
         raise AssertionError(f"segment mirror healed: {heals.records}")
 
-    # 7. kernel records
+    # 7. optional profile of the headline commit
+    if args.profile:
+        for planned in (True, False):
+            profile_commit(torch, DeviceTextDoc, TB, C, planned,
+                           args.profile)
+
+    # 8. kernel records: `launches` is the count on the path the kernel
+    # serves (multi_scan: the planned main path; fused_segment_scans: the
+    # self-contained one); `launches_by_path` has each driven path's count
+    by_path = {"main": main_launches, "self_contained": sc_launches,
+               "residual": res_launches}
     kernels = []
-    for name, replaces, launches_ in (
-            ("multi_scan", "automerge_tpu/ops/scan_pallas.py:204",
-             main_launches["multi_scan"]),
+    for name, replaces, path in (
+            ("multi_scan", "automerge_tpu/ops/scan_pallas.py:204", "main"),
             ("fused_segment_scans", "automerge_tpu/ops/scan_pallas.py:142",
-             sc_launches["fused_segment_scans"])):
+             "self_contained")):
         rec = recs[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "automerge_tpu_torch/csrc/scan.cu",
-            "replaces": replaces, "launches": launches_,
-            "path": ("main" if name == "multi_scan" else "self_contained"),
+            "replaces": replaces, "launches": by_path[path][name],
+            "path": path,
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "shape": rec["shape"], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

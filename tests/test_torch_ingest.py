@@ -372,6 +372,18 @@ def test_out_of_range_scatter_drops_like_jax():
     got = TK._set_drop(torch.from_numpy(mat), torch.tensor([1, 4]),
                        torch.ones((2, 3), dtype=torch.int32))
     assert got.shape == (4, 3) and got.sum() == 3
+    # the column form: rows padded with their fills, columns dropped alike
+    rows = (torch.from_numpy(dst), torch.from_numpy(dst[::-1].copy()))
+    got = TK._set_drop_rows(rows, (0, -1), torch.from_numpy(idx),
+                            (torch.from_numpy(vals), -torch.from_numpy(vals)),
+                            12)
+    want2 = jnp.asarray(np.concatenate([dst[::-1], [-1, -1]])).at[
+        jnp.asarray(idx)].set(-jnp.asarray(vals), mode="drop")
+    want1 = jnp.asarray(np.concatenate([dst, [0, 0]])).at[
+        jnp.asarray(idx)].set(jnp.asarray(vals), mode="drop")
+    assert got.shape == (2, 12) and got[0].is_contiguous()
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want1))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want2))
 
 
 def test_out_of_range_gather_clamps_like_jax():
@@ -425,6 +437,7 @@ def test_live_scatter_indices_are_unique(monkeypatch):
     collide, so CUDA's unordered index_put_ stays deterministic."""
     seen = []
     real = TK._set_drop
+    real_rows = TK._set_drop_rows
 
     def checked(dst, idx, vals):
         n = dst.shape[0]
@@ -442,6 +455,12 @@ def test_live_scatter_indices_are_unique(monkeypatch):
         seen.append(int(keep.sum()))
         return real(dst, idx, vals)
 
+    def checked_rows(rows, fills, idx, updates, n):
+        checked(torch.zeros((n, len(rows)), dtype=torch.int32), idx,
+                torch.stack([u.to(torch.int32) for u in updates], dim=1))
+        return real_rows(rows, fills, idx, updates, n)
+
+    monkeypatch.setattr(TK, "_set_drop_rows", checked_rows)
     monkeypatch.setattr(TK, "_set_drop", checked)
     monkeypatch.setattr(TF, "_set_drop", checked)
     monkeypatch.setattr(TL, "_set_drop", checked)
