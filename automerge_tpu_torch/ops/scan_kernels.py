@@ -4,22 +4,26 @@ beside them.
 Counterpart of `automerge_tpu/ops/scan_pallas.py`:
 
 - `multi_scan(x)` replaces `multi_scan` (`_multi_scan_kernel`,
-  scan_pallas.py:170-215): row-wise inclusive prefix sum of an int32
-  (K, N) matrix. The fused round expansion (ops/fused_round.py) scans its
-  six boundary-delta channels through it.
+  scan_pallas.py:170-215, `pallas_call` at :204): row-wise inclusive prefix
+  sum of an int32 (K, N) matrix. The fused round expansion
+  (ops/fused_round.py) scans its six boundary-delta channels through it.
 - `fused_segment_scans(chain, has_value, n_elems, base)` replaces
-  `fused_segment_scans` (`_fused_kernel`, scan_pallas.py:76-167): the
-  segment ranks, segment heads and visible counts of the self-contained
-  materialization (ops/ingest.py `_materialize_core`) in one pass.
+  `fused_segment_scans` (`_fused_kernel`, scan_pallas.py:76-167,
+  `pallas_call` at :142): the segment ranks, segment heads and visible
+  counts of the self-contained materialization (ops/ingest.py
+  `_materialize_core`) in one pass.
 
-Both kernels live in `csrc/scan.cu` (its header says what bounds them on
-an H100 and how the three-launch reduce-then-scan design replaces the TPU
-kernels' in-order grid carry). The library is built with `nvcc` at first
-use into `csrc/build/` and bound through ctypes.
+Both kernels live in `csrc/scan.cu`. Each call is one single-pass launch
+(a chained scan with decoupled look-back over ticketed tiles, 16-byte
+loads and stores) after a memset of its scratch; the source note says what
+bounds them on an H100 (bytes: 302 MB and 88 MB at the merge shapes) and
+why the tile sizes are what they are. The library is built with `nvcc` at
+first use into `csrc/build/` and bound through ctypes.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel or raises. Each wrapper adds one to
-`launches[name]` where it launches its kernel, and nowhere else.
+`launches[name]` where it launches its kernel, and nowhere else, and one
+to `launch_shapes[name][shape]` for the shape it launched at.
 """
 
 from __future__ import annotations
@@ -39,10 +43,16 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCE = _CSRC / "scan.cu"
 BUILD_DIR = _CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: 64-bit status words per tile in the look-back scratch (csrc/scan.cu)
+MS_STATUS_WORDS = 1
+FS_STATUS_WORDS = 6
 
 #: launches per kernel since the last `reset_launches()`
 launches = {"multi_scan": 0, "fused_segment_scans": 0}
+#: launches per kernel and input shape since the last `reset_launches()`
+launch_shapes = {"multi_scan": {}, "fused_segment_scans": {}}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -52,6 +62,22 @@ _I32_MAX = 2**31 - 1
 def reset_launches():
     for k in launches:
         launches[k] = 0
+        launch_shapes[k].clear()
+
+
+def _note_shape(name: str, shape: tuple):
+    by_shape = launch_shapes[name]
+    by_shape[shape] = by_shape.get(shape, 0) + 1
+
+
+def n_tiles(length: int, tile: int) -> int:
+    return -(-length // tile)
+
+
+def scratch_words(tiles: int, words_per_tile: int) -> int:
+    """int64 words of a look-back scratch: one ticket counter, then the
+    status words of every tile."""
+    return 1 + tiles * words_per_tile
 
 
 def _nvcc() -> str:
@@ -66,15 +92,16 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library of the current source is (or will be) built: the
+    """Where the library of the current source is or will be built: the
     file name carries a digest of the source, so an edit rebuilds."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libamt_scan_{tag}.so"
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"libamt_scan_{digest}.so"
 
 
 def build() -> float:
     """Compile `csrc/scan.cu` if its library is missing; returns the
-    seconds spent (0.0 when it was already built). Raises on failure."""
+    seconds spent (0.0 when it was already built). Raises on failure.
+    ptxas's register and shared-memory report goes to `<library>.log`."""
     so = library_path()
     if so.exists():
         return 0.0
@@ -88,25 +115,33 @@ def build() -> float:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
             f"{proc.stderr}")
+    so.with_suffix(".log").write_text(proc.stderr)
     os.replace(tmp, so)
     return time.perf_counter() - t0
 
 
-def _lib():
+def bind(path) -> ctypes.CDLL:
+    """The library at `path`, with the argument types of its entry points."""
+    lib = ctypes.CDLL(str(path))
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in (lib.amt_multi_scan_tile, lib.amt_fused_scan_tile):
+        fn.argtypes = []
+        fn.restype = ci
+    lib.amt_multi_scan.argtypes = [vp, vp, vp, cll, ci, ci, vp]
+    lib.amt_multi_scan.restype = ci
+    lib.amt_fused_segment_scans.argtypes = [
+        vp, vp, ci, vp, ci, vp, cll, vp, vp, vp, vp]
+    lib.amt_fused_segment_scans.restype = ci
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The bound library of `csrc/scan.cu` (built first if needed)."""
     global _LIB
     with _LOCK:
         if _LIB is None:
             build()
-            lib = ctypes.CDLL(str(library_path()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.amt_scan_chunk.argtypes = []
-            lib.amt_scan_chunk.restype = ci
-            lib.amt_multi_scan.argtypes = [vp, vp, vp, ci, ci, vp]
-            lib.amt_multi_scan.restype = ci
-            lib.amt_fused_segment_scans.argtypes = [
-                vp, vp, ci, vp, ci, vp, vp, vp, vp, vp]
-            lib.amt_fused_segment_scans.restype = ci
-            _LIB = lib
+            _LIB = bind(library_path())
     return _LIB
 
 
@@ -129,6 +164,11 @@ def _raise_on(rc: int, name: str):
                            f"({torch.cuda.get_device_name()})")
 
 
+def _scratch(tiles: int, words_per_tile: int, device) -> torch.Tensor:
+    return torch.empty(scratch_words(tiles, words_per_tile),
+                       dtype=torch.int64, device=device)
+
+
 # ---------------------------------------------------------------- multi_scan
 
 def multi_scan_plain(x: torch.Tensor) -> torch.Tensor:
@@ -141,19 +181,21 @@ def multi_scan(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return multi_scan_plain(x)
     _check_cuda("multi_scan", x, torch.int32, 2)
-    K, N = x.shape
     out = torch.empty_like(x)
-    if K == 0 or N == 0:
+    if x.numel() == 0:
         return out
+    K, N = x.shape
+    lib = load()
     with torch.cuda.device(x.device):
-        lib = _lib()
-        nblk = -(-N // lib.amt_scan_chunk())
-        scratch = torch.empty((K, nblk), dtype=torch.int32, device=x.device)
+        scratch = _scratch(K * n_tiles(N, lib.amt_multi_scan_tile()),
+                           MS_STATUS_WORDS, x.device)
         rc = lib.amt_multi_scan(
-            x.data_ptr(), out.data_ptr(), scratch.data_ptr(), K, N,
+            x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            scratch.numel() * 8, K, N,
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "multi_scan")
     launches["multi_scan"] += 1
+    _note_shape("multi_scan", tuple(x.shape))
     return out
 
 
@@ -207,16 +249,16 @@ def fused_segment_scans(chain: torch.Tensor, has_value: torch.Tensor,
     cumvis = torch.empty_like(rank)
     if C == 0:
         return rank, head, cumvis
+    lib = load()
     with torch.cuda.device(chain.device):
-        lib = _lib()
-        nblk = -(-C // lib.amt_scan_chunk())
-        scratch = torch.empty((3, nblk), dtype=torch.int32,
-                              device=chain.device)
+        scratch = _scratch(n_tiles(C, lib.amt_fused_scan_tile()),
+                           FS_STATUS_WORDS, chain.device)
         rc = lib.amt_fused_segment_scans(
             chain.data_ptr(), has_value.data_ptr(), C, n_elems.data_ptr(),
-            int(base), scratch.data_ptr(), rank.data_ptr(), head.data_ptr(),
-            cumvis.data_ptr(),
+            int(base), scratch.data_ptr(), scratch.numel() * 8,
+            rank.data_ptr(), head.data_ptr(), cumvis.data_ptr(),
             torch.cuda.current_stream(chain.device).cuda_stream)
     _raise_on(rc, "fused_segment_scans")
     launches["fused_segment_scans"] += 1
+    _note_shape("fused_segment_scans", (C,))
     return rank, head, cumvis

@@ -5,12 +5,18 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--profile DIR]
 
-It builds the CUDA kernels from csrc/, holds each kernel bit-exact against
-its plain PyTorch version at the main path's shapes (and ragged ones),
-times them, then drives the port's DeviceTextDoc through the headline text
-merge at full width (a 1,000,000-char document taking a 10,000-actor x
-1,000-op concurrent batch), the self-contained materialization, and a
-residual round with the incremental pull. Every phase raises on failure.
+It builds the CUDA kernels from csrc/ and holds each kernel bit-exact
+against its plain PyTorch version: at the main path's shapes, at ragged
+and tile-edge sizes, on unaligned views, twice in a row on one shape (a
+reused scratch) and 50 times at each merge shape. It then drives the
+port's DeviceTextDoc through the headline text merge at full width (a
+1,000,000-char document taking a 10,000-actor x 1,000-op concurrent
+batch), the self-contained materialization, and a residual round with the
+incremental pull; times each kernel at every shape those paths launched
+it with (device time over CUDA-graph replays, inputs rotated through
+copies so each call reads them from HBM; one eager call at the merge
+shapes is timed before the paths); and checks that each wrapper call runs
+one kernel. Every phase raises on failure.
 With --profile, it then runs the headline commit (commit_prepared +
 _materialize + _scalars) of each materialization path once more under
 torch.profiler, prints the device's busy share and the kernels that took
@@ -41,6 +47,9 @@ OPS_PER_CHANGE = 1_000
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12          # non-tensor fp32 rate, taken for int32 adds
 REPS = 25
+REPEATS = 50                   # bit-exact launches at each merge shape
+MAX_COPIES = 64                # input copies a kernel timing rotates through
+N_MERGE = 6_291_456            # bucket(5,000,000 run elements, 256)
 
 
 def log(*a):
@@ -141,8 +150,53 @@ def sha(text: str) -> str:
 
 # --- timing -----------------------------------------------------------------
 
-def time_ms(torch, fn, reps: int = REPS) -> float:
-    """Median of `reps` CUDA-event timings of fn() after two warm-ups."""
+def n_copies(torch, in_bytes: int) -> int:
+    """Input copies for a timing to rotate through, so that each call reads
+    its input from HBM and not from the L2 (where a loop over one input
+    would keep it): between two reads of one copy, the other copies' bytes
+    fill the L2 at least twice. At most MAX_COPIES, so an input under
+    2 * L2 / (MAX_COPIES - 1) (1.7 MB on an H100) may stay in the L2."""
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 * 2**20)
+    return min(MAX_COPIES, 1 + -(-2 * l2 // max(in_bytes, 1)))
+
+
+def time_ms(torch, fns, reps: int = REPS, calls: int = 10) -> float:
+    """Device time of one call: CUDA events around the replay of a CUDA
+    graph of at least `calls` calls cycling through `fns` (one per input
+    copy), so no host work sits between the launches; the median of `reps`
+    replays, over the calls."""
+    calls = len(fns) * -(-calls // len(fns))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns[:2]:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fns[i % len(fns)]()
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return float(np.median(times))
+
+
+def time_eager_ms(torch, fn, reps: int = REPS) -> float:
+    """Median of `reps` CUDA-event timings of one eager fn() call after two
+    warm-ups: the device time plus whatever host work the call does while
+    the device waits."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -166,61 +220,156 @@ def bound(n_bytes: float, n_ops: float):
 
 # --- phases -----------------------------------------------------------------
 
+def _fs_inputs(torch, rng, C, dev, lead: int = 0):
+    """Seeded chain / has_value columns of length C (views `lead` bytes
+    into a longer tensor when lead > 0)."""
+    chain = torch.from_numpy(rng.random(C + lead) < 0.9).to(dev)[lead:]
+    has = torch.from_numpy(rng.random(C + lead) < 0.95).to(dev)[lead:]
+    return chain, has
+
+
+def _fs_equal(torch, got, want) -> bool:
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def kernels_per_call(torch, fn) -> int:
+    """Device kernels one call of fn() runs, its memsets aside."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memset" not in e.name.lower())
+
+
 def check_kernels(torch, S):
-    """Kernels vs plain versions on the card, bit-exact; returns the
-    timing records of the main path's largest shapes."""
+    """Kernels vs plain versions on the card, bit-exact: ragged and
+    tile-edge sizes, unaligned views, a reused scratch, and 50 repeats at
+    each merge shape."""
     rng = np.random.default_rng(1234)
     dev = torch.device("cuda")
-    n_merge = 6_291_456          # bucket(5,000,000 run elements, 256)
-    for K, N in [(6, 1), (6, 1000), (6, 1025), (6, 1_048_576),
-                 (6, n_merge)]:
+    lib = S.load()
+    ms_tile = lib.amt_multi_scan_tile()
+    fs_tile = lib.amt_fused_scan_tile()
+    log(f"tiles: multi_scan {ms_tile} columns, fused_segment_scans "
+        f"{fs_tile} slots")
+    shapes = [(6, 1), (6, 256), (6, 1000), (6, 1025), (6, 1_048_576),
+              (6, N_MERGE)]
+    for K in (1, 6, 13):
+        for N in (4095, 4096, 4097, 2 * ms_tile + 3):
+            shapes.append((K, N))
+    for K, N in shapes:
         x = torch.from_numpy(
             rng.integers(-50, 50, (K, N), dtype=np.int32)).to(dev)
-        got = S.multi_scan(x)
         want = S.multi_scan_plain(x)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"multi_scan differs at ({K}, {N})")
-        log(f"multi_scan ({K}, {N}) bit-exact vs plain")
-    for C, n_elems, base in [(1, 1, 0), (1025, 900, 0), (1025, 2000, 7),
-                             (n_merge, 6_000_000, 0),
-                             (n_merge, 5_999_000, 4096)]:
-        chain = torch.from_numpy(rng.random(C) < 0.9).to(dev)
-        has = torch.from_numpy(rng.random(C) < 0.95).to(dev)
-        got = S.fused_segment_scans(chain, has, n_elems, base)
-        want = S.fused_segment_scans_plain(chain, has, n_elems, base)
-        torch.cuda.synchronize()
-        for name, g, w in zip(("rank_incl", "seg_head", "cumvis"), got,
-                              want):
-            if not torch.equal(g, w):
+        for call in range(2):                  # the second reuses scratch
+            got = S.multi_scan(x)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
                 raise AssertionError(
-                    f"fused_segment_scans {name} differs at C={C} "
-                    f"n_elems={n_elems} base={base}")
-        log(f"fused_segment_scans C={C} n_elems={n_elems} base={base} "
-            "bit-exact vs plain")
+                    f"multi_scan differs at ({K}, {N}), call {call}")
+    log(f"multi_scan bit-exact vs plain, two calls each: {shapes}")
+    # a (6, 8192) view 4 bytes off 16-byte alignment: the scalar path
+    buf = torch.from_numpy(
+        rng.integers(-50, 50, 6 * 8192 + 1, dtype=np.int32)).to(dev)
+    x = buf[1:].view(6, 8192)
+    if x.data_ptr() % 16 == 0 or not torch.equal(S.multi_scan(x),
+                                                 S.multi_scan_plain(x)):
+        raise AssertionError("multi_scan differs on an unaligned view")
+    log("multi_scan bit-exact on a view 4 bytes off alignment")
 
-    recs = {}
+    cases = [(1, 1, 0, 0), (1025, 900, 0, 0), (1025, 2000, 7, 0),
+             (fs_tile - 1, fs_tile - 5, 0, 0), (fs_tile + 1, fs_tile, 3, 0),
+             (2 * fs_tile + 3, 2 * fs_tile, 0, 0),
+             (100_003, 90_000, 4096, 1), (fs_tile * 3, fs_tile * 2, 0, 1),
+             (1_048_576, BASE_LEN, 0, 0), (N_MERGE, 6_000_000, 0, 0), (N_MERGE, 5_999_000, 4096, 0),
+             (N_MERGE, 6_000_000, 0, 1)]
+    for C, n_elems, base, lead in cases:
+        chain, has = _fs_inputs(torch, rng, C, dev, lead)
+        if lead and chain.data_ptr() % 16 == 0:
+            raise AssertionError("the unaligned case is aligned")
+        want = S.fused_segment_scans_plain(chain, has, n_elems, base)
+        for call in range(2):
+            got = S.fused_segment_scans(chain, has, n_elems, base)
+            torch.cuda.synchronize()
+            if not _fs_equal(torch, got, want):
+                raise AssertionError(
+                    f"fused_segment_scans differs at C={C} n_elems={n_elems}"
+                    f" base={base} offset={lead} call {call}")
+        log(f"fused_segment_scans C={C} n_elems={n_elems} base={base} "
+            f"byte offset {lead}: bit-exact vs plain, two calls")
+
+    # 50 launches at each merge shape, every one bit-exact
     x = torch.from_numpy(
-        rng.integers(-50, 50, (6, n_merge), dtype=np.int32)).to(dev)
-    b_ms, b_by = bound(2 * x.numel() * 4, x.numel())
-    recs["multi_scan"] = {
-        "shape": [6, n_merge],
-        "max_abs_err": int((S.multi_scan(x) - S.multi_scan_plain(x))
-                           .abs().max()),
-        "ms": time_ms(torch, lambda: S.multi_scan(x)),
-        "plain_ms": time_ms(torch, lambda: S.multi_scan_plain(x)),
-        "library_ms": time_ms(
-            torch, lambda: torch.cumsum(x, 1, dtype=torch.int32)),
-        "bound_ms": b_ms, "bound_by": b_by}
-    C = n_merge
-    chain = torch.from_numpy(rng.random(C) < 0.9).to(dev)
-    has = torch.from_numpy(rng.random(C) < 0.95).to(dev)
+        rng.integers(-50, 50, (6, N_MERGE), dtype=np.int32)).to(dev)
+    want = S.multi_scan_plain(x)
+    chain, has = _fs_inputs(torch, rng, N_MERGE, dev)
     ne = torch.tensor(6_000_000, dtype=torch.int32, device=dev)
-    got = S.fused_segment_scans(chain, has, ne)
-    want = S.fused_segment_scans_plain(chain, has, ne)
-    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-    # yardstick: the three library scans alone on precomputed inputs
-    flat = torch.arange(C, dtype=torch.int32, device=dev)
+    want_fs = S.fused_segment_scans_plain(chain, has, ne)
+    for i in range(REPEATS):
+        if not torch.equal(S.multi_scan(x), want):
+            raise AssertionError(f"multi_scan repeat {i} differs")
+        if not _fs_equal(torch, S.fused_segment_scans(chain, has, ne),
+                         want_fs):
+            raise AssertionError(f"fused_segment_scans repeat {i} differs")
+    log(f"{REPEATS} repeats at each merge shape: all bit-exact")
+
+
+def check_kernels_per_call(torch, S):
+    """Each wrapper call runs one device kernel (its memset aside). Runs
+    after the driven paths: a profiler session left behind slows the
+    host's later launches."""
+    dev = torch.device("cuda")
+    x = torch.zeros((6, N_MERGE), dtype=torch.int32, device=dev)
+    c = torch.zeros(N_MERGE, dtype=torch.bool, device=dev)
+    ne = torch.tensor(6_000_000, dtype=torch.int32, device=dev)
+    per_call = {
+        "multi_scan": kernels_per_call(torch, lambda: S.multi_scan(x)),
+        "fused_segment_scans": kernels_per_call(
+            torch, lambda: S.fused_segment_scans(c, c, ne))}
+    log(f"device kernels per wrapper call (memsets aside): {per_call}")
+    if per_call != {"multi_scan": 1, "fused_segment_scans": 1}:
+        raise AssertionError(f"expected one kernel per call: {per_call}")
+    return per_call
+
+
+def _ms_bound(K, N):
+    # reads and writes 4 bytes per element; one add per element
+    return bound(2 * K * N * 4, K * N)
+
+
+def _fs_bound(C):
+    # reads chain + has (1 B each) and n_elems, writes three int32 columns
+    return bound(2 * C + 4 + 3 * 4 * C, 3 * C)
+
+
+def ms_copies(torch, rng, K, N, dev):
+    """Seeded int32 (K, N) inputs for a timing, one per copy."""
+    return [torch.from_numpy(rng.integers(-50, 50, (K, N), dtype=np.int32))
+            .to(dev) for _ in range(n_copies(torch, 4 * K * N))]
+
+
+def fs_copies(torch, rng, C, dev):
+    """Seeded (chain, has_value) pairs for a timing, one per copy."""
+    return [_fs_inputs(torch, rng, C, dev)
+            for _ in range(n_copies(torch, 2 * C))]
+
+
+def ms_calls(torch, S, x):
+    """multi_scan on x: (kernel, plain version, library call)."""
+    return (lambda: S.multi_scan(x), lambda: S.multi_scan_plain(x),
+            lambda: torch.cumsum(x, 1, dtype=torch.int32))
+
+
+def fs_calls(torch, S, chain, has, ne):
+    """fused_segment_scans on (chain, has, ne): (kernel, plain version,
+    library yardstick: the three library scans alone on precomputed
+    inputs)."""
+    flat = torch.arange(chain.shape[0], dtype=torch.int32,
+                        device=chain.device)
     is_elem = (flat >= 1) & (flat <= ne)
     ss = (is_elem & ~chain).to(torch.int32)
     cand = torch.where(ss > 0, flat, 0)
@@ -230,20 +379,83 @@ def check_kernels(torch, S):
         torch.cumsum(ss, 0, dtype=torch.int32)
         torch.cummax(cand, 0)
         torch.cumsum(vis, 0, dtype=torch.int32)
-    # reads chain + has (1 B each) and n_elems, writes three int32 columns
-    b_ms, b_by = bound(2 * C + 4 + 3 * 4 * C, 3 * C)
-    recs["fused_segment_scans"] = {
-        "shape": [C], "max_abs_err": err,
-        "ms": time_ms(torch, lambda: S.fused_segment_scans(chain, has, ne)),
-        "plain_ms": time_ms(
-            torch, lambda: S.fused_segment_scans_plain(chain, has, ne)),
-        "library_ms": time_ms(torch, library),
-        "bound_ms": b_ms, "bound_by": b_by}
-    for k, r in recs.items():
-        log(f"{k} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    return recs
+    return (lambda: S.fused_segment_scans(chain, has, ne),
+            lambda: S.fused_segment_scans_plain(chain, has, ne), library)
+
+
+def time_eager_merge(torch, S):
+    """One eager call of each kernel, its plain version and the library
+    call at the merge shapes, on one input; returns each kernel's time.
+    This runs before the driven paths on purpose: the first timed commit
+    of a process moves with what ran before it, and earlier versions of
+    this script ran these same calls there, so their commit times compare
+    with this one's."""
+    rng = np.random.default_rng(42)
+    dev = torch.device("cuda")
+    x = torch.from_numpy(
+        rng.integers(-50, 50, (6, N_MERGE), dtype=np.int32)).to(dev)
+    chain, has = _fs_inputs(torch, rng, N_MERGE, dev)
+    ne = torch.tensor(6_000_000, dtype=torch.int32, device=dev)
+    out = {}
+    for name, calls in (("multi_scan", ms_calls(torch, S, x)),
+                        ("fused_segment_scans",
+                         fs_calls(torch, S, chain, has, ne))):
+        kern, plain, lib = (time_eager_ms(torch, f) for f in calls)
+        out[name] = kern
+        log(f"{name} at the merge shape, one eager call: kernel "
+            f"{kern:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms")
+    return out
+
+
+def time_kernels(torch, S, ms_shapes, fs_shapes, n_elems_of):
+    """Kernel, plain and library device times at every shape each kernel
+    launched with on the driven paths; returns {name: [per-shape record]}.
+    The kernel is timed over input copies (n_copies); the plain and
+    library versions, hundreds of times slower, over the first copy."""
+    rng = np.random.default_rng(99)
+    dev = torch.device("cuda")
+    out = {"multi_scan": [], "fused_segment_scans": []}
+    for K, N in sorted(ms_shapes, key=lambda s: s[0] * s[1]):
+        xs = ms_copies(torch, rng, K, N, dev)
+        kern = [ms_calls(torch, S, x)[0] for x in xs]
+        _, plain, library = ms_calls(torch, S, xs[0])
+        err = int((S.multi_scan(xs[0]) - S.multi_scan_plain(xs[0]))
+                  .abs().max())
+        b_ms, b_by = _ms_bound(K, N)
+        out["multi_scan"].append({
+            "shape": [K, N], "copies": len(xs), "max_abs_err": err,
+            "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, [plain]),
+            "library_ms": time_ms(torch, [library]),
+            "bound_ms": b_ms, "bound_by": b_by})
+        del xs, kern
+    for (C,) in sorted(fs_shapes):
+        pairs = fs_copies(torch, rng, C, dev)
+        ne = torch.tensor(n_elems_of(C), dtype=torch.int32, device=dev)
+        kern = [lambda c=c, h=h: S.fused_segment_scans(c, h, ne)
+                for c, h in pairs]
+        _, plain, library = fs_calls(torch, S, *pairs[0], ne)
+        got = S.fused_segment_scans(*pairs[0], ne)
+        want = S.fused_segment_scans_plain(*pairs[0], ne)
+        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        b_ms, b_by = _fs_bound(C)
+        out["fused_segment_scans"].append({
+            "shape": [C], "copies": len(pairs), "max_abs_err": err,
+            "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, [plain]),
+            "library_ms": time_ms(torch, [library]),
+            "bound_ms": b_ms, "bound_by": b_by})
+        del pairs, kern
+    for name, recs in out.items():
+        for r in recs:
+            if r["max_abs_err"] != 0:
+                raise AssertionError(f"{name} {r['shape']} differs from "
+                                     f"plain by {r['max_abs_err']}")
+            r["bound_frac"] = r["bound_ms"] / r["ms"]
+            log(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms "
+                f"({100 * r['bound_frac']:.1f}% of bound, {r['copies']} "
+                f"input copies), plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+    return out
 
 
 def heal_watch(logging_mod):
@@ -396,9 +608,15 @@ def main() -> int:
     built = S.build()
     log(f"build: {built:.2f} s compiling {S.SOURCE.name} "
         f"({time.perf_counter() - t0:.2f} s with the check)")
+    for ln in S.library_path().with_suffix(".log").read_text().splitlines():
+        if "registers" in ln or "Compiling entry" in ln:
+            log(f"ptxas: {ln.strip()}")
 
-    # 3. kernels vs plain
-    recs = check_kernels(torch, S)
+    # 3. kernels vs plain, and one eager call of each at the merge shapes
+    # (the device-time readings, by CUDA graphs, come after the paths)
+    check_kernels(torch, S)
+    eager = time_eager_merge(torch, S)
+    n_expect = BASE_LEN + N_ACTORS * (OPS_PER_CHANGE // 2)
 
     # 4. main path at full width
     heals = heal_watch(logging)
@@ -408,12 +626,12 @@ def main() -> int:
     t_main = time.perf_counter()
     doc, r = drive_stream(DeviceTextDoc, TB, C, None, planned=True)
     main_launches = dict(S.launches)
+    main_shapes = {k: dict(v) for k, v in S.launch_shapes.items()}
     t_main = time.perf_counter() - t_main
     peak = torch.cuda.max_memory_allocated()
     log(f"main path launches: {main_launches}")
     if main_launches["multi_scan"] < 1:
         raise AssertionError("multi_scan did not launch on the main path")
-    n_expect = BASE_LEN + N_ACTORS * (OPS_PER_CHANGE // 2)
     if r["n_vis"] != n_expect or len(r["text"]) != n_expect:
         raise AssertionError(f"n_vis {r['n_vis']} / len {len(r['text'])} "
                              f"!= {n_expect}")
@@ -443,6 +661,7 @@ def main() -> int:
     doc2, r2 = drive_stream(DeviceTextDoc, TB, C, None,
                             planned=False)
     sc_launches = dict(S.launches)
+    sc_shapes = {k: dict(v) for k, v in S.launch_shapes.items()}
     log(f"self-contained path launches: {sc_launches}")
     if sc_launches["fused_segment_scans"] < 1:
         raise AssertionError("fused_segment_scans did not launch in the "
@@ -458,6 +677,7 @@ def main() -> int:
     S.reset_launches()
     doc.apply_changes(residual_changes(BASE_LEN))
     res_launches = dict(S.launches)
+    res_shapes = {k: dict(v) for k, v in S.launch_shapes.items()}
     cpu_doc.apply_changes(residual_changes(BASE_LEN))
     mixed = (accounting.LABELS["dispatch"]["fused_mixed_round"]["n"]
              - before["n"])
@@ -480,13 +700,26 @@ def main() -> int:
     if any("diverged" in m for m in heals.records):
         raise AssertionError(f"segment mirror healed: {heals.records}")
 
-    # 7. optional profile of the headline commit
+    # 7. kernel times at every shape the driven paths launched with, then
+    # one kernel per call (a profiler session slows later host launches)
+    shapes_by_path = {"main": main_shapes, "self_contained": sc_shapes,
+                      "residual": res_shapes}
+    log(f"launches by shape on the driven paths: {shapes_by_path}")
+    shapes = {k: set().union(*(p[k] for p in shapes_by_path.values()))
+              for k in S.launches}
+    n_elems_of = {1_048_576: BASE_LEN, N_MERGE: n_expect}
+    times = time_kernels(torch, S, shapes["multi_scan"],
+                         shapes["fused_segment_scans"],
+                         lambda c: n_elems_of.get(c, c - c // 16))
+    per_call = check_kernels_per_call(torch, S)
+
+    # 8. optional profile of the headline commit
     if args.profile:
         for planned in (True, False):
             profile_commit(torch, DeviceTextDoc, TB, C, planned,
                            args.profile)
 
-    # 8. kernel records: `launches` is the count on the path the kernel
+    # 9. kernel records: `launches` is the count on the path the kernel
     # serves (multi_scan: the planned main path; fused_segment_scans: the
     # self-contained one); `launches_by_path` has each driven path's count
     by_path = {"main": main_launches, "self_contained": sc_launches,
@@ -496,7 +729,7 @@ def main() -> int:
             ("multi_scan", "automerge_tpu/ops/scan_pallas.py:204", "main"),
             ("fused_segment_scans", "automerge_tpu/ops/scan_pallas.py:142",
              "self_contained")):
-        rec = recs[name]
+        rec = times[name][-1]                  # the largest (merge) shape
         kernels.append({
             "name": name, "route": "cuda",
             "source": "automerge_tpu_torch/csrc/scan.cu",
@@ -506,7 +739,15 @@ def main() -> int:
             "shape": rec["shape"], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"]})
+            "library_ms": rec["library_ms"],
+            "bound_frac": rec["bound_frac"],
+            "eager_ms": eager[name],
+            "eager_bound_frac": rec["bound_ms"] / eager[name],
+            "kernels_per_call": per_call[name],
+            "shapes": times[name],
+            "launches_by_shape": {
+                p: {"x".join(map(str, sh)): n for sh, n in d[name].items()}
+                for p, d in shapes_by_path.items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -106,6 +106,63 @@ def test_library_name_tracks_the_source():
     assert "arch=compute_90a,code=sm_90a" in S.NVCC_FLAGS
 
 
+def test_library_name_is_a_digest_of_the_source():
+    """An edit of csrc/scan.cu rebuilds: the name carries its digest."""
+    import hashlib
+    digest = hashlib.sha256(S.SOURCE.read_bytes()).hexdigest()[:16]
+    assert S.library_path().name == f"libamt_scan_{digest}.so"
+
+
+def _sweep():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "scripts" / \
+        "sweep_scan_tiles.py"
+    spec = importlib.util.spec_from_file_location("sweep_scan_tiles", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("i", range(10))
+def test_sweep_variants_edit_only_their_constants(i):
+    """scripts/sweep_scan_tiles.py builds each variant from the shipped
+    source by editing one tile constant or the store; each edit must still
+    find its target."""
+    W = _sweep()
+    assert len(W.VARIANTS) == 10
+    _, _, consts, store = W.VARIANTS[i]
+    text = S.SOURCE.read_text()
+    out = W.variant_source(text, consts, store)
+    for name, value in consts.items():
+        assert f"constexpr int {name} = {value};" in out
+    if store is not None:
+        assert store[1] in out and store[0] not in out
+    assert (out == text) == (not consts and store is None)
+
+
+@pytest.mark.parametrize("length,tile,tiles", [
+    (1, 4096, 1), (4095, 4096, 1), (4096, 4096, 1), (4097, 4096, 2),
+    (6_291_456, 4096, 1536), (6_291_456, 8192, 768), (8195, 8192, 2)])
+def test_n_tiles(length, tile, tiles):
+    assert S.n_tiles(length, tile) == tiles
+
+
+@pytest.mark.parametrize("tiles,words", [(1, 1), (9216, 1), (768, 6),
+                                         (1, 6)])
+def test_scratch_words(tiles, words):
+    """One ticket word, then `words` status words per tile; the C entry
+    points refuse a smaller scratch."""
+    assert S.scratch_words(tiles, words) == 1 + tiles * words
+    assert S.MS_STATUS_WORDS == 1 and S.FS_STATUS_WORDS == 6
+
+
+def test_cpu_tensors_record_no_launch_shapes():
+    S.reset_launches()
+    S.multi_scan(torch.zeros((2, 8), dtype=torch.int32))
+    assert S.launch_shapes == {"multi_scan": {}, "fused_segment_scans": {}}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(6, 1), (6, 1000), (6, 1025), (6, 4097),
                                    (6, 1_048_576)])
@@ -128,6 +185,100 @@ def test_fused_segment_scans_kernel_matches_plain(cuda_device, C, n_elems,
     torch.cuda.synchronize()
     for g, w in zip(got, S.fused_segment_scans_plain(ch, hv, n_elems, base)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 6, 13])
+@pytest.mark.parametrize("edge", [-1, 0, 1, 3])
+def test_multi_scan_kernel_tile_edges(cuda_device, K, edge):
+    """N around one and two tiles, K in {1, 6, 13}; ragged N (not a
+    multiple of 4) takes the scalar path."""
+    tile = S.load().amt_multi_scan_tile()
+    for N in (tile + edge, 2 * tile + edge):
+        x = torch.from_numpy(_channels(K, N, seed=N + K)).to(cuda_device)
+        got = S.multi_scan(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, S.multi_scan_plain(x)), (K, N)
+
+
+@pytest.mark.cuda
+def test_multi_scan_kernel_unaligned_rows(cuda_device):
+    """A (K, N) view 4 bytes off 16-byte alignment takes the scalar path."""
+    K, N = 6, 8192
+    buf = torch.from_numpy(_channels(1, K * N + 1, seed=5)).to(cuda_device)
+    x = buf[0, 1:].view(K, N)
+    assert x.data_ptr() % 16 != 0
+    got = S.multi_scan(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, S.multi_scan_plain(x))
+
+
+@pytest.mark.cuda
+def test_fused_segment_scans_kernel_unaligned_view(cuda_device):
+    """A bool view one byte off 16-byte alignment (t[1:])."""
+    C = 50_001
+    chain, has = _columns(C + 1, seed=11)
+    ch = torch.from_numpy(chain).to(cuda_device)[1:]
+    hv = torch.from_numpy(has).to(cuda_device)[1:]
+    assert ch.data_ptr() % 16 != 0
+    got = S.fused_segment_scans(ch, hv, 45_000, 3)
+    torch.cuda.synchronize()
+    for g, w in zip(got, S.fused_segment_scans_plain(ch, hv, 45_000, 3)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_kernels_reuse_their_scratch(cuda_device):
+    """Two calls in a row on the same shapes: the second must not see the
+    first call's look-back flags on a reused allocation."""
+    x = torch.from_numpy(_channels(6, 100_000, seed=7)).to(cuda_device)
+    want = S.multi_scan_plain(x)
+    chain, has = _columns(100_000, seed=8)
+    ch, hv = (torch.from_numpy(a).to(cuda_device) for a in (chain, has))
+    want_fs = S.fused_segment_scans_plain(ch, hv, 90_000)
+    for _ in range(2):
+        got = S.multi_scan(x)
+        got_fs = S.fused_segment_scans(ch, hv, 90_000)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        for g, w in zip(got_fs, want_fs):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_kernels_repeat_bit_exact(cuda_device):
+    """Look-back races show only sometimes: 20 repeats at a size of many
+    tiles, every one bit-exact."""
+    x = torch.from_numpy(_channels(6, 1_048_576, seed=9)).to(cuda_device)
+    want = S.multi_scan_plain(x)
+    chain, has = _columns(1_048_576, seed=10)
+    ch, hv = (torch.from_numpy(a).to(cuda_device) for a in (chain, has))
+    want_fs = S.fused_segment_scans_plain(ch, hv, 1_000_000)
+    for _ in range(20):
+        assert torch.equal(S.multi_scan(x), want)
+        for g, w in zip(S.fused_segment_scans(ch, hv, 1_000_000), want_fs):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_one_kernel_launch_per_call(cuda_device):
+    """Each wrapper runs one kernel per call (its scratch memset aside)."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.zeros((6, 10_000), dtype=torch.int32, device=cuda_device)
+    c = torch.zeros(10_000, dtype=torch.bool, device=cuda_device)
+    n = torch.full((), 9_000, dtype=torch.int32, device=cuda_device)
+    S.multi_scan(x)
+    S.fused_segment_scans(c, c, n)
+    torch.cuda.synchronize()
+    for fn in (lambda: S.multi_scan(x),
+               lambda: S.fused_segment_scans(c, c, n)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "memset" not in e.name.lower()]
+        assert len(kernels) == 1, [e.name for e in kernels]
 
 
 @pytest.mark.cuda
