@@ -23,7 +23,9 @@ interning order change).
 This is the PyTorch counterpart of `automerge_tpu/engine/base.py`: the host
 orchestration is the same code, and the device seams (the prepare barrier,
 the slow-register writeback, the mirror fetch) run on torch tensors on the
-document's `device`. The port runs out of place: there is no buffer
+document's `device`. Rounds run out of place unless `donate_buffers` is
+set; then they write into the live tables' storage (`_inplace_store`,
+ops/ingest.py `TableStore`), the port's form of the JAX package's buffer
 donation.
 """
 
@@ -149,10 +151,22 @@ class CausalDeviceDoc:
 
     batch_type = None  # subclass: columnar batch class (has .from_changes)
 
-    # `packed_residual_writeback` ships the host slow-register resolution
-    # back as ONE (6, S) matrix instead of six per-column arrays (one h2d
-    # transfer; the per-column path is its comparator).
+    # `donate_buffers` selects the in-place rounds (ops/ingest.py
+    # `TableStore`, the round programs' `store=`), on a card and on the
+    # CPU alike: each commit writes into the live tables' storage, so a
+    # pipeline ring's device allocation stays flat instead of holding a
+    # new table set per commit. A table tensor taken from `_dev` before an
+    # in-place commit sees the commit's writes. A commit that raises after
+    # its first in-place write leaves no valid table state: the document
+    # is then lost (`_check_device_alive`). `packed_residual_writeback`
+    # ships the host slow-register resolution back as ONE (6, S) matrix
+    # instead of six per-column arrays (one h2d transfer; the per-column
+    # path is its comparator).
+    donate_buffers = False
     packed_residual_writeback = True
+
+    _TABLE_KEYS: tuple = ()      # subclass: the device tables, in order
+    _TABLE_FILLS: tuple = ()     # and their padding fills
 
     def __init__(self, obj_id: str, device=None):
         self.obj_id = obj_id
@@ -167,6 +181,15 @@ class CausalDeviceDoc:
         self.value_pool: list = []            # rich values (non-inline)
         self._dev: Optional[dict] = None      # device arrays (lazy)
         self._host: Optional[dict] = None     # numpy mirrors (lazy)
+        self._store = None                    # TableStore of the in-place
+        # rounds (its views are `_dev` while they write in place)
+        self._device_lost = False             # an in-place commit raised
+        # after its first write: no valid table state remains, so every
+        # later access fails loudly (_check_device_alive)
+        # prepares stage their inputs on this stream, so that a prepare
+        # never waits for the commits running on the compute stream
+        self._stage_stream = (torch.cuda.Stream(self.device)
+                              if self.device.type == "cuda" else None)
         self._acct = {"dispatches": 0, "syncs": 0,
                       "h2d_bytes": 0, "d2h_bytes": 0}  # device-interaction
         # counters (engine/accounting.py): every jitted program launch,
@@ -184,6 +207,39 @@ class CausalDeviceDoc:
         # so content-mutating entry points raise this first and drop it
         # last — the checkpoint writer's optimistic grab treats any
         # nonzero observation as a conflict (checkpoint/engine_codec)
+
+    def _check_device_alive(self):
+        """The gate every `_ensure_dev` passes: after an in-place commit
+        raised past its first write there is no valid table state, and
+        resurrecting empty tables would be silent corruption."""
+        if self._device_lost:
+            raise RuntimeError(
+                f"device state of {self.obj_id!r} was lost: a commit with "
+                "in-place tables (donate_buffers) failed after its first "
+                "write. Rebuild the document from its change log")
+
+    def _lose_device(self):
+        """Mark the tables lost (an in-place write happened before a
+        failure) and drop every cache derived from them."""
+        self._device_lost = True
+        self._dev = None
+        self._store = None
+        self._invalidate()
+
+    def _inplace_store(self, out_cap: int):
+        """The TableStore the in-place rounds write into, holding the live
+        tables. When the tables are not its views (a fresh document, or
+        tables an out-of-place program replaced) they are packed into a
+        new store at max(capacity, out_cap): one allocation and copy."""
+        from ..ops.ingest import TableStore
+        dev = self._ensure_dev()
+        st = self._store
+        if st is None or not st.holds(dev):
+            st = TableStore(self._TABLE_KEYS, self._TABLE_FILLS, dev,
+                            max(self._cap, out_cap))
+            self._store = st
+            self._dev = dict(st.views)
+        return st
 
     def _to_dev(self, arr) -> torch.Tensor:
         """A small host array -> tensor on the document's device (a
@@ -1032,11 +1088,11 @@ class CausalDeviceDoc:
         # never appears in a commit's per-batch delta.
         _tb = obs.now() if obs.ENABLED else 0
         if self.device.type == "cuda":
-            # the staging copies were enqueued non-blocking on the current
-            # stream: one event waits for all of them, after which the
-            # pinned host buffers may go
+            # the staging copies were enqueued non-blocking on the staging
+            # stream: one event there waits for all of them (and for no
+            # commit), after which the pinned host buffers may go
             done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
+            done.record(self._stage_stream)
             done.synchronize()
         for _, _, _, p in planned_rounds:
             if p is not None:
@@ -1349,24 +1405,36 @@ class CausalDeviceDoc:
 
     def _scatter_slow(self, wb: np.ndarray):
         """DEVICE half of the slow register path: write the resolved
-        winners back over the live register tables (one packed upload, or
-        the per-column comparator)."""
-        from ..ops.ingest import scatter_registers, scatter_registers_packed
+        winners back over the live register tables (one packed upload, in
+        place under `donate_buffers`, or the per-column comparator)."""
+        from ..ops.ingest import (REG_KEYS, scatter_registers,
+                                  scatter_registers_packed)
 
-        dev = self._dev
-        regs_in = (dev["value"], dev["has_value"], dev["win_actor"],
-                   dev["win_seq"], dev["win_counter"])
         self._count_dispatch(label="scatter_registers")
         self._count_h2d(wb.nbytes)   # the packed (6, S) writeback upload
-        if self.packed_residual_writeback:
-            out = scatter_registers_packed(*regs_in, self._to_dev(wb))
-        else:
-            out = scatter_registers(
-                *regs_in, self._to_dev(wb[0]), self._to_dev(wb[1]),
-                self._to_dev(wb[2].astype(bool)), self._to_dev(wb[3]),
-                self._to_dev(wb[4]), self._to_dev(wb[5].astype(bool)))
-        dev["value"], dev["has_value"], dev["win_actor"], dev["win_seq"], \
-            dev["win_counter"] = out
+        store = None
+        writes = 0
+        try:
+            if self.packed_residual_writeback and self.donate_buffers:
+                store = self._inplace_store(self._cap)
+                writes = store.writes
+            regs_in = tuple(self._dev[k] for k in REG_KEYS)
+            if self.packed_residual_writeback:
+                out = scatter_registers_packed(*regs_in, self._to_dev(wb),
+                                               store=store)
+            else:
+                out = scatter_registers(
+                    *regs_in, self._to_dev(wb[0]), self._to_dev(wb[1]),
+                    self._to_dev(wb[2].astype(bool)),
+                    self._to_dev(wb[3]), self._to_dev(wb[4]),
+                    self._to_dev(wb[5].astype(bool)))
+        except BaseException:
+            # a failure after the first in-place write leaves no valid
+            # register state; one before it leaves the tables as they were
+            if store is not None and store.writes != writes:
+                self._lose_device()
+            raise
+        self._dev.update(zip(REG_KEYS, out))
         self._invalidate()
 
     def _fetch_mirrors(self, keys) -> dict:

@@ -176,14 +176,47 @@ class TextChangeBatch:
 
     @classmethod
     def from_json(cls, data, obj_id: str) -> "TextChangeBatch":
-        """Decode a JSON change list (str/bytes) into columns with the
-        Python decoder (the port carries no native JSON codec)."""
+        """Decode a JSON change list (str/bytes) into columns: the native
+        C++ codec (native/) decodes it, or declines a payload outside its
+        scope, which the Python decoder then takes. Both produce identical
+        batches (tests/test_torch_native.py)."""
+        from .. import native
+        batch = native.decode_text_changes(data, obj_id)
+        if batch is not None:
+            native.count(native.routes, "native")
+            return batch
         import json as _json
-        return cls.from_changes(_json.loads(data), obj_id)
+        # the codec already declined it: no second native attempt
+        return cls.from_changes(_json.loads(data), obj_id,
+                                _try_native=False)
+
+    _NATIVE_MIN_OPS = 20_000   # below this, re-serializing a dict payload
+    # for the native decoder costs more than the Python walk saves
 
     @classmethod
-    def from_changes(cls, changes, obj_id: str) -> "TextChangeBatch":
-        """Decode wire-format changes (plain dicts) into columns."""
+    def from_changes(cls, changes, obj_id: str,
+                     _try_native: bool = True) -> "TextChangeBatch":
+        """Decode wire-format changes (plain dicts) into columns.
+
+        Bulk deliveries (at least `_NATIVE_MIN_OPS` ops) re-serialize
+        through the native decoder: the wire schema round-trips losslessly.
+        Small changes, and anything the codec declines (including
+        malformation the Python walk rejects, which it then rejects
+        loudly), take the Python walk. `_try_native=False` is from_json's
+        flag: its payload already went through the codec."""
+        from .. import native
+        if (_try_native and isinstance(changes, list)
+                and sum(len(c.get("ops", ())) for c in changes)
+                >= cls._NATIVE_MIN_OPS):
+            import json as _json
+            try:
+                batch = native.decode_text_changes(
+                    _json.dumps(changes).encode(), obj_id)
+            except (TypeError, ValueError):
+                batch = None     # values JSON cannot carry: the Python walk
+            if batch is not None:
+                native.count(native.routes, "native")
+                return batch
         actor_rank: dict = {}
         actor_table: list = []
         value_pool: list = []
@@ -252,6 +285,7 @@ class TextChangeBatch:
                     raise ValueError(
                         f"unsupported op action for columnar batch: {action}")
 
+        native.count(native.routes, "python")
         return cls(
             obj_id=obj_id, actors=actors,
             seqs=_int32_col("seq", seqs, lo=1), deps=intern_deps(deps),

@@ -7,8 +7,12 @@ descriptors + a value blob instead of 2 op rows per character
 (ops/fused_round.py `_fused_expand`), used by the single-doc engine
 (text_doc.DeviceTextDoc).
 
-Detection runs the vectorized numpy formulation (the port carries no
-native walker).
+Detection runs the native single-pass C++ walker
+(native/codec.cpp `amtpu_detect_runs`); `_detect_runs_numpy`, the
+vectorized numpy formulation, is the reference it is held to
+(tests/test_torch_native.py). `detections["calls"]` counts `detect_runs`
+calls, each of which walks natively (`native.walks` counts the walks,
+one per shard).
 """
 
 from __future__ import annotations
@@ -18,7 +22,10 @@ from dataclasses import dataclass
 import numpy as np
 
 from .._common import KIND_INS, KIND_SET
-from .. import obs
+from .. import native, obs
+
+#: detect_runs calls since the last reset (chip_smoke.py reads it)
+detections = {"calls": 0}
 
 
 @dataclass
@@ -90,11 +97,12 @@ def detect_runs(kind, ta, tc, pa, pc, val64, op_row, base_elems: int
     boundary where the change row differs, and per-shard detection with a
     slot base offset by the preceding shards' insert counts concatenates
     into the exact unsharded partition (pinned bit-identical by
-    tests/test_pipeline.py). The numpy passes release the GIL, so shards
-    run at real parallelism on multicore hosts; one worker (AMTPU_PLAN_WORKERS=1) short-circuits to the
-    single-shard path."""
+    tests/test_torch_native.py). The native walker releases the GIL, so
+    shards run at real parallelism on multicore hosts; one worker
+    (AMTPU_PLAN_WORKERS=1) short-circuits to the single-shard path."""
     n_ops = len(kind)
     _t0 = obs.now() if obs.ENABLED else 0
+    native.count(detections, "calls")
     plan = None
     if n_ops >= _SHARD_MIN_OPS:
         plan = _detect_runs_sharded(kind, ta, tc, pa, pc, val64, op_row,
@@ -111,8 +119,13 @@ def detect_runs(kind, ta, tc, pa, pc, val64, op_row, base_elems: int
 
 def _detect_runs_single(kind, ta, tc, pa, pc, val64, op_row,
                         base_elems: int) -> RoundPlan:
-    return _detect_runs_numpy(kind, ta, tc, pa, pc, val64, op_row,
-                              base_elems)
+    (hpos, run_len, head_slot, rpos, res_new_slot, blob, n_ins, lt128,
+     lt256) = native.detect_runs_native(kind, ta, tc, pa, pc, val64, op_row,
+                                        base_elems)
+    return RoundPlan(n_ops=len(kind), n_ins=n_ins, hpos=hpos,
+                     run_len=run_len, head_slot=head_slot, rpos=rpos,
+                     res_new_slot=res_new_slot, blob=blob,
+                     blob_lt_128=lt128, blob_lt_256=lt256)
 
 
 _SHARD_MIN_OPS = 1 << 18     # below this, thread fan-out costs more than

@@ -48,6 +48,7 @@ import logging
 
 from .._common import HEAD_PARENT, KIND_SET, make_elem_id
 from .. import obs
+from ..ops.ingest import TEXT_TABLE_FILLS, TEXT_TABLE_KEYS
 from .base import CausalDeviceDoc
 from .columnar import TextChangeBatch
 from .pipeline import stage_h2d
@@ -186,6 +187,8 @@ class _RoundExec:
     n_index_merges: int = 0   # bulk index merges this round performed
     pinned: list = None       # pinned host buffers of in-flight h2d copies
     # (kept alive until the prepare barrier)
+    staged_event: Any = None  # CUDA event on the staging stream after the
+    # round's copies (None on the CPU): the commit's stream waits on it
 
     @property
     def staged(self) -> list:
@@ -227,8 +230,8 @@ class DeviceTextDoc(CausalDeviceDoc):
     incremental_pull_min = 4096   # below this, a full pull is cheaper than
     # the extra seg-info fetch the cache costs
 
-    _TABLE_KEYS = ("parent", "ctr", "actor", "value", "has_value",
-                   "win_actor", "win_seq", "win_counter", "chain")
+    _TABLE_KEYS = TEXT_TABLE_KEYS
+    _TABLE_FILLS = TEXT_TABLE_FILLS
 
     batch_type = TextChangeBatch
 
@@ -271,6 +274,7 @@ class DeviceTextDoc(CausalDeviceDoc):
     # ------------------------------------------------------------------
 
     def _ensure_dev(self) -> dict:
+        self._check_device_alive()
         if self._dev is None:
             cap, dev = self._cap, self.device
             i32 = dict(dtype=torch.int32, device=dev)
@@ -370,8 +374,9 @@ class DeviceTextDoc(CausalDeviceDoc):
 
         def st(arr):
             """Stage one packed input h2d (non-blocking from pinned
-            memory on a card; the plan keeps the pinned buffer alive)."""
-            t, pin = stage_h2d(arr, self.device)
+            memory on the staging stream of a card; the plan keeps the
+            pinned buffer alive)."""
+            t, pin = stage_h2d(arr, self.device, self._stage_stream)
             if pin is not None:
                 pinned.append(pin)
             return t
@@ -766,6 +771,11 @@ class DeviceTextDoc(CausalDeviceDoc):
         touched = None
         if res_target_slot is not None and res_is_assign.any():
             touched = np.unique(res_target_slot[res_is_assign])
+        n_elems_dev = st(np.array(n_elems_after, np.int32))
+        staged_event = None
+        if self._stage_stream is not None:
+            staged_event = torch.cuda.Event()
+            staged_event.record(self._stage_stream)
         exec_plan = _RoundExec(
             index_after=merged_index, n_elems_after=n_elems_after,
             out_cap=out_cap, dense=dense, n_runs=n_runs,
@@ -773,10 +783,11 @@ class DeviceTextDoc(CausalDeviceDoc):
             blob=blob_dev, res=res_dev, touch=touch_dev,
             ascii_clear=ascii_clear, res_host=res_host,
             seg_inc=3 * (n_runs + n_res_ins) + 2,
-            n_elems_dev=st(np.array(n_elems_after, np.int32)),
+            n_elems_dev=n_elems_dev,
             mirror_after=mirror_after, seg_plan=seg_plan_dev, seg_S=seg_S,
             touched_slots=touched,
-            n_index_merges=1 if new_starts else 0, pinned=pinned)
+            n_index_merges=1 if new_starts else 0, pinned=pinned,
+            staged_event=staged_event)
         return exec_plan, (n_elems_after, merged_index, out_cap,
                            mirror_after)
 
@@ -815,78 +826,113 @@ class DeviceTextDoc(CausalDeviceDoc):
 
     def _execute_plan(self, b: TextChangeBatch, plan: "_RoundExec"):
         """Commit a planned round: index/count bookkeeping + device
-        dispatches (+ the host slow-register path when flagged)."""
+        dispatches (+ the host slow-register path when flagged).
+
+        Under `donate_buffers` the round programs write into the live
+        tables' storage (their `store=`, ops/fused_round.py). A failure after
+        the first in-place write marks the document lost; a failure
+        before any write (out of place, or in place before its first
+        scatter) leaves the tables as they were and undoes the round's
+        host bookkeeping, so the batch can be prepared and committed
+        again."""
         from ..ops import fused_round as F
         from ..ops.ingest import bucket
 
         out_cap = plan.out_cap
+        host_before = (self.index, self.seg_mirror, self._mat_keep_gen)
         self._begin_round_host(plan)
-        dev = self._ensure_dev()
-        tables = tuple(dev[k] for k in self._TABLE_KEYS)
+        self._ensure_dev()
+        if plan.staged_event is not None:
+            # the plan's inputs were staged on the staging stream: order
+            # this stream after the round's own copies (already complete
+            # when a prepare's barrier ran; not so when `_ingest` plans and
+            # executes at once; later batches' copies are not waited for)
+            # and tie their memory to this stream, or the caching allocator
+            # could hand it to the next batch's copies while this round's
+            # kernels still run
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(plan.staged_event)
+            for t in plan.staged:
+                t.record_stream(stream)
 
-        fused_mat = None
-        slow_info_np = None
-        if (plan.n_runs and plan.dense and self.eager_materialize
-                and self.use_condensed and plan.n_res == 0):
-            # the dense merge round end to end: expansion (the multi_scan
-            # kernel) + the codes-only materialization
-            if plan.seg_plan is not None:
-                # fused merge + HOST-PLANNED materialization: no device
-                # sort, no pointer doubling (engine/segments)
-                S = plan.seg_S
-                _, L, as_u8 = self._mat_params(
-                    seg_bound=S, n_elems=plan.n_elems_after, cap=out_cap,
-                    ascii_=self.all_ascii and not plan.ascii_clear)
-                self._count_dispatch(label="fused_commit_planned")
-                out = F.fused_commit_round_planned(
-                    *tables, plan.desc, plan.blob, plan.seg_plan,
-                    out_cap=out_cap, S=S, as_u8=as_u8, L=L)
+        store = None
+        writes = 0
+        try:
+            if self.donate_buffers:
+                store = self._inplace_store(out_cap)
+                writes = store.writes
+            tables = tuple(self._dev[k] for k in self._TABLE_KEYS)
+            fused_mat = None
+            slow_info_np = None
+            if (plan.n_runs and plan.dense and self.eager_materialize
+                    and self.use_condensed and plan.n_res == 0):
+                # the dense merge round end to end: expansion (the
+                # multi_scan kernel) + the codes-only materialization
+                if plan.seg_plan is not None:
+                    # fused merge + HOST-PLANNED materialization: no device
+                    # sort, no pointer doubling (engine/segments)
+                    S = plan.seg_S
+                    _, L, as_u8 = self._mat_params(
+                        seg_bound=S, n_elems=plan.n_elems_after,
+                        cap=out_cap,
+                        ascii_=self.all_ascii and not plan.ascii_clear)
+                    self._count_dispatch(label="fused_commit_planned")
+                    out = F.fused_commit_round_planned(
+                        *tables, plan.desc, plan.blob, plan.seg_plan,
+                        out_cap=out_cap, S=S, as_u8=as_u8, L=L, store=store)
+                else:
+                    S, L, as_u8 = self._mat_params(
+                        seg_bound=self._seg_bound + plan.seg_inc,
+                        n_elems=plan.n_elems_after, cap=out_cap,
+                        ascii_=self.all_ascii and not plan.ascii_clear)
+                    self._count_dispatch(label="fused_commit_round")
+                    out = F.fused_commit_round(
+                        *tables, plan.desc, plan.blob, out_cap=out_cap, S=S,
+                        as_u8=as_u8, L=L, store=store)
+                tables = out[:9]
+                fused_mat = (out[9], out[10], S)
             else:
-                S, L, as_u8 = self._mat_params(
-                    seg_bound=self._seg_bound + plan.seg_inc,
-                    n_elems=plan.n_elems_after, cap=out_cap,
-                    ascii_=self.all_ascii and not plan.ascii_clear)
-                self._count_dispatch(label="fused_commit_round")
-                out = F.fused_commit_round(
-                    *tables, plan.desc, plan.blob, out_cap=out_cap, S=S,
-                    as_u8=as_u8, L=L)
-            tables = out[:9]
-            fused_mat = (out[9], out[10], S)
-        else:
-            # every other round shape — dense/sparse expansion, residual
-            # placement + register fast path, chain breaks — is one
-            # flag-free program over padding-convention no-ops
-            with_res = bool(plan.n_res)
-            dd, db, dr, dc, dt = F.round_dummies(out_cap, self.device)
-            if with_res:
-                # conflict slots are built at execute time (NOT staged at
-                # plan time): an earlier round of the same prepared batch
-                # may have minted conflicts through the slow path
-                Kc = bucket(max(len(self.conflicts), 1), 64)
-                conflict_slots = np.full(Kc, out_cap, np.int32)
-                if self.conflicts:
-                    conflict_slots[: len(self.conflicts)] = \
-                        list(self.conflicts)
-                dc = self._to_dev(conflict_slots)
-            self._count_dispatch(label="fused_mixed_round")
-            out = F.fused_mixed_round(
-                *tables,
-                plan.desc if plan.desc is not None else dd,
-                plan.blob if plan.blob is not None else db,
-                plan.res if plan.res is not None else dr,
-                dc,
-                plan.touch if plan.touch is not None else dt,
-                out_cap=out_cap)
-            tables = out[:9]
-            if with_res:
-                # the ONE d2h round trip of the residual path: slow mask +
-                # slots + register state, one packed transfer
-                _ts = obs.now() if obs.ENABLED else 0
-                slow_full = out[9].cpu().numpy()
-                self._count_sync(label="slow_info_fetch",
-                                 dur_ns=(obs.now() - _ts) if _ts else 0,
-                                 d2h_bytes=slow_full.nbytes)
-                slow_info_np = slow_full[:, : plan.n_res]
+                # every other round shape — dense/sparse expansion,
+                # residual placement + register fast path, chain breaks —
+                # is one flag-free program over padding-convention no-ops
+                with_res = bool(plan.n_res)
+                dd, db, dr, dc, dt = F.round_dummies(out_cap, self.device)
+                if with_res:
+                    # conflict slots are built at execute time (NOT staged
+                    # at plan time): an earlier round of the same prepared
+                    # batch may have minted conflicts through the slow path
+                    Kc = bucket(max(len(self.conflicts), 1), 64)
+                    conflict_slots = np.full(Kc, out_cap, np.int32)
+                    if self.conflicts:
+                        conflict_slots[: len(self.conflicts)] = \
+                            list(self.conflicts)
+                    dc = self._to_dev(conflict_slots)
+                self._count_dispatch(label="fused_mixed_round")
+                out = F.fused_mixed_round(
+                    *tables,
+                    plan.desc if plan.desc is not None else dd,
+                    plan.blob if plan.blob is not None else db,
+                    plan.res if plan.res is not None else dr,
+                    dc,
+                    plan.touch if plan.touch is not None else dt,
+                    out_cap=out_cap, store=store)
+                tables = out[:9]
+                if with_res:
+                    # the ONE d2h round trip of the residual path: slow
+                    # mask + slots + register state, one packed transfer
+                    _ts = obs.now() if obs.ENABLED else 0
+                    slow_full = out[9].cpu().numpy()
+                    self._count_sync(label="slow_info_fetch",
+                                     dur_ns=(obs.now() - _ts) if _ts
+                                     else 0,
+                                     d2h_bytes=slow_full.nbytes)
+                    slow_info_np = slow_full[:, : plan.n_res]
+        except BaseException:
+            if store is not None and store.writes != writes:
+                self._lose_device()
+            else:
+                self.index, self.seg_mirror, self._mat_keep_gen = host_before
+            raise
 
         self._dev = dict(zip(self._TABLE_KEYS, tables))
         self._cap = out_cap
@@ -1351,6 +1397,12 @@ class DeviceTextDoc(CausalDeviceDoc):
         # host text cache can no longer be trusted to diff against
         self._text_cache = None
         self._touched_old = []
+
+    def _lose_device(self):
+        # the cached materialization and text derive from the lost tables
+        self._mat_keep_gen = None
+        self._plan_failed()
+        super()._lose_device()
 
     def values(self) -> list:
         h = self._mirrors()

@@ -1,0 +1,752 @@
+// Native wire-format decoder and run-detection walker for columnar
+// text-change batches (the host codec of automerge_tpu_torch; a copy of
+// the JAX package's automerge_tpu/native/codec.cpp).
+//
+// Decoding: JSON change lists (the sync wire format) go straight into the
+// struct-of-arrays columns the engine consumes
+// (engine/columnar.py:TextChangeBatch) by one recursive-descent pass into
+// preallocated columns, where the Python decoder loops per op.
+//
+// Scope: ins/set/del/inc ops on ONE list/text object, with single-char
+// string values or integer values. Anything else (nested objects, rich
+// values, unknown fields that matter) sets `unsupported`, and the Python
+// caller decodes the whole batch with the Python decoder instead.
+//
+// Build: g++ -O3 -shared -fPIC -std=c++17 -pthread codec.cpp, driven by
+// automerge_tpu_torch/native/__init__.py (cached by a digest of source and
+// flags; ctypes binding, no pybind11). ctypes releases the GIL for the
+// duration of every call.
+
+#include <algorithm>
+#include <climits>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <thread>
+#include <vector>
+#include <unordered_map>
+
+namespace {
+
+struct Parser {
+    const char* p;
+    const char* end;
+    bool ok = true;
+    std::string err;
+
+    explicit Parser(const char* s, size_t n) : p(s), end(s + n) {}
+
+    void fail(const std::string& m) {
+        if (ok) { ok = false; err = m; }
+    }
+    void ws() { while (p < end && (*p == ' ' || *p == '\t' || *p == '\n' || *p == '\r')) ++p; }
+    bool eat(char c) {
+        ws();
+        if (p < end && *p == c) { ++p; return true; }
+        return false;
+    }
+    bool expect(char c) {
+        if (!eat(c)) fail(std::string("expected '") + c + "'");
+        return ok;
+    }
+    bool peek(char c) { ws(); return p < end && *p == c; }
+
+    // JSON string -> UTF-8 bytes (handles escapes incl. \uXXXX pairs)
+    bool str(std::string& out) {
+        out.clear();
+        if (!expect('"')) return false;
+        while (p < end && *p != '"') {
+            char c = *p++;
+            if (c != '\\') { out.push_back(c); continue; }
+            if (p >= end) { fail("bad escape"); return false; }
+            char e = *p++;
+            switch (e) {
+                case '"': out.push_back('"'); break;
+                case '\\': out.push_back('\\'); break;
+                case '/': out.push_back('/'); break;
+                case 'b': out.push_back('\b'); break;
+                case 'f': out.push_back('\f'); break;
+                case 'n': out.push_back('\n'); break;
+                case 'r': out.push_back('\r'); break;
+                case 't': out.push_back('\t'); break;
+                case 'u': {
+                    if (end - p < 4) { fail("bad \\u"); return false; }
+                    auto hex4 = [&]() {
+                        unsigned v = 0;
+                        for (int i = 0; i < 4; i++) {
+                            char h = *p++;
+                            v <<= 4;
+                            if (h >= '0' && h <= '9') v |= h - '0';
+                            else if (h >= 'a' && h <= 'f') v |= h - 'a' + 10;
+                            else if (h >= 'A' && h <= 'F') v |= h - 'A' + 10;
+                            else { fail("bad hex"); return 0u; }
+                        }
+                        return v;
+                    };
+                    unsigned cp = hex4();
+                    if (!ok) return false;
+                    if (cp >= 0xD800 && cp <= 0xDBFF) {  // surrogate pair
+                        if (end - p < 6 || p[0] != '\\' || p[1] != 'u') {
+                            fail("lone surrogate"); return false;
+                        }
+                        p += 2;
+                        unsigned lo = hex4();
+                        if (!ok) return false;
+                        cp = 0x10000 + ((cp - 0xD800) << 10) + (lo - 0xDC00);
+                    }
+                    // encode UTF-8
+                    if (cp < 0x80) out.push_back((char)cp);
+                    else if (cp < 0x800) {
+                        out.push_back((char)(0xC0 | (cp >> 6)));
+                        out.push_back((char)(0x80 | (cp & 0x3F)));
+                    } else if (cp < 0x10000) {
+                        out.push_back((char)(0xE0 | (cp >> 12)));
+                        out.push_back((char)(0x80 | ((cp >> 6) & 0x3F)));
+                        out.push_back((char)(0x80 | (cp & 0x3F)));
+                    } else {
+                        out.push_back((char)(0xF0 | (cp >> 18)));
+                        out.push_back((char)(0x80 | ((cp >> 12) & 0x3F)));
+                        out.push_back((char)(0x80 | ((cp >> 6) & 0x3F)));
+                        out.push_back((char)(0x80 | (cp & 0x3F)));
+                    }
+                    break;
+                }
+                default: fail("bad escape"); return false;
+            }
+        }
+        return expect('"');
+    }
+
+    bool integer(long long& out) {
+        ws();
+        bool neg = false;
+        if (p < end && *p == '-') { neg = true; ++p; }
+        if (p >= end || *p < '0' || *p > '9') { fail("expected int"); return false; }
+        long long v = 0;
+        while (p < end && *p >= '0' && *p <= '9') {
+            if (v > (LLONG_MAX - 9) / 10) {
+                fail("int out of range");  // would wrap -> python fallback
+                return false;
+            }
+            v = v * 10 + (*p++ - '0');
+        }
+        if (p < end && (*p == '.' || *p == 'e' || *p == 'E')) {
+            fail("float value");  // unsupported -> python fallback
+            return false;
+        }
+        out = neg ? -v : v;
+        return true;
+    }
+
+    // skip any JSON value (for unknown fields)
+    bool skip() {
+        ws();
+        if (p >= end) { fail("eof"); return false; }
+        char c = *p;
+        if (c == '"') { std::string s; return str(s); }
+        if (c == '{') {
+            ++p;
+            if (eat('}')) return true;
+            do {
+                std::string k;
+                if (!str(k) || !expect(':') || !skip()) return false;
+            } while (eat(','));
+            return expect('}');
+        }
+        if (c == '[') {
+            ++p;
+            if (eat(']')) return true;
+            do { if (!skip()) return false; } while (eat(','));
+            return expect(']');
+        }
+        if (!strncmp(p, "true", 4)) { p += 4; return true; }
+        if (!strncmp(p, "false", 5)) { p += 5; return true; }
+        if (!strncmp(p, "null", 4)) { p += 4; return true; }
+        long long n;
+        // tolerate floats when skipping
+        if (*p == '-' || (*p >= '0' && *p <= '9')) {
+            while (p < end && (*p == '-' || *p == '+' || *p == '.' ||
+                               *p == 'e' || *p == 'E' ||
+                               (*p >= '0' && *p <= '9'))) ++p;
+            return true;
+        }
+        (void)n;
+        fail("bad value");
+        return false;
+    }
+};
+
+constexpr int8_t KIND_INS = 0, KIND_SET = 1, KIND_DEL = 2, KIND_INC = 3;
+constexpr int32_t HEAD_PARENT = -1;
+
+struct Batch {
+    bool unsupported = false;
+    std::string err;
+    std::string err_obj;                   // object id ops must target
+    std::string scratch1, scratch2, scratch3, scratch4;  // join buffers
+    // per change
+    std::vector<std::string> actors;
+    std::vector<int32_t> seqs;
+    std::vector<std::string> deps_json;    // raw slices, decoded in python
+    std::vector<std::string> messages;     // "" = none
+    std::vector<uint8_t> has_message;
+    // per op
+    std::vector<int32_t> op_change;
+    std::vector<int8_t> op_kind;
+    std::vector<int32_t> op_ta, op_tc, op_pa, op_pc;
+    std::vector<int64_t> op_value;
+    // batch actor interning
+    std::vector<std::string> actor_table;
+    std::unordered_map<std::string, int32_t> actor_rank;
+
+    int32_t intern(const std::string& a) {
+        auto it = actor_rank.find(a);
+        if (it != actor_rank.end()) return it->second;
+        int32_t r = (int32_t)actor_table.size();
+        actor_table.push_back(a);
+        actor_rank.emplace(a, r);
+        return r;
+    }
+};
+
+// "actor:ctr" -> (rank, ctr); false if malformed
+bool parse_elem_id(Batch& b, const std::string& id, int32_t& a, int32_t& c) {
+    size_t pos = id.rfind(':');
+    if (pos == std::string::npos || pos + 1 >= id.size()) return false;
+    if (id.find('\n') != std::string::npos) return false;  // join-safe ids only
+    long long ctr = 0;
+    for (size_t i = pos + 1; i < id.size(); i++) {
+        if (id[i] < '0' || id[i] > '9') return false;
+        ctr = ctr * 10 + (id[i] - '0');
+        if (ctr > INT32_MAX) return false;  // python fallback, no truncation
+    }
+    a = b.intern(id.substr(0, pos));
+    c = (int32_t)ctr;
+    return true;
+}
+
+// single-char UTF-8 string -> codepoint, or -1
+int64_t single_codepoint(const std::string& s) {
+    if (s.empty()) return -1;
+    unsigned char c0 = s[0];
+    size_t need = c0 < 0x80 ? 1 : (c0 >> 5) == 6 ? 2 : (c0 >> 4) == 14 ? 3
+                  : (c0 >> 3) == 30 ? 4 : 0;
+    if (need == 0 || s.size() != need) return -1;
+    if (need == 1) return c0;
+    uint32_t cp = c0 & (0x7F >> need);
+    for (size_t i = 1; i < need; i++) {
+        if ((s[i] & 0xC0) != 0x80) return -1;
+        cp = (cp << 6) | (s[i] & 0x3F);
+    }
+    return cp;
+}
+
+bool parse_op(Parser& ps, Batch& b, const std::string& obj_id,
+              int32_t change_row) {
+    if (!ps.expect('{')) return false;
+    std::string action, obj, key, value_str;
+    long long elem = -1, value_int = 0;
+    bool have_value_str = false, have_value_int = false, value_other = false;
+    bool have_datatype = false;
+    if (!ps.peek('}')) do {
+        std::string k;
+        if (!ps.str(k) || !ps.expect(':')) return false;
+        if (k == "action") { if (!ps.str(action)) return false; }
+        else if (k == "obj") { if (!ps.str(obj)) return false; }
+        else if (k == "key") { if (!ps.str(key)) return false; }
+        else if (k == "elem") { if (!ps.integer(elem)) return false; }
+        else if (k == "value") {
+            ps.ws();
+            if (ps.peek('"')) { have_value_str = ps.str(value_str); if (!have_value_str) return false; }
+            else if (ps.p < ps.end && (*ps.p == '-' || (*ps.p >= '0' && *ps.p <= '9'))) {
+                if (!ps.integer(value_int)) { value_other = true; ps.ok = true; if (!ps.skip()) return false; }
+                else have_value_int = true;
+            } else { value_other = true; if (!ps.skip()) return false; }
+        }
+        else if (k == "datatype") { have_datatype = true; if (!ps.skip()) return false; }
+        else { if (!ps.skip()) return false; }
+    } while (ps.eat(','));
+    if (!ps.expect('}')) return false;
+
+    if (obj != obj_id) { b.unsupported = true; b.err = "op targets other object"; return true; }
+    b.op_change.push_back(change_row);
+    if (action == "ins") {
+        if (elem < 0 || elem > INT32_MAX) {
+            // missing 'elem' field (stays -1) or out of int32 range: defer
+            // to the python decoder rather than emit a corrupt packed key
+            b.unsupported = true;
+            b.err = elem < 0 ? "ins without elem" : "elem out of range";
+        }
+        b.op_kind.push_back(KIND_INS);
+        b.op_ta.push_back(-2);  // filled by caller: the change's actor
+        b.op_tc.push_back(elem < 0 || elem > INT32_MAX ? 0 : (int32_t)elem);
+        if (key == "_head") { b.op_pa.push_back(HEAD_PARENT); b.op_pc.push_back(0); }
+        else {
+            int32_t a = HEAD_PARENT, c = 0;
+            if (!parse_elem_id(b, key, a, c)) {
+                // keep columns aligned: the post-parse fixup loop walks all
+                // columns of this change even on the unsupported path
+                b.unsupported = true; b.err = "bad elemId";
+            }
+            b.op_pa.push_back(a); b.op_pc.push_back(c);
+        }
+        b.op_value.push_back(0);
+    } else if (action == "set" || action == "del" || action == "inc") {
+        b.op_kind.push_back(action == "set" ? KIND_SET : action == "del" ? KIND_DEL : KIND_INC);
+        int32_t a = 0, c = 0;
+        if (!parse_elem_id(b, key, a, c)) {
+            b.unsupported = true; b.err = "bad elemId";  // columns stay aligned
+            a = 0; c = 0;
+        }
+        b.op_ta.push_back(a); b.op_tc.push_back(c);
+        b.op_pa.push_back(HEAD_PARENT); b.op_pc.push_back(0);
+        if (action == "set") {
+            if (have_datatype || value_other || have_value_int) {
+                // pooled / rich values -> python decoder
+                b.unsupported = true; b.err = "rich value";
+                b.op_value.push_back(0);
+            } else if (have_value_str) {
+                int64_t cp = single_codepoint(value_str);
+                if (cp < 0) { b.unsupported = true; b.err = "multi-char value"; }
+                b.op_value.push_back(cp < 0 ? 0 : cp);
+            } else { b.unsupported = true; b.err = "missing value"; b.op_value.push_back(0); }
+        } else if (action == "inc") {
+            b.op_value.push_back(have_value_int ? value_int : 0);
+            if (!have_value_int) { b.unsupported = true; b.err = "inc without int"; }
+        } else b.op_value.push_back(0);
+    } else {
+        b.unsupported = true; b.err = "unsupported action: " + action;
+        // keep columns aligned
+        b.op_kind.push_back(KIND_DEL);
+        b.op_ta.push_back(0); b.op_tc.push_back(0);
+        b.op_pa.push_back(HEAD_PARENT); b.op_pc.push_back(0);
+        b.op_value.push_back(0);
+    }
+    return true;
+}
+
+bool parse_change(Parser& ps, Batch& b) {
+    if (!ps.expect('{')) return false;
+    int32_t row = (int32_t)b.actors.size();
+    b.actors.emplace_back();
+    b.seqs.push_back(0);
+    b.deps_json.emplace_back("{}");
+    b.messages.emplace_back();
+    b.has_message.push_back(0);
+    size_t ops_from = b.op_kind.size();
+    // the python decoder raises on changes missing these fields; the
+    // native tier must fall back, never default them (a seq-0 change
+    // would queue forever in causal admission)
+    bool saw_actor = false, saw_seq = false, saw_ops = false;
+    if (!ps.peek('}')) do {
+        std::string k;
+        if (!ps.str(k) || !ps.expect(':')) return false;
+        if (k == "actor") {
+            saw_actor = true;
+            if (!ps.str(b.actors[row])) return false;
+            // actor ids travel '\n'-joined to python; exotic ids fall back
+            if (b.actors[row].find('\n') != std::string::npos) {
+                b.unsupported = true; b.err = "newline in actor id";
+            }
+        }
+        else if (k == "seq") {
+            saw_seq = true;
+            long long s; if (!ps.integer(s)) return false;
+            if (s < 0 || s > INT32_MAX) { b.unsupported = true; b.err = "seq out of range"; s = 0; }
+            b.seqs[row] = (int32_t)s;
+        }
+        else if (k == "deps") {
+            // deps is a flat {actor: seq} map; re-serialize compactly (the
+            // python side json-decodes each line, so no raw input slices —
+            // pretty-printed payloads must round-trip too)
+            if (!ps.expect('{')) return false;
+            std::string& out = b.deps_json[row];
+            out = "{";
+            if (!ps.peek('}')) {
+                bool first = true;
+                do {
+                    std::string dk;
+                    long long dv;
+                    if (!ps.str(dk) || !ps.expect(':')) return false;
+                    if (!ps.integer(dv)) { b.unsupported = true; b.err = "non-int dep"; return false; }
+                    if (!first) out.push_back(',');
+                    first = false;
+                    out.push_back('"');
+                    for (char ch : dk) {  // JSON-escape the actor id
+                        if (ch == '"' || ch == '\\') { out.push_back('\\'); out.push_back(ch); }
+                        else if ((unsigned char)ch < 0x20) {
+                            char buf[8];
+                            snprintf(buf, sizeof buf, "\\u%04x", ch);
+                            out += buf;
+                        } else out.push_back(ch);
+                    }
+                    out += "\":" + std::to_string(dv);
+                } while (ps.eat(','));
+            }
+            if (!ps.expect('}')) return false;
+            out.push_back('}');
+        }
+        else if (k == "message") {
+            ps.ws();
+            if (ps.peek('"')) {
+                if (!ps.str(b.messages[row])) return false;
+                b.has_message[row] = 1;
+                if (b.messages[row].find('\x1f') != std::string::npos) {
+                    b.unsupported = true; b.err = "separator in message";
+                }
+            }
+            else {
+                // null means absent (matches python's None); any other
+                // non-string value the python path PRESERVES, so the
+                // native tier must not silently drop it
+                if (!ps.peek('n')) {
+                    b.unsupported = true; b.err = "non-string message";
+                }
+                if (!ps.skip()) return false;
+            }
+        }
+        else if (k == "ops") {
+            saw_ops = true;
+            if (!ps.expect('[')) return false;
+            if (!ps.eat(']')) {
+                do { if (!parse_op(ps, b, b.err_obj, row)) return false; } while (ps.eat(','));
+                if (!ps.expect(']')) return false;
+            }
+        }
+        else { if (!ps.skip()) return false; }
+    } while (ps.eat(','));
+    if (!ps.expect('}')) return false;
+    if (!saw_actor || !saw_seq || !saw_ops) {
+        b.unsupported = true; b.err = "change missing actor/seq/ops";
+    }
+    // ins target actor = the change's own actor
+    int32_t rank = b.intern(b.actors[row]);
+    for (size_t i = ops_from; i < b.op_kind.size(); i++)
+        if (b.op_ta[i] == -2) b.op_ta[i] = rank;
+    return true;
+}
+
+struct Handle {
+    Batch b;
+    std::string obj_id;
+};
+
+}  // namespace
+
+extern "C" {
+
+void* amtpu_parse(const char* json, long json_len, const char* obj_id) {
+    auto* h = new Handle();
+    h->obj_id = obj_id;
+    h->b.err_obj = obj_id;
+    Parser ps(json, (size_t)json_len);
+    if (!ps.expect('[')) { h->b.unsupported = true; h->b.err = ps.err; return h; }
+    if (!ps.eat(']')) {
+        do {
+            if (!parse_change(ps, h->b)) {
+                h->b.unsupported = true;
+                h->b.err = ps.err.empty() ? "parse error" : ps.err;
+                return h;
+            }
+        } while (ps.eat(','));
+        if (!ps.expect(']')) { h->b.unsupported = true; h->b.err = ps.err; }
+    }
+    return h;
+}
+
+int amtpu_unsupported(void* hv) { return ((Handle*)hv)->b.unsupported ? 1 : 0; }
+
+const char* amtpu_error(void* hv) { return ((Handle*)hv)->b.err.c_str(); }
+
+long amtpu_n_changes(void* hv) { return (long)((Handle*)hv)->b.actors.size(); }
+long amtpu_n_ops(void* hv) { return (long)((Handle*)hv)->b.op_kind.size(); }
+long amtpu_n_actors(void* hv) { return (long)((Handle*)hv)->b.actor_table.size(); }
+
+void amtpu_fill_ops(void* hv, int32_t* op_change, int8_t* op_kind,
+                    int32_t* ta, int32_t* tc, int32_t* pa, int32_t* pc,
+                    int64_t* value) {
+    Batch& b = ((Handle*)hv)->b;
+    size_t n = b.op_kind.size();
+    memcpy(op_change, b.op_change.data(), n * 4);
+    memcpy(op_kind, b.op_kind.data(), n);
+    memcpy(ta, b.op_ta.data(), n * 4);
+    memcpy(tc, b.op_tc.data(), n * 4);
+    memcpy(pa, b.op_pa.data(), n * 4);
+    memcpy(pc, b.op_pc.data(), n * 4);
+    memcpy(value, b.op_value.data(), n * 8);
+}
+
+void amtpu_fill_seqs(void* hv, int32_t* seqs) {
+    Batch& b = ((Handle*)hv)->b;
+    memcpy(seqs, b.seqs.data(), b.seqs.size() * 4);
+}
+
+// '\n'-joined string tables (actors, actor_table, deps json, messages)
+static void join(const std::vector<std::string>& v, std::string& out) {
+    out.clear();
+    for (size_t i = 0; i < v.size(); i++) {
+        if (i) out.push_back('\n');
+        out += v[i];
+    }
+}
+
+const char* amtpu_actors(void* hv) {
+    auto* h = (Handle*)hv;
+    join(h->b.actors, h->b.scratch1);
+    return h->b.scratch1.c_str();
+}
+const char* amtpu_actor_table(void* hv) {
+    auto* h = (Handle*)hv;
+    join(h->b.actor_table, h->b.scratch2);
+    return h->b.scratch2.c_str();
+}
+const char* amtpu_deps(void* hv) {
+    auto* h = (Handle*)hv;
+    join(h->b.deps_json, h->b.scratch3);
+    return h->b.scratch3.c_str();
+}
+const char* amtpu_messages(void* hv) {
+    auto* h = (Handle*)hv;
+    // messages may contain '\n'; join with '\x1f' (unit separator)
+    h->b.scratch4.clear();
+    for (size_t i = 0; i < h->b.messages.size(); i++) {
+        if (i) h->b.scratch4.push_back('\x1f');
+        h->b.scratch4.push_back(h->b.has_message[i] ? '1' : '0');
+        h->b.scratch4 += h->b.messages[i];
+    }
+    return h->b.scratch4.c_str();
+}
+
+void amtpu_free(void* hv) { delete (Handle*)hv; }
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Typing-run detection over columnar op batches: the single-pass native
+// form of engine/runs.py:detect_runs (same predicate, op by op). Python
+// numpy needs ~8 vectorized passes over the columns; this walks them once.
+// ---------------------------------------------------------------------------
+
+struct RunPlan {
+    std::vector<int64_t> hpos, run_len, head_slot, rpos, res_new_slot;
+    std::vector<int32_t> blob;
+    int64_t n_ins = 0;
+    bool blob_lt_128 = true, blob_lt_256 = true;
+};
+
+// ---------------------------------------------------------------------------
+// Parallel run detection. The greedy scan carries only (a) whether the scan
+// position is even with respect to pair consumption — i.e. whether a pair
+// crossing the chunk boundary consumed its first op — and (b) whether the
+// immediately preceding pair ended at pos-2 (run contiguity). Chunks are
+// therefore simulated speculatively for the two possible entry ALIGNMENTS
+// (boundary op not consumed / consumed by a boundary-crossing pair), with
+// contiguity resolved by construction: the sim assumes the "a pair may have
+// ended at start-2" basis, and pairs continuing that entry run accumulate in
+// `lead_len` instead of minting a head. The serial stitch then either merges
+// the lead into the previous chunk's last run (entry was contiguous) or
+// mints the head at the chunk start (it was not). Head slots / residual
+// slots are stored chunk-local and rebased by the stitched global INS count.
+// ---------------------------------------------------------------------------
+
+struct SimOut {
+    std::vector<int64_t> hpos, run_len, head_ins;  // heads; local ins before
+    std::vector<int64_t> rpos, res_ins;  // residuals; local ins after, or -1
+    std::vector<int32_t> blob;
+    int64_t lead_len = 0;   // pairs continuing the PREVIOUS chunk's run
+    int64_t ins_count = 0;  // INS ops consumed in this chunk
+    int exit_state = 0;     // next chunk entry: 0 aligned/non-contig,
+                            // 1 aligned/contig, 2 misaligned (consumed)
+    bool blob_lt_128 = true, blob_lt_256 = true;
+};
+
+static void simulate_chunk(
+    int64_t start, int64_t end, int64_t n, const int8_t* kind,
+    const int32_t* ta, const int32_t* tc, const int32_t* pa,
+    const int32_t* pc, const int64_t* val, const int32_t* row,
+    SimOut& o) {
+    constexpr int8_t INS = 0, SET = 1;
+    constexpr int64_t NO_PAIR = INT64_MIN;  // can never equal i-2
+    if (end > start) {
+        o.blob.reserve((end - start) / 2 + 1);  // avoid regrow copies of
+        o.hpos.reserve(1024);                   // the per-pair vector
+        o.run_len.reserve(1024);
+        o.head_ins.reserve(1024);
+    }
+    int64_t prev_pair = start - 2;  // entry basis: a pair MAY have ended
+                                    // at start-2 (stitch resolves truth)
+    // NOTE: a block-precomputed predicate-mask variant was measured
+    // SLOWER here (the short-circuiting scalar compares run once per
+    // PAIR, i.e. half the ops, while masks must be computed for every
+    // op); the win on this path is -O3 -march=x86-64-v3 codegen, not
+    // manual restructuring.
+    int64_t i = start;
+    while (i < end) {
+        bool pair = (kind[i] == INS && i + 1 < n && kind[i + 1] == SET
+                     && row[i + 1] == row[i] && ta[i + 1] == ta[i]
+                     && tc[i + 1] == tc[i] && val[i + 1] >= 0
+                     && val[i + 1] < (1LL << 31));
+        if (pair) {
+            bool cont = (prev_pair == i - 2 && prev_pair >= 0
+                         && row[i] == row[i - 2]
+                         && ta[i] == ta[i - 2] && tc[i] == tc[i - 2] + 1
+                         && pa[i] == ta[i - 2] && pc[i] == tc[i - 2]);
+            if (cont && o.hpos.empty() && o.rpos.empty()) {
+                o.lead_len++;  // unbroken cont prefix from `start`
+            } else if (cont) {
+                o.run_len.back()++;
+            } else {
+                o.hpos.push_back(i);
+                o.run_len.push_back(1);
+                o.head_ins.push_back(o.ins_count);
+            }
+            int64_t v = val[i + 1];
+            o.blob.push_back((int32_t)v);
+            if (v >= 128) o.blob_lt_128 = false;
+            if (v >= 256) o.blob_lt_256 = false;
+            o.ins_count++;
+            prev_pair = i;
+            i += 2;
+        } else {
+            o.rpos.push_back(i);
+            if (kind[i] == INS) {
+                o.ins_count++;
+                o.res_ins.push_back(o.ins_count);
+            } else {
+                o.res_ins.push_back(-1);
+            }
+            prev_pair = NO_PAIR;
+            i += 1;
+        }
+    }
+    if (i == end) {
+        o.exit_state = (prev_pair == end - 2 && prev_pair >= 0) ? 1 : 0;
+    } else {
+        o.exit_state = 2;  // the pair at end-1 consumed op `end`
+    }
+}
+
+extern "C" {
+
+void* amtpu_detect_runs(
+    int64_t n, const int8_t* kind, const int32_t* ta, const int32_t* tc,
+    const int32_t* pa, const int32_t* pc, const int64_t* val,
+    const int32_t* row, int64_t base_elems) {
+    auto* p = new RunPlan();
+
+    constexpr int64_t MIN_CHUNK = 1 << 19;  // thread fan-out threshold
+    int64_t hw = (int64_t)std::thread::hardware_concurrency();
+    // test/tuning hook: AMTPU_DETECT_THREADS forces the fan-out width so
+    // the speculative stitch is exercisable on low-core machines
+    if (const char* env_t = getenv("AMTPU_DETECT_THREADS")) {
+        long forced = atol(env_t);
+        if (forced > 0) hw = forced;
+    }
+    int64_t T = std::min(hw > 0 ? hw : 1, (n + MIN_CHUNK - 1) / MIN_CHUNK);
+    T = std::min<int64_t>(T, 32);
+
+    if (T <= 1) {
+        // serial: single chunk, entry aligned and non-contiguous (a lead
+        // cannot form: prev_pair = -2 fails the >= 0 guard)
+        SimOut s;
+        simulate_chunk(0, n, n, kind, ta, tc, pa, pc, val, row, s);
+        p->hpos = std::move(s.hpos);
+        p->run_len = std::move(s.run_len);
+        p->head_slot.resize(p->hpos.size());
+        for (size_t j = 0; j < p->hpos.size(); ++j)
+            p->head_slot[j] = base_elems + s.head_ins[j] + 1;
+        p->rpos = std::move(s.rpos);
+        p->res_new_slot.resize(p->rpos.size());
+        for (size_t j = 0; j < p->rpos.size(); ++j)
+            p->res_new_slot[j] =
+                s.res_ins[j] >= 0 ? base_elems + s.res_ins[j] : -1;
+        p->blob = std::move(s.blob);
+        p->n_ins = s.ins_count;
+        p->blob_lt_128 = s.blob_lt_128;
+        p->blob_lt_256 = s.blob_lt_256;
+        return p;
+    }
+
+    std::vector<int64_t> cuts(T + 1);
+    for (int64_t k = 0; k <= T; ++k) cuts[k] = n * k / T;
+    // two sims per chunk: entry aligned at cuts[k], entry misaligned at
+    // cuts[k]+1 (chunk 0 only aligned)
+    std::vector<SimOut> A(T), M(T);
+    std::vector<std::thread> threads;
+    threads.reserve(2 * T - 1);  // one thread per SIM (not per chunk):
+    for (int64_t k = 0; k < T; ++k) {  // keeps the critical path ~n/T
+        threads.emplace_back([&, k] {  // instead of 2n/T
+            simulate_chunk(cuts[k], cuts[k + 1], n, kind, ta, tc, pa, pc,
+                           val, row, A[k]);
+        });
+        if (k > 0)
+            threads.emplace_back([&, k] {
+                simulate_chunk(cuts[k] + 1, cuts[k + 1], n, kind, ta, tc,
+                               pa, pc, val, row, M[k]);
+            });
+    }
+    for (auto& t : threads) t.join();
+
+    // serial stitch: resolve each chunk's entry state, rebase slots
+    int state = 0;
+    int64_t ins_base = 0;
+    for (int64_t k = 0; k < T; ++k) {
+        SimOut& s = (state == 2) ? M[k] : A[k];
+        if (s.lead_len) {
+            if (state == 0) {
+                // entry was NOT contiguous: the lead is its own run
+                // headed at the chunk's first op (local ins count 0;
+                // state 0 implies the aligned sim, so the first op is
+                // at cuts[k])
+                p->hpos.push_back(cuts[k]);
+                p->run_len.push_back(s.lead_len);
+                p->head_slot.push_back(base_elems + ins_base + 1);
+            } else {
+                p->run_len.back() += s.lead_len;
+            }
+        }
+        p->hpos.insert(p->hpos.end(), s.hpos.begin(), s.hpos.end());
+        p->run_len.insert(p->run_len.end(), s.run_len.begin(),
+                          s.run_len.end());
+        for (int64_t h : s.head_ins)
+            p->head_slot.push_back(base_elems + ins_base + h + 1);
+        p->rpos.insert(p->rpos.end(), s.rpos.begin(), s.rpos.end());
+        for (int64_t r : s.res_ins)
+            p->res_new_slot.push_back(
+                r >= 0 ? base_elems + ins_base + r : -1);
+        p->blob.insert(p->blob.end(), s.blob.begin(), s.blob.end());
+        p->blob_lt_128 = p->blob_lt_128 && s.blob_lt_128;
+        p->blob_lt_256 = p->blob_lt_256 && s.blob_lt_256;
+        ins_base += s.ins_count;
+        state = s.exit_state;
+    }
+    p->n_ins = ins_base;
+    return p;
+}
+
+int64_t amtpu_plan_n_runs(void* pv) { return (int64_t)((RunPlan*)pv)->hpos.size(); }
+int64_t amtpu_plan_n_pairs(void* pv) { return (int64_t)((RunPlan*)pv)->blob.size(); }
+int64_t amtpu_plan_n_res(void* pv) { return (int64_t)((RunPlan*)pv)->rpos.size(); }
+int64_t amtpu_plan_n_ins(void* pv) { return ((RunPlan*)pv)->n_ins; }
+int amtpu_plan_blob_lt(void* pv, int bound) {
+    auto* p = (RunPlan*)pv;
+    return bound == 128 ? p->blob_lt_128 : p->blob_lt_256;
+}
+
+void amtpu_plan_fill(void* pv, int64_t* hpos, int64_t* run_len,
+                     int64_t* head_slot, int64_t* rpos,
+                     int64_t* res_new_slot, int32_t* blob) {
+    auto* p = (RunPlan*)pv;
+    memcpy(hpos, p->hpos.data(), p->hpos.size() * 8);
+    memcpy(run_len, p->run_len.data(), p->run_len.size() * 8);
+    memcpy(head_slot, p->head_slot.data(), p->head_slot.size() * 8);
+    memcpy(rpos, p->rpos.data(), p->rpos.size() * 8);
+    memcpy(res_new_slot, p->res_new_slot.data(), p->res_new_slot.size() * 8);
+    memcpy(blob, p->blob.data(), p->blob.size() * 4);
+}
+
+void amtpu_plan_free(void* pv) { delete (RunPlan*)pv; }
+
+}  // extern "C"

@@ -27,7 +27,7 @@ import time
 from contextlib import contextmanager
 from typing import Optional
 
-from .recorder import FlightRecorder, span_seconds  # noqa: F401
+from .recorder import EVENT_DUR, FlightRecorder, span_seconds  # noqa: F401
 from .telemetry import Telemetry
 
 #: THE fast-path gate, mutated only by enable()/disable().
@@ -84,6 +84,31 @@ def span(cat: str, name: str, t0_ns: int, args: Optional[dict] = None,
     tel = _telemetry
     if tel is not None:
         tel.observe_span(cat, name, dur, ts_ns=t0_ns)
+
+
+def event(cat: str, name: str, args: Optional[dict] = None, n: int = 1):
+    """Record an instant event and bump its counter."""
+    rec = _recorder
+    if rec is None:
+        return
+    ts = time.perf_counter_ns()
+    rec.emit((ts, EVENT_DUR, cat, name, threading.get_ident(), args))
+    rec.bump((cat, name), n)
+    tel = _telemetry
+    if tel is not None:
+        tel.observe_count(cat, name, n, ts_ns=ts)
+
+
+@contextmanager
+def span_ctx(cat: str, name: str, args: Optional[dict] = None):
+    """Span context manager for call sites off the hot path (scripts,
+    tests); hot paths use the explicit now()/span() pair behind the flag."""
+    t0 = now() if ENABLED else 0
+    try:
+        yield
+    finally:
+        if ENABLED and t0:
+            span(cat, name, t0, args)
 
 
 def counter(cat: str, name: str, n: int = 1):

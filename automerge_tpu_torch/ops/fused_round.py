@@ -10,6 +10,11 @@ Counterpart of the solo tier of `automerge_tpu/ops/fused_round.py`:
   round end to end: expansion plus the codes-only materialization
   (self-contained, or with the host-planned segment structure).
 
+Given `store=` (a `TableStore`, ops/ingest.py, whose views are the tables
+passed), each program writes the round into the live tables' storage: the
+port's form of the JAX package's `*_donated` twins (fused_round.py:179,
+:206, :231 there). The results equal the out-of-place forms' bit for bit.
+
 The expansion's (6, N) boundary-delta prefix sum runs through the
 `multi_scan` kernel (ops/scan_kernels.py) on a CUDA tensor and its plain
 version on a CPU tensor; there is no other switch.
@@ -36,10 +41,11 @@ def _meta(desc, k: int):
     return desc[DESC_META, min(k, desc.shape[1] - 1)]
 
 
-def _fused_expand(tables, desc, blob, *, out_cap: int):
+def _fused_expand(tables, desc, blob, *, out_cap: int, store=None):
     """Run expansion with the (6, N) column prefix sum on `multi_scan`,
     plus the run-head chain breaks applied from the descriptor (idempotent
-    for sparse plans — their touch matrices carry the same triples).
+    for sparse plans — their touch matrices carry the same triples). With
+    a `store`, the rows are written in place.
 
     Every per-element column is piecewise affine over runs (constant or +1
     per element), so the columns come from boundary deltas at each run's
@@ -93,7 +99,7 @@ def _fused_expand(tables, desc, blob, *, out_cap: int):
         (parent_col, ctr_col, cols[2], blob.to(I32), has_col,
          torch.where(has_col, cols[3], -1), torch.where(has_col, cols[4], 0),
          torch.zeros(N, dtype=I32, device=dev), live & ~is_start),
-        out_cap)
+        out_cap, store)
 
     n_runs = _meta(desc, META_N_RUNS)
     live_r = torch.arange(R, dtype=I32, device=dev) < n_runs
@@ -101,25 +107,25 @@ def _fused_expand(tables, desc, blob, *, out_cap: int):
         tables[8], tables[0], tables[1], tables[2],
         torch.where(live_r, run_parent_slot, 0),
         torch.where(live_r, run_ctr0, -1),
-        torch.where(live_r, run_actor, -1))
+        torch.where(live_r, run_actor, -1), store)
     return tables[:8] + (chain_n,)
 
 
 def fused_mixed_round(parent, ctr, actor, value, has_value, win_actor,
                       win_seq, win_counter, chain, desc, blob, res,
-                      conflict_slots, touch, *, out_cap: int):
+                      conflict_slots, touch, *, out_cap: int, store=None):
     """One round of any shape: every phase runs unconditionally over
     padding-convention no-ops. Returns the 9 tables + the (7, M)
     slow_info (callers skip its fetch when the round staged no
     residuals)."""
     tables = (parent, ctr, actor, value, has_value, win_actor, win_seq,
               win_counter, chain)
-    tables = _fused_expand(tables, desc, blob, out_cap=out_cap)
+    tables = _fused_expand(tables, desc, blob, out_cap=out_cap, store=store)
     out = _apply_residual_packed(*tables, res, conflict_slots,
-                                 out_cap=out_cap)
+                                 out_cap=out_cap, store=store)
     tables, slow_info = out[:9], out[9]
     tables = tables[:8] + (_break_chains_packed(
-        tables[8], tables[0], tables[1], tables[2], touch),)
+        tables[8], tables[0], tables[1], tables[2], touch, store),)
     return tables + (slow_info,)
 
 
@@ -129,36 +135,40 @@ def _commit_n_elems(desc):
     return _meta(desc, META_BASE_SLOT) + _meta(desc, META_N_ELEMS) - 1
 
 
-def fused_commit_round(parent, ctr, actor, value, has_value, win_actor,
-                       win_seq, win_counter, chain, desc, blob, *,
-                       out_cap: int, S: int, as_u8: bool, L: int):
-    """The dense merge round end to end: expansion + the self-contained
-    codes-only materialization. Returns the 9 tables + (codes, scalars)."""
-    tables = _fused_expand(
-        (parent, ctr, actor, value, has_value, win_actor, win_seq,
-         win_counter, chain), desc, blob, out_cap=out_cap)
+def _commit_round(tables, desc, blob, segplan, out_cap, S, as_u8, L, store):
+    tables = _fused_expand(tables, desc, blob, out_cap=out_cap, store=store)
     cols = _slice_live((tables[0], tables[1], tables[2], tables[3],
                         tables[4], tables[8]), L)
-    codes, scalars = _materialize_core(*cols, _commit_n_elems(desc), S,
-                                       with_pos=False, as_u8=as_u8)
+    if segplan is None:
+        codes, scalars = _materialize_core(
+            *cols, _commit_n_elems(desc), S, with_pos=False, as_u8=as_u8)
+    else:
+        codes, scalars = _materialize_core_planned(
+            *cols, _commit_n_elems(desc), segplan, S, with_pos=False,
+            as_u8=as_u8)
     return tables + (codes, scalars)
+
+
+def fused_commit_round(parent, ctr, actor, value, has_value, win_actor,
+                       win_seq, win_counter, chain, desc, blob, *,
+                       out_cap: int, S: int, as_u8: bool, L: int,
+                       store=None):
+    """The dense merge round end to end: expansion + the self-contained
+    codes-only materialization. Returns the 9 tables + (codes, scalars)."""
+    return _commit_round((parent, ctr, actor, value, has_value, win_actor,
+                          win_seq, win_counter, chain), desc, blob, None,
+                         out_cap, S, as_u8, L, store)
 
 
 def fused_commit_round_planned(parent, ctr, actor, value, has_value,
                                win_actor, win_seq, win_counter, chain, desc,
                                blob, segplan, *, out_cap: int, S: int,
-                               as_u8: bool, L: int):
+                               as_u8: bool, L: int, store=None):
     """`fused_commit_round` with the materialization's segment structure
     staged from the host plan (no device sort, no pointer doubling)."""
-    tables = _fused_expand(
-        (parent, ctr, actor, value, has_value, win_actor, win_seq,
-         win_counter, chain), desc, blob, out_cap=out_cap)
-    cols = _slice_live((tables[0], tables[1], tables[2], tables[3],
-                        tables[4], tables[8]), L)
-    codes, scalars = _materialize_core_planned(
-        *cols, _commit_n_elems(desc), segplan, S, with_pos=False,
-        as_u8=as_u8)
-    return tables + (codes, scalars)
+    return _commit_round((parent, ctr, actor, value, has_value, win_actor,
+                          win_seq, win_counter, chain), desc, blob, segplan,
+                         out_cap, S, as_u8, L, store)
 
 
 _DUMMIES: dict = {}

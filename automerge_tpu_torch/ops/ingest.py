@@ -1,12 +1,24 @@
-"""Device-side batch ingestion for the columnar text engine, in PyTorch.
+"""Device-side batch ingestion for the columnar engines, in PyTorch.
 
-Counterpart of the text-engine subset of `automerge_tpu/ops/ingest.py`:
-run expansion (through ops/fused_round.py), residual placement with the
-LWW register fast path, chain breaks, the chain-condensed materialization
-(self-contained and host-planned), and the register writeback. Every
-function is a plain function on tensors and runs out of place, on the
-device its inputs live on; shapes and `bucket()` sizes are the JAX
-package's, so the two produce identical tables.
+Counterpart of the text- and map-engine subset of
+`automerge_tpu/ops/ingest.py`: run expansion (through
+ops/fused_round.py), residual placement with the LWW register fast path,
+chain breaks, the chain-condensed materialization (self-contained and
+host-planned), the map round, and the register writeback. Every function
+is a plain function on tensors, on the device its inputs live on; shapes
+and `bucket()` sizes are the JAX package's, so the two produce identical
+tables.
+
+**In-place rounds** (the port's form of the JAX package's `*_donated`
+twins). The functions here run out of place by default. Given a
+`TableStore`, the commit-path scatters (`_scatter_rows_9`,
+`_register_fast_path`, `_break_chains_core`, `scatter_registers_packed`)
+write the round's rows into the store's buffers instead, which are the
+live tables' storage: a round at an unchanged capacity allocates no
+table set, and a round that grows the capacity allocates one, once.
+The document selects them with `donate_buffers` (engine/base.py), and a
+round that raises after its first in-place write leaves no valid table
+state (`TableStore.writes` tells the two cases apart).
 
 Semantics that differ between JAX and PyTorch are made explicit here
 rather than inherited:
@@ -121,6 +133,92 @@ def _cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 # ------------------------------------------------------- table scatters
 
+#: the text engine's 9 element tables and their padding fills (bool fill:
+#: a bool table), in the row order every commit-path program uses
+TEXT_TABLE_KEYS = ("parent", "ctr", "actor", "value", "has_value",
+                   "win_actor", "win_seq", "win_counter", "chain")
+TEXT_TABLE_FILLS = (0, 0, 0, 0, False, -1, 0, False, False)
+#: the 5 register tables (every engine has them)
+REG_KEYS = ("value", "has_value", "win_actor", "win_seq", "win_counter")
+REG_FILLS = (0, False, -1, 0, False)
+
+
+class TableStore:
+    """A document's tables packed for in-place rounds.
+
+    The int32 tables are the rows of one (K, W) int32 buffer and the bool
+    tables the rows of one (B, W) bool buffer, with W = cap + 1 rounded up
+    to a multiple of 16 so that every row starts 16-byte aligned. Column
+    `cap` is the scratch where dropped scatter indices land
+    (`_drop_index`), so a scatter writes straight into the storage; the
+    tables are the rows' [:cap] views (`views`). Only `grow` allocates;
+    `writes` counts the in-place scatters, so a failed round can tell
+    whether it touched the live tables."""
+
+    def __init__(self, keys, fills, tables: dict, cap: int):
+        self.keys = tuple(keys)
+        self.fills = dict(zip(self.keys, fills))
+        bools = [k for k in self.keys if isinstance(self.fills[k], bool)]
+        ints = [k for k in self.keys if k not in bools]
+        #: key -> (buffer: 0 int32 / 1 bool, row)
+        self._row = {k: (0, r) for r, k in enumerate(ints)}
+        self._row.update({k: (1, r) for r, k in enumerate(bools)})
+        self._n_rows = (len(ints), len(bools))
+        self.writes = 0
+        self._alloc(cap, tables)
+
+    def _alloc(self, cap: int, tables: dict):
+        width = -(-(cap + 1) // 16) * 16
+        dev = tables[self.keys[0]].device
+        bufs = (torch.empty((self._n_rows[0], width), dtype=I32, device=dev),
+                torch.empty((self._n_rows[1], width), dtype=torch.bool,
+                            device=dev))
+        for k, (b, r) in self._row.items():
+            t = tables[k]
+            bufs[b][r, :t.shape[0]] = t
+            bufs[b][r, t.shape[0]:] = self.fills[k]
+        self.cap = cap
+        self._bufs = bufs
+        self.views = {k: bufs[b][r, :cap] for k, (b, r) in self._row.items()}
+
+    def rows(self) -> tuple:
+        """The table views in key order."""
+        return tuple(self.views[k] for k in self.keys)
+
+    def holds(self, tables: dict) -> bool:
+        """Whether `tables` are exactly this store's views."""
+        return all(tables.get(k) is v for k, v in self.views.items())
+
+    def grow(self, cap: int):
+        """Reallocate at a larger capacity (one copy; padding filled)."""
+        if cap > self.cap:
+            self._alloc(cap, self.views)
+
+    def put(self, keys, idx: torch.Tensor, updates):
+        """`table.at[idx].set(update, mode="drop")` for each key, in place:
+        one column scatter per buffer over the rows the keys name (an
+        update may be a Python scalar, broadcast along idx). The keys of
+        one buffer must name contiguous rows, as TEXT_TABLE_KEYS, REG_KEYS
+        and ("chain",) do in both layouts."""
+        di = _drop_index(idx, self.cap)
+        M = di.shape[0]
+        groups = ([], [])
+        for k, u in zip(keys, updates):
+            b, r = self._row[k]
+            dtype = torch.bool if b else I32
+            groups[b].append((r, u.to(dtype) if torch.is_tensor(u) else
+                              torch.full((M,), u, dtype=dtype,
+                                         device=di.device)))
+        for b, group in enumerate(groups):
+            if not group:
+                continue
+            group.sort(key=lambda g: g[0])
+            lo, hi = group[0][0], group[-1][0] + 1
+            assert hi - lo == len(group), "rows of one put must be contiguous"
+            self._bufs[b][lo:hi, di] = torch.stack([v for _, v in group])
+        self.writes += 1
+
+
 def _set_drop_rows(rows, fills, idx, updates, n: int) -> torch.Tensor:
     """Write K aligned rows at `idx` as ONE column scatter into a
     (K, n + 1) int32 buffer: row r is `rows[r]` padded with `fills[r]` to
@@ -136,12 +234,16 @@ def _set_drop_rows(rows, fills, idx, updates, n: int) -> torch.Tensor:
     return buf[:, :n]
 
 
-def _scatter_rows_9(tables, idx, updates, out_cap: int):
+def _scatter_rows_9(tables, idx, updates, out_cap: int, store=None):
     """Write 9 aligned element-table rows at `idx` as ONE scatter (shared
     index vector; out-of-range `idx` drops), the tables first extended to
-    `out_cap` with their padding fills. Row order: (parent, ctr, actor,
-    value, has_value, win_actor, win_seq, win_counter, chain); bool rows
-    ride as int32."""
+    `out_cap` with their padding fills. Row order: TEXT_TABLE_KEYS; bool
+    rows ride as int32. With a `store` the rows land in its buffers (one
+    scatter per dtype) and its views come back."""
+    if store is not None:
+        store.grow(out_cap)
+        store.put(TEXT_TABLE_KEYS, idx, updates)
+        return store.rows()
     out = _set_drop_rows(tables, (0, 0, 0, 0, 0, -1, 0, 0, 0), idx, updates,
                          max(tables[0].shape[0], out_cap))
     return (out[0], out[1], out[2], out[3], out[4].bool(), out[5], out[6],
@@ -154,30 +256,37 @@ def _unpack_desc(desc):
             desc[DESC_ELEM_BASE], desc[DESC_HAS_VALUE].bool())
 
 
-def _break_chains_core(chain, parent, ctr, actor, p_slots, h_ctr, h_actor):
+def _break_chains_core(chain, parent, ctr, actor, p_slots, h_ctr, h_actor,
+                       store=None):
     """Clear the chain bit of slot p+1 for every touched parent p whose new
-    child Lamport-exceeds (ctr, actor) of p+1 (breaks are sticky)."""
+    child Lamport-exceeds (ctr, actor) of p+1 (breaks are sticky). With a
+    `store`, in place."""
     C = chain.shape[0]
     q = (p_slots + 1).clamp(0, C - 1)
     cq = ctr[q.long()]
     aq = actor[q.long()]
     brk = (p_slots >= 1) & ((h_ctr > cq) | ((h_ctr == cq) & (h_actor > aq)))
-    return _set_drop(chain, torch.where(brk, q, C), False)
+    tgt = torch.where(brk, q, C)
+    if store is not None:
+        store.put(("chain",), tgt, (False,))
+        return store.views["chain"]
+    return _set_drop(chain, tgt, False)
 
 
-def _break_chains_packed(chain, parent, ctr, actor, touch):
+def _break_chains_packed(chain, parent, ctr, actor, touch, store=None):
     """`_break_chains_core` with the (p_slot, ctr, actor) touch rows packed
     as one (3, T) int32 matrix."""
     return _break_chains_core(chain, parent, ctr, actor,
-                              touch[0], touch[1], touch[2])
+                              touch[0], touch[1], touch[2], store)
 
 
 def _register_fast_path(value_n, has_n, wa_n, ws_n, wc_n, kind, is_assign,
                         op_slot, op_value, op_win_actor, op_win_seq,
-                        conflict_slots, out_cap):
+                        conflict_slots, out_cap, store=None):
     """Shared LWW register resolution: a single plain inline set in this
     round targeting an empty register or the op's own actor's earlier
     write is written here; everything else is flagged `slow` for the host.
+    With a `store` (of capacity `out_cap`) the writes land in place.
 
     Returns the updated registers plus the packed (7, M) `slow_info`
     [slow, tslot, reg_value, reg_has, reg_win_actor, reg_win_seq,
@@ -197,12 +306,15 @@ def _register_fast_path(value_n, has_n, wa_n, ws_n, wc_n, kind, is_assign,
     f_idx = torch.where(fast, tslot, out_cap)
     M = f_idx.shape[0]
     ones = torch.ones(M, dtype=I32, device=value_n.device)
-    regs = _set_drop_rows(
-        (value_n, has_n, wa_n, ws_n, wc_n), (0,) * 5, f_idx,
-        (op_value, ones, op_win_actor, op_win_seq, torch.zeros_like(ones)),
-        value_n.shape[0])
-    value_n, has_n, wa_n, ws_n, wc_n = (
-        regs[0], regs[1].bool(), regs[2], regs[3], regs[4].bool())
+    upd = (op_value, ones, op_win_actor, op_win_seq, torch.zeros_like(ones))
+    if store is not None:
+        store.put(REG_KEYS, f_idx, upd)
+        value_n, has_n, wa_n, ws_n, wc_n = (store.views[k] for k in REG_KEYS)
+    else:
+        regs = _set_drop_rows((value_n, has_n, wa_n, ws_n, wc_n), (0,) * 5,
+                              f_idx, upd, value_n.shape[0])
+        value_n, has_n, wa_n, ws_n, wc_n = (
+            regs[0], regs[1].bool(), regs[2], regs[3], regs[4].bool())
 
     slow = is_assign & ~fast
     slow_info = torch.stack([
@@ -215,10 +327,10 @@ def _register_fast_path(value_n, has_n, wa_n, ws_n, wc_n, kind, is_assign,
 def apply_residual(parent, ctr, actor, value, has_value, win_actor, win_seq,
                    win_counter, chain, op_kind, op_slot, op_new_slot, op_ctr,
                    op_actor, op_value, op_win_actor, op_win_seq,
-                   conflict_slots, *, out_cap: int):
+                   conflict_slots, *, out_cap: int, store=None):
     """Place irregular inserts and run the LWW register fast path (padding
     rows: kind=-1, slots=out_cap). Returns the 9 tables + (7, M)
-    slow_info."""
+    slow_info. With a `store`, in place."""
     M = op_kind.shape[0]
     kind = op_kind.to(I32)
     is_ins = kind == KIND_INS
@@ -233,18 +345,18 @@ def apply_residual(parent, ctr, actor, value, has_value, win_actor, win_seq,
         ins_idx,
         (op_slot, op_ctr, op_actor, zeros, zeros,
          torch.full_like(zeros, -1), zeros, zeros, zeros),
-        out_cap)
+        out_cap, store)
 
     (value_n, has_n, wa_n, ws_n, wc_n, slow_info) = _register_fast_path(
         value_n, has_n, wa_n, ws_n, wc_n, kind, is_assign, op_slot,
-        op_value, op_win_actor, op_win_seq, conflict_slots, out_cap)
+        op_value, op_win_actor, op_win_seq, conflict_slots, out_cap, store)
     return (parent_n, ctr_n, actor_n, value_n, has_n, wa_n, ws_n, wc_n,
             chain_n, slow_info)
 
 
 def _apply_residual_packed(parent, ctr, actor, value, has_value, win_actor,
                            win_seq, win_counter, chain, res, conflict_slots,
-                           *, out_cap: int):
+                           *, out_cap: int, store=None):
     """`apply_residual` taking the residual op columns as one packed
     (8, M) int32 matrix (row layout: RES_*)."""
     return apply_residual(
@@ -252,7 +364,33 @@ def _apply_residual_packed(parent, ctr, actor, value, has_value, win_actor,
         win_counter, chain,
         res[RES_KIND], res[RES_SLOT], res[RES_NEW_SLOT],
         res[RES_CTR], res[RES_ACTOR], res[RES_VALUE], res[RES_WIN_ACTOR],
-        res[RES_WIN_SEQ], conflict_slots, out_cap=out_cap)
+        res[RES_WIN_SEQ], conflict_slots, out_cap=out_cap, store=store)
+
+
+def _ext(a: torch.Tensor, fill, out_cap: int) -> torch.Tensor:
+    """`a` extended to `out_cap` with its padding fill."""
+    C = a.shape[0]
+    if C >= out_cap:
+        return a
+    return torch.cat([a, a.new_full((out_cap - C,), fill)])
+
+
+def apply_map_round(value, has_value, win_actor, win_seq, win_counter,
+                    op_kind, op_slot, op_value, op_win_actor, op_win_seq,
+                    conflict_slots, *, out_cap: int):
+    """One causally-ready round of map ops (set/del/inc on interned keys):
+    `apply_residual` without inserts. Key registers are dense slots; the
+    LWW fast path takes single uncontended inline-int sets, and dels,
+    incs, pooled values, multi-writer rounds and occupied registers land
+    in the `slow` mask for the host (padding: kind=-1, slot=out_cap).
+    Returns the 5 registers + the (7, M) slow_info."""
+    kind = op_kind.to(I32)
+    is_assign = (kind == KIND_SET) | (kind == KIND_DEL) | (kind == KIND_INC)
+    regs = [_ext(t, f, out_cap) for t, f in zip(
+        (value, has_value, win_actor, win_seq, win_counter), REG_FILLS)]
+    return _register_fast_path(
+        *regs, kind, is_assign, op_slot, op_value, op_win_actor, op_win_seq,
+        conflict_slots, out_cap)
 
 
 # ---------------------------------------------------------- materialize
@@ -584,9 +722,14 @@ def remap_actors(actor, win_actor, remap, n_elems):
     live = (idx >= 1) & (idx <= n_elems)
     hi = remap.shape[0] - 1
     actor_n = torch.where(live, remap[actor.clamp(0, hi).long()], actor)
-    wa_n = torch.where(win_actor >= 0, remap[win_actor.clamp(0, hi).long()],
+    return actor_n, remap_ranks(win_actor, remap)
+
+
+def remap_ranks(win_actor, remap):
+    """Re-rank the winner-actor column after an interning order change."""
+    hi = remap.shape[0] - 1
+    return torch.where(win_actor >= 0, remap[win_actor.clamp(0, hi).long()],
                        win_actor)
-    return actor_n, wa_n
 
 
 def pack_rows(*arrays):
@@ -606,10 +749,16 @@ def scatter_registers(value, has_value, win_actor, win_seq, win_counter,
 
 
 def scatter_registers_packed(value, has_value, win_actor, win_seq,
-                             win_counter, wb):
+                             win_counter, wb, store=None):
     """`scatter_registers` with the resolved rows packed as one (6, S)
-    int32 matrix (row layout: WB_*; padding rows carry an OOB slot)."""
+    int32 matrix (row layout: WB_*; padding rows carry an OOB slot). With
+    a `store` (whose views are the registers passed), in place."""
     slots = wb[WB_SLOT]
+    if store is not None:
+        store.put(REG_KEYS, slots,
+                  (wb[WB_VALUE], wb[WB_HAS], wb[WB_WIN_ACTOR],
+                   wb[WB_WIN_SEQ], wb[WB_WIN_COUNTER]))
+        return tuple(store.views[k] for k in REG_KEYS)
     return (_set_drop(value, slots, wb[WB_VALUE]),
             _set_drop(has_value, slots, wb[WB_HAS].bool()),
             _set_drop(win_actor, slots, wb[WB_WIN_ACTOR]),

@@ -53,7 +53,8 @@ def host_state(doc) -> dict:
     actor/clock tables and the host-held register state."""
     mirror = doc.seg_mirror
     return {
-        "tables": {k: np.asarray(v.cpu() if torch.is_tensor(v) else v)
+        # copies: a CPU table's numpy view would see later in-place rounds
+        "tables": {k: np.array(v.cpu() if torch.is_tensor(v) else v)
                    for k, v in doc._ensure_dev().items()},
         "n_elems": int(doc.n_elems),
         "cap": int(doc._cap),

@@ -31,6 +31,7 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import logging
@@ -50,6 +51,14 @@ REPS = 25
 REPEATS = 50                   # bit-exact launches at each merge shape
 MAX_COPIES = 64                # input copies a kernel timing rotates through
 N_MERGE = 6_291_456            # bucket(5,000,000 run elements, 256)
+RING_BATCHES = 6               # bench.py --pipeline's stream: 6 batches of
+RING_ACTORS = 2_000            # 2,000 actors x 1,000 ops on the base text
+RING_DEPTH = 4
+RING_REPS = 5                  # timed streams, after one warm-up stream
+RING_DISPATCH_BUDGET = 3       # per committed batch (bench.py:528-529)
+RING_SYNC_BUDGET = 1
+MAP_ACTORS = 1_000             # map phase: 1,000 actors x 1,000 own keys
+MAP_KEYS_PER_ACTOR = 1_000
 
 
 def log(*a):
@@ -570,6 +579,397 @@ def residual_changes(base_n: int):
     return ins + dels + sets
 
 
+# --- the streaming ring (bench.py --pipeline) --------------------------------
+
+def ring_batches(M, base_n: int, n_batches: int, n_actors: int, ops: int):
+    """bench.py --pipeline's stream: causally independent merge batches
+    whose actor prefixes ascend past 'base' (append-only interning, so
+    every prepare after the first chains onto the one before)."""
+    return [merge_batch(M.TB, M.C, "pipe-text", n_actors, ops, base_n,
+                        seed=100 + k, actor_prefix=f"s{k:03d}")
+            for k in range(n_batches)]
+
+
+def expected_stream_text(base_n: int, n_actors: int, run: int,
+                         n_batches: int) -> str:
+    """Independent reference of the streamed text (expected_merge_text over
+    several batches): every run of every batch hangs off its base target
+    with one shared head counter, so the runs after one target order by
+    descending actor id s{k:03d}-{a:06d}: by batch, then by actor."""
+    by_target: dict = {}
+    for k in range(n_batches):
+        targets = merge_targets(n_actors, base_n, 100 + k).tolist()
+        for a, t in enumerate(targets):
+            by_target.setdefault(t, []).append((k, a))
+    parts = []
+    for i in range(1, base_n + 1):
+        parts.append(chr(97 + i % 26))
+        for _, a in sorted(by_target.get(i, ()), reverse=True):
+            parts.append(chr(97 + a % 26) * run)
+    return "".join(parts)
+
+
+def ring_doc(M, base_n: int, device):
+    doc = M.DeviceTextDoc("pipe-text", device=device)
+    doc.eager_materialize = True
+    doc.apply_batch(base_batch(M.TB, M.C, "pipe-text", base_n))
+    doc.text()
+    return doc
+
+
+def fresh(batches):
+    """New batch objects over the same columns: no run plan or rank cache
+    left by an earlier stream, so every prepare plans and walks anew, as
+    for batches that just arrived."""
+    return [dataclasses.replace(b) for b in batches]
+
+
+def reset_counts(M):
+    M.S.reset_launches()
+    M.native.reset_counts()
+    M.runs.detections["calls"] = 0
+
+
+def ring_stream(torch, M, batches, base_n: int, device, donate: bool,
+                depth: int = RING_DEPTH):
+    """One stream through PipelinedIngestor, timed as bench.py times it:
+    from the first feed to the final _materialize(with_pos=False) and
+    _scalars(). The counts are set to 0 just before the ring and read just
+    after. Returns (doc, record)."""
+    doc = ring_doc(M, base_n, device)
+    batches = fresh(batches)
+    cuda = doc.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(M)
+    t0 = time.perf_counter()
+    with M.PipelinedIngestor(doc, slots=depth, donate=donate) as ring:
+        ring.run(batches)
+        stats = ring.stats
+    doc._materialize(with_pos=False)
+    scal = doc._scalars()
+    dt = time.perf_counter() - t0
+    return doc, {
+        "s": dt, "stats": stats, "n_vis": int(scal[0]),
+        "launches": dict(M.S.launches),
+        "shapes": {k: dict(v) for k, v in M.S.launch_shapes.items()},
+        "detections": M.runs.detections["calls"],
+        "walks": M.native.walks["native"],
+        "peak": torch.cuda.max_memory_allocated() if cuda else 0}
+
+
+def check_ring(rec: dict, n_batches: int, n_vis: int, cuda: bool):
+    """The ring's checks (bench.py --pipeline's, plus the kernel and the
+    walker on every commit and prepare); raises on the first failure."""
+    st = rec["stats"]
+    budget = st["per_commit_budget"]
+    if rec["n_vis"] != n_vis:
+        raise AssertionError(f"ring n_vis {rec['n_vis']} != {n_vis}")
+    if st["committed"] != n_batches:
+        raise AssertionError(f"ring committed {st['committed']} batches")
+    if (st["chained_prepares"] < n_batches - 1 or st["fallbacks"]
+            or st["serial_prepares"]):
+        raise AssertionError(f"ring degraded: {st}")
+    if (budget["dispatches_max"] > RING_DISPATCH_BUDGET
+            or budget["syncs_max"] > RING_SYNC_BUDGET):
+        raise AssertionError(f"ring commit over budget: {budget}")
+    if cuda and rec["launches"]["multi_scan"] < st["committed"]:
+        raise AssertionError("multi_scan missed a ring commit: "
+                             f"{rec['launches']} for {st['committed']}")
+    if rec["detections"] != st["committed"] or rec["walks"] < st["committed"]:
+        raise AssertionError(
+            f"the native walker missed a prepare: {rec['detections']} "
+            f"detections, {rec['walks']} native walks for "
+            f"{st['committed']} prepares")
+
+
+def serial_stream(torch, M, batches, base_n: int, device):
+    """The same stream as a serial schedule: prepare_batch +
+    commit_prepared + a device sync per batch. Its terms are read from the
+    engine's spans, as bench.py's serial profile reads them."""
+    obs = M.obs
+    doc = ring_doc(M, base_n, device)
+    batches = fresh(batches)
+    sync = (torch.cuda.synchronize if doc.device.type == "cuda"
+            else (lambda: None))
+    with obs.tracing():
+        t_rec = obs.now()
+        for b in batches:
+            doc.commit_prepared(doc.prepare_batch(b))
+            with obs.span_ctx("device", "wait"):
+                sync()
+        with obs.span_ctx("device", "final_sync"):
+            doc._materialize(with_pos=False)
+            scal = doc._scalars()
+        recs = obs.snapshot(since_ns=t_rec)
+    terms = {"prepare_s": obs.span_seconds(recs, "plan", "prepare_batch"),
+             "commit_s": obs.span_seconds(recs, "commit", "batch"),
+             "device_wait_s": obs.span_seconds(recs, "device", "wait"),
+             "final_sync_s": obs.span_seconds(recs, "device", "final_sync")}
+    return doc, {"terms": terms, "n_vis": int(scal[0])}
+
+
+def time_walkers(M, batch, base_elems: int, reps: int = 5) -> dict:
+    """The native walker, the numpy walker and the sharded detection the
+    planner calls, on one merge batch's op columns by direct calls: median
+    seconds of `reps` each. The plans must be equal."""
+    cols = (batch.op_kind, batch.op_target_actor, batch.op_target_ctr,
+            batch.op_parent_actor, batch.op_parent_ctr, batch.op_value,
+            batch.op_change)
+    out, plans = {}, {}
+    for name, fn in (("native_s", M.runs._detect_runs_single),
+                     ("numpy_s", M.runs._detect_runs_numpy),
+                     ("sharded_s", M.runs.detect_runs)):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            plans[name] = fn(*cols, base_elems)
+            times.append(time.perf_counter() - t0)
+        out[name] = float(np.median(times))
+    for f in ("hpos", "run_len", "head_slot", "rpos", "res_new_slot",
+              "blob"):
+        ref = getattr(plans["numpy_s"], f)
+        for name in ("native_s", "sharded_s"):
+            if not np.array_equal(getattr(plans[name], f), ref):
+                raise AssertionError(f"{name[:-2]} walker differs in {f}")
+    out["n_ops"] = len(batch.op_kind)
+    return out
+
+
+def ring_phase(torch, M, card: str, device=None, base_n: int = BASE_LEN,
+               n_batches: int = RING_BATCHES, n_actors: int = RING_ACTORS,
+               ops: int = OPS_PER_CHANGE, reps: int = RING_REPS) -> dict:
+    """bench.py --pipeline's stream at full width: one warm-up stream,
+    `reps` timed streams (depth 4, in-place commits, eager
+    materialization), one stream without in-place commits and one serial
+    stream; every text against the independent reference. Raises on any
+    failed check."""
+    run = ops // 2
+    batches = ring_batches(M, base_n, n_batches, n_actors, ops)
+    total_ops = sum(b.n_ops for b in batches)
+    n_vis = base_n + n_batches * n_actors * run
+    want = sha(expected_stream_text(base_n, n_actors, run, n_batches))
+    cuda = torch.device(device or "cuda").type == "cuda"
+
+    def text_of(doc, label):
+        got = sha(doc.text())
+        if got != want:
+            raise AssertionError(f"{label} text differs from the reference")
+        return got
+
+    doc, rec = ring_stream(torch, M, batches, base_n, device, donate=True)
+    check_ring(rec, n_batches, n_vis, cuda)
+    text_of(doc, "warm-up stream")
+    del doc
+    timed = []
+    for r in range(reps):
+        doc, rec = ring_stream(torch, M, batches, base_n, device,
+                               donate=True)
+        check_ring(rec, n_batches, n_vis, cuda)
+        if r in (0, reps - 1):
+            text_of(doc, f"timed stream {r}")
+        if doc._store is None or not doc._store.holds(doc._dev):
+            raise AssertionError("the in-place stream's tables left their "
+                                 "store")
+        timed.append(rec)
+        del doc
+    doc, plain = ring_stream(torch, M, batches, base_n, device, donate=False)
+    check_ring(plain, n_batches, n_vis, cuda)
+    text_of(doc, "donate=False stream")
+    del doc
+    doc, serial = serial_stream(torch, M, batches, base_n, device)
+    if serial["n_vis"] != n_vis:
+        raise AssertionError(f"serial stream n_vis {serial['n_vis']}")
+    text_of(doc, "serial stream")
+    del doc
+    peak_inplace = max(r["peak"] for r in timed)
+    if peak_inplace > plain["peak"]:
+        raise AssertionError(
+            f"in-place commits peaked at {peak_inplace} bytes, above the "
+            f"out-of-place stream's {plain['peak']}")
+    walkers = time_walkers(M, batches[0], base_n)
+
+    rates = [total_ops / r["s"] for r in timed]
+    mid = min(timed, key=lambda r: abs(r["s"] - float(np.median(
+        [t["s"] for t in timed]))))
+    out = {
+        "ops": total_ops, "n_vis": n_vis, "depth": RING_DEPTH,
+        "reps": reps, "ops_per_s_median": float(np.median(rates)),
+        "ops_per_s_min": min(rates), "ops_per_s_max": max(rates),
+        "stream_s": [r["s"] for r in timed],
+        "stream_s_donate_false": plain["s"],
+        "stats": mid["stats"], "launches": mid["launches"],
+        "shapes": mid["shapes"], "detections": mid["detections"],
+        "native_walks": mid["walks"],
+        "peak_mib_inplace": peak_inplace / 2**20,
+        "peak_mib_donate_false": plain["peak"] / 2**20,
+        "serial_terms": serial["terms"], "walkers": walkers,
+        "text_sha256": want[:16]}
+    log(f"ring ({card}): median {out['ops_per_s_median']:.0f} ops/s "
+        f"(range {out['ops_per_s_min']:.0f}-{out['ops_per_s_max']:.0f}) "
+        f"over {reps} streams of {total_ops} ops; donate=False stream "
+        f"{plain['s']:.4f} s; peak device memory {out['peak_mib_inplace']:.1f}"
+        f" MiB in place vs {out['peak_mib_donate_false']:.1f} MiB; serial "
+        f"terms {serial['terms']}; walkers {walkers}; text sha256 "
+        f"{want[:16]} for the reference, the timed, donate=False and "
+        f"serial streams")
+    log("ring record: " + json.dumps(dict(out, shapes={
+        k: {"x".join(map(str, sh)): n for sh, n in v.items()}
+        for k, v in out["shapes"].items()})))
+    return out
+
+
+# --- the map document --------------------------------------------------------
+
+def map_key(a: int, j: int) -> str:
+    return f"k{a:04d}-{j:04d}"
+
+
+def map_round1(M, n_actors: int, per: int):
+    """n_actors actors each setting their own `per` keys to inline ints:
+    uncontended sets, the device fast path. Returns (batch, reference)."""
+    actors = [f"m{a:04d}" for a in range(n_actors)]
+    keys = [map_key(a, j) for a in range(n_actors) for j in range(per)]
+    n = n_actors * per
+    vals = (np.arange(n, dtype=np.int64) * 7919) % 2_000_003
+    no_deps: dict = {}
+    batch = M.MapChangeBatch(
+        obj_id="map", actors=actors, seqs=np.ones(n_actors, np.int32),
+        deps=[no_deps] * n_actors, messages=[None] * n_actors,
+        op_change=np.repeat(np.arange(n_actors, dtype=np.int32), per),
+        op_kind=np.full(n, M.C.KIND_SET, np.int8),
+        op_key=np.arange(n, dtype=np.int32), op_value=vals,
+        key_table=keys, value_pool=[])
+    return batch, dict(zip(keys, vals.tolist()))
+
+
+def map_round2(n_actors: int):
+    """About 3 * n_actors ops on the host slow path: two actors overwrite
+    one key of every actor concurrently (conflicts), one deletes a key of
+    half of them, and a counter actor creates n_actors / 4 counters and
+    increments each. 'c' sorts before the round-1 actors: a rank remap.
+    Returns (wire changes, the reference's updates, deleted keys)."""
+    frontier = {f"m{a:04d}": 1 for a in range(n_actors)}
+    changes = [{"actor": f"x-{x}", "seq": 1, "deps": frontier, "ops": [
+        {"action": "set", "obj": "map", "key": map_key(a, 0),
+         "value": 5_000_000 + 10 * a + x} for a in range(n_actors)]}
+        for x in range(2)]
+    changes.append({"actor": "y", "seq": 1, "deps": frontier, "ops": [
+        {"action": "del", "obj": "map", "key": map_key(a, 1)}
+        for a in range(n_actors // 2)]})
+    n_ctr = n_actors // 4
+    changes.append({"actor": "c", "seq": 1, "deps": {}, "ops": [
+        {"action": "set", "obj": "map", "key": f"ctr-{i:04d}", "value": 10,
+         "datatype": "counter"} for i in range(n_ctr)]})
+    changes.append({"actor": "c", "seq": 2, "deps": {"c": 1}, "ops": [
+        {"action": "inc", "obj": "map", "key": f"ctr-{i:04d}", "value": i}
+        for i in range(n_ctr)]})
+    updates = {map_key(a, 0): 5_000_000 + 10 * a + 1 for a in range(n_actors)}
+    updates.update({f"ctr-{i:04d}": 10 + i for i in range(n_ctr)})
+    deleted = [map_key(a, 1) for a in range(n_actors // 2)]
+    return changes, updates, deleted
+
+
+def drive_map(torch, M, device, n_actors: int, per: int):
+    """The two map rounds on a DeviceMapDoc; returns (doc, record)."""
+    sync = (torch.cuda.synchronize if torch.device(device or "cuda").type
+            == "cuda" else (lambda: None))
+    batch, ref1 = map_round1(M, n_actors, per)
+    changes, updates, deleted = map_round2(n_actors)
+    doc = M.DeviceMapDoc("map", device=device)
+    d0 = dict(doc._acct)
+    t0 = time.perf_counter()
+    doc.apply_batch(batch)
+    sync()
+    round1_s = time.perf_counter() - t0
+    d1 = dict(doc._acct)
+    after1 = doc.to_dict()
+    conflicts1 = len(doc.conflicts)
+    t0 = time.perf_counter()
+    doc.apply_changes(changes)
+    sync()
+    round2_s = time.perf_counter() - t0
+    ref2 = dict(ref1)
+    ref2.update(updates)
+    for k in deleted:
+        del ref2[k]
+    return doc, {"round1_s": round1_s, "round2_s": round2_s,
+                 "round1_ops": len(batch.op_kind),
+                 "round2_ops": sum(len(c["ops"]) for c in changes),
+                 "round1_dispatches": d1["dispatches"] - d0["dispatches"],
+                 "round1_syncs": d1["syncs"] - d0["syncs"],
+                 "round1_ok": after1 == ref1 and conflicts1 == 0,
+                 "ref2": ref2}
+
+
+def map_tables(doc) -> dict:
+    n = len(doc.key_table)
+    return {k: v[:n].cpu().numpy() for k, v in doc._ensure_dev().items()}
+
+
+def map_phase(torch, M, card: str, device=None, n_actors: int = MAP_ACTORS,
+              per: int = MAP_KEYS_PER_ACTOR) -> dict:
+    """A DeviceMapDoc holding n_actors * per keys: round 1 on the device
+    fast path, round 2 on the host slow path; the result against a CPU run
+    of the port and a plain-dict reference. Raises on any failed check."""
+    doc, rec = drive_map(torch, M, device, n_actors, per)
+    cpu_doc, _ = drive_map(torch, M, "cpu", n_actors, per)
+    if not rec["round1_ok"]:
+        raise AssertionError("map round 1 differs from the plain dict or "
+                             "minted conflicts")
+    if rec["round1_dispatches"] != 1 or rec["round1_syncs"] != 1:
+        raise AssertionError("map round 1 left the one-program fast path: "
+                             f"{rec['round1_dispatches']} dispatches, "
+                             f"{rec['round1_syncs']} syncs")
+    got = doc.to_dict()
+    if got != rec["ref2"] or got != cpu_doc.to_dict():
+        raise AssertionError("map round 2 differs from the reference or "
+                             "the CPU run")
+    if len(doc) != len(rec["ref2"]) or doc.conflicts != cpu_doc.conflicts:
+        raise AssertionError("map length or conflicts differ")
+    for a in (0, n_actors // 2, n_actors - 1):
+        # the winner x-1 holds the key; the concurrent loser is its conflict
+        want = {"x-0": 5_000_000 + 10 * a}
+        if doc.conflicts_for(map_key(a, 0)) != want:
+            raise AssertionError(f"conflicts of {map_key(a, 0)}: "
+                                 f"{doc.conflicts_for(map_key(a, 0))}")
+    if doc.conflicts_for(map_key(0, 2)) is not None:
+        raise AssertionError("an uncontended key shows a conflict")
+    tg, tc = map_tables(doc), map_tables(cpu_doc)
+    for k in tg:
+        if not np.array_equal(tg[k], tc[k]):
+            raise AssertionError(f"map table {k} differs from the CPU run")
+    out = {k: v for k, v in rec.items() if k != "ref2"}
+    out.update(keys=len(doc.key_table), live=len(doc),
+               conflicted=len(doc.conflicts))
+    log(f"map ({card}): round 1 {out['round1_ops']} fast-path sets "
+        f"{out['round1_s']:.4f} s, round 2 {out['round2_ops']} slow-path "
+        f"ops {out['round2_s']:.4f} s; {out['keys']} keys, {out['live']} "
+        f"live, {out['conflicted']} conflicted; equal to the CPU run and "
+        f"the reference")
+    return out
+
+
+def port_modules():
+    """The port's modules the phases drive (ImportError when the package
+    is not beside this script)."""
+    from types import SimpleNamespace
+
+    from automerge_tpu_torch import _common, native, obs
+    from automerge_tpu_torch.engine import (DeviceMapDoc, MapChangeBatch,
+                                            PipelinedIngestor, accounting,
+                                            runs)
+    from automerge_tpu_torch.engine.columnar import TextChangeBatch
+    from automerge_tpu_torch.engine.text_doc import DeviceTextDoc
+    from automerge_tpu_torch.ops import scan_kernels
+    return SimpleNamespace(
+        C=_common, native=native, obs=obs, DeviceMapDoc=DeviceMapDoc,
+        MapChangeBatch=MapChangeBatch, PipelinedIngestor=PipelinedIngestor,
+        accounting=accounting, runs=runs, TB=TextChangeBatch,
+        DeviceTextDoc=DeviceTextDoc, S=scan_kernels)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -583,15 +983,13 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
-        from automerge_tpu_torch import _common as C
-        from automerge_tpu_torch.engine import accounting
-        from automerge_tpu_torch.engine.columnar import TextChangeBatch as TB
-        from automerge_tpu_torch.engine.text_doc import DeviceTextDoc
-        from automerge_tpu_torch.ops import scan_kernels as S
+        M = port_modules()
     except ImportError as e:
         print(f"chip_smoke: the port package is missing: {e}",
               file=sys.stderr)
         return 2
+    C, TB, S = M.C, M.TB, M.S
+    DeviceTextDoc, accounting = M.DeviceTextDoc, M.accounting
     if "jax" in sys.modules or any(m.startswith("automerge_tpu.")
                                    or m == "automerge_tpu"
                                    for m in sys.modules):
@@ -603,11 +1001,23 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     log(f"card: {card}")
 
-    # 2. build
+    # 2. build: the CUDA kernels (nvcc) and the host codec (g++), started
+    # together
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(fn):
+        t = time.perf_counter()
+        fn()
+        return time.perf_counter() - t
     t0 = time.perf_counter()
-    built = S.build()
-    log(f"build: {built:.2f} s compiling {S.SOURCE.name} "
-        f"({time.perf_counter() - t0:.2f} s with the check)")
+    with ThreadPoolExecutor(2) as ex:
+        native_build = ex.submit(timed, M.native.load)
+        built = S.build()
+        native_s = native_build.result()
+    log(f"build: {built:.2f} s compiling {S.SOURCE.name}, {native_s:.2f} s "
+        f"building and loading {M.native.library_path().name} from "
+        f"{M.native.SOURCE.name} ({time.perf_counter() - t0:.2f} s with "
+        "the check)")
     for ln in S.library_path().with_suffix(".log").read_text().splitlines():
         if "registers" in ln or "Compiling entry" in ln:
             log(f"ptxas: {ln.strip()}")
@@ -699,11 +1109,20 @@ def main() -> int:
         raise AssertionError("residual round result is wrong")
     if any("diverged" in m for m in heals.records):
         raise AssertionError(f"segment mirror healed: {heals.records}")
+    del doc, cpu_doc
+
+    # 6a. the streaming ring: bench.py --pipeline's stream at full width
+    ring = ring_phase(torch, M, card)
+    if any("diverged" in m for m in heals.records):
+        raise AssertionError(f"segment mirror healed: {heals.records}")
+
+    # 6b. a 1,000,000-key map document: fast-path and slow-path rounds
+    map_phase(torch, M, card)
 
     # 7. kernel times at every shape the driven paths launched with, then
     # one kernel per call (a profiler session slows later host launches)
     shapes_by_path = {"main": main_shapes, "self_contained": sc_shapes,
-                      "residual": res_shapes}
+                      "residual": res_shapes, "pipeline": ring["shapes"]}
     log(f"launches by shape on the driven paths: {shapes_by_path}")
     shapes = {k: set().union(*(p[k] for p in shapes_by_path.values()))
               for k in S.launches}
@@ -723,7 +1142,7 @@ def main() -> int:
     # serves (multi_scan: the planned main path; fused_segment_scans: the
     # self-contained one); `launches_by_path` has each driven path's count
     by_path = {"main": main_launches, "self_contained": sc_launches,
-               "residual": res_launches}
+               "residual": res_launches, "pipeline": ring["launches"]}
     kernels = []
     for name, replaces, path in (
             ("multi_scan", "automerge_tpu/ops/scan_pallas.py:204", "main"),
