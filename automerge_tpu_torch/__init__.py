@@ -6,7 +6,10 @@ object's element tables on a CUDA card (``device=None``) or, when asked
 with ``device="cpu"``, on the CPU; `DeviceMapDoc` does the same for a
 map/counter object, and `PipelinedIngestor(doc, donate=True)` streams
 batches into a text document through a K-deep prepare/commit ring with
-in-place commits. The round programs are plain PyTorch around two
+in-place commits. `stacked.apply_stacked(items)` merges one round of many
+small map and text documents as one round program per causal round, and
+`DeviceTextDocSet(obj_ids)` keeps a set of text documents in stacked
+(docs, capacity) tables. The round programs are plain PyTorch around two
 hand-written Hopper kernels (ops/scan_kernels.py, csrc/scan.cu); on a CPU
 tensor each kernel's plain PyTorch version runs instead. Host decoding and
 run detection run in a C++ codec built with g++ at first use (native/).
@@ -14,4 +17,5 @@ The package imports torch and numpy, never JAX.
 """
 
 from .engine import (DeviceMapDoc, DeviceTextDoc,  # noqa: F401
-                     MapChangeBatch, PipelinedIngestor, TextChangeBatch)
+                     DeviceTextDocSet, MapChangeBatch, PipelinedIngestor,
+                     TextChangeBatch, stacked)

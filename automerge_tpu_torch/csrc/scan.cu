@@ -43,6 +43,12 @@
 // torch.cumsum(..., dtype=torch.int32)); the max of the segment heads has
 // identity 0 because its candidates are global slot numbers >= 1, or 0.
 //
+// The segment scans also take (rows, n) matrices, every row scanned on its
+// own with its own element count (the DocSet's per-document
+// materialization): a tile's ticket names its row and its place in the
+// row, tickets run row after row, and the look-back reads only status
+// words of its own row, as multi_scan does for its K rows.
+//
 // Inputs the 16-byte path cannot take (multi_scan with N % 4 != 0, so that
 // a row does not start on 16 bytes; any pointer off 16-byte alignment,
 // such as a bool view t[1:]) take a scalar path inside the same kernel,
@@ -393,12 +399,17 @@ __device__ __forceinline__ void store_column(int4* sh_v, int* out, int s0,
   __syncthreads();
 }
 
+// Rows of length n, each scanned on its own: tiles take tickets row after
+// row (tpr tiles per row), and the look-back stays inside the row. Row r
+// reads its element count from n_elems_p[r * ne_stride] (stride 0: one
+// count for every row).
 __global__ void __launch_bounds__(kFsThreads)
 fs_scan(const unsigned char* __restrict__ chain,
-        const unsigned char* __restrict__ has, int n,
-        const int* __restrict__ n_elems_p, int base, int vec_in, int vec_out,
-        unsigned* ticket, u64* status, int* __restrict__ rank_out,
-        int* __restrict__ head_out, int* __restrict__ vis_out) {
+        const unsigned char* __restrict__ has, int n, int tpr,
+        const int* __restrict__ n_elems_p, int ne_stride, int base,
+        int vec_in, int vec_out, unsigned* ticket, u64* status,
+        int* __restrict__ rank_out, int* __restrict__ head_out,
+        int* __restrict__ vis_out) {
   constexpr int kWarps = kFsThreads / 32;
   __shared__ int4 sh_v[kFsTile / 4];
   __shared__ unsigned sh_w[3][kWarps];
@@ -407,7 +418,15 @@ fs_scan(const unsigned char* __restrict__ chain,
   const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
 
   const int tile = take_ticket(ticket, &sh_tile);
-  const int s0 = tile * kFsTile;                 // first slot of the tile
+  const int row = tile / tpr;
+  const int ct = tile - row * tpr;               // tile index in the row
+  const size_t roff = static_cast<size_t>(row) * n;
+  chain += roff;
+  has += roff;
+  rank_out += roff;
+  head_out += roff;
+  vis_out += roff;
+  const int s0 = ct * kFsTile;                   // first slot of the tile
   const int i0 = s0 + t * kFsItems;              // first slot of the thread
 
   unsigned cm = 0, hm = 0;                       // chain / has_value bits
@@ -430,7 +449,8 @@ fs_scan(const unsigned char* __restrict__ chain,
   // live elements: global slot base + i in [1, n_elems], and i < n
   const long long f0 = static_cast<long long>(base) + i0;
   const long long lo = max(1ll - f0, 0ll);
-  const long long hi = min(min(static_cast<long long>(*n_elems_p) - f0, 31ll),
+  const long long ne = n_elems_p[static_cast<size_t>(row) * ne_stride];
+  const long long hi = min(min(ne - f0, 31ll),
                            static_cast<long long>(n) - 1 - i0);
   const unsigned em = bit_range(lo, hi);
   const unsigned sm = em & ~cm;                  // segment starts
@@ -460,7 +480,8 @@ fs_scan(const unsigned char* __restrict__ chain,
     agg = combine(agg, s);
   }
   if (wid == 0) {
-    const Tri pre = lookback_tri(status, tile, agg, lane);
+    const Tri pre = lookback_tri(
+        status + static_cast<size_t>(row) * tpr * kFsWords, ct, agg, lane);
     if (lane == 0) sh_prefix = pre;
   }
   __syncthreads();
@@ -515,26 +536,35 @@ int amt_multi_scan(const void* x, void* y, void* scratch,
   return static_cast<int>(cudaGetLastError());
 }
 
-// (rank_incl, seg_head, cumvis) of bool chain/has_value columns of
-// length n; n_elems is read on the device from an int32 scalar.
-// scratch: at least 8 * (1 + 6 * ceil(n / tile)) bytes, 8-byte aligned.
-int amt_fused_segment_scans(const void* chain, const void* has, int n,
-                            const void* n_elems, int base, void* scratch,
-                            long long scratch_bytes, void* rank, void* head,
-                            void* cumvis, void* stream) {
+// (rank_incl, seg_head, cumvis) of `rows` rows of bool chain/has_value
+// columns, each row n long and scanned on its own; row r reads its
+// element count n_elems[r * ne_stride] on the device (ne_stride 0: one
+// count for all rows). scratch: at least 8 * (1 + 6 * rows * ceil(n /
+// tile)) bytes, 8-byte aligned.
+int amt_fused_segment_scans(const void* chain, const void* has, int rows,
+                            int n, const void* n_elems, int ne_stride,
+                            int base, void* scratch, long long scratch_bytes,
+                            void* rank, void* head, void* cumvis,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = num_tiles(n, kFsTile);
+  const int tpr = num_tiles(n, kFsTile);
+  const long long tiles = static_cast<long long>(rows) * tpr;
   const long long need = 8 * (1 + static_cast<long long>(kFsWords) * tiles);
-  if (scratch_bytes < need) return static_cast<int>(cudaErrorInvalidValue);
+  if (scratch_bytes < need || tiles > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaMemsetAsync(scratch, 0, need, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   u64* words = static_cast<u64*>(scratch);
-  const int vec_in = aligned16(chain) && aligned16(has);
-  const int vec_out = aligned16(rank) && aligned16(head) && aligned16(cumvis);
-  fs_scan<<<tiles, kFsThreads, 0, s>>>(
+  // every row must start on 16 bytes too: bool rows of a multiple of 16
+  // slots, int32 rows of a multiple of 4
+  const int vec_in = aligned16(chain) && aligned16(has) &&
+                     (rows == 1 || n % 16 == 0);
+  const int vec_out = aligned16(rank) && aligned16(head) &&
+                      aligned16(cumvis) && (rows == 1 || n % 4 == 0);
+  fs_scan<<<static_cast<unsigned>(tiles), kFsThreads, 0, s>>>(
       static_cast<const unsigned char*>(chain),
-      static_cast<const unsigned char*>(has), n,
-      static_cast<const int*>(n_elems), base, vec_in, vec_out,
+      static_cast<const unsigned char*>(has), n, tpr,
+      static_cast<const int*>(n_elems), ne_stride, base, vec_in, vec_out,
       reinterpret_cast<unsigned*>(words), words + 1, static_cast<int*>(rank),
       static_cast<int*>(head), static_cast<int*>(cumvis));
   return static_cast<int>(cudaGetLastError());

@@ -4,7 +4,7 @@ A *run* is an INS immediately followed by its SET, chained so each next INS
 continues the previous element with a consecutive counter — the shape every
 text editor produces. Runs are the engine's unit of bulk transfer: ~20-byte
 descriptors + a value blob instead of 2 op rows per character
-(ops/fused_round.py `_fused_expand`), used by the single-doc engine
+(ops/fused_round.py `_fused_expand_r`), used by the single-doc engine
 (text_doc.DeviceTextDoc).
 
 Detection runs the native single-pass C++ walker

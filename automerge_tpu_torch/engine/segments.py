@@ -1,6 +1,6 @@
 """Host mirror of the device chain/segment structure + planned linearization.
 
-The condensed materialization (`ops/ingest.py:_materialize_core`) spends its
+The condensed materialization (`ops/ingest.py:_materialize_core_r`) spends its
 structural stage — segment-head discovery, the (parent, attach, ctr, actor)
 children sort, and the pointer-doubling linearization — recomputing facts the
 host fully determined when it planned the round: every segment head is either
@@ -16,7 +16,7 @@ module keeps that structure on the host:
   device kernel: per-parent children descending by (attach, ctr, actor),
   successor chain, weighted pointer-doubling ranking) and packs the result
   into one (4, S) int32 `segplan` matrix the planned materialize kernels
-  (`ops/ingest.py:_materialize_core_planned`) consume. The device then does
+  (`ops/ingest.py:_materialize_core_planned_r`) consume. The device then does
   no sort and no pointer doubling at all — only the two data-dependent
   prefix sums (visibility, expansion) and the codes scatter remain.
 
@@ -37,7 +37,7 @@ a failed rebuild degrades the document to the self-contained path for good
 
 Reference semantics being mirrored: RGA sibling order, descending Lamport
 per insertion point (reference backend/op_set.js:440-489); the chain
-bits' incremental maintenance is ops/ingest.py:_break_chains_core.
+bits' incremental maintenance is ops/ingest.py:break_chains_r.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ SEGPLAN_HEADS, SEGPLAN_PERM, SEGPLAN_STARTS, SEGPLAN_META = range(4)
 
 def _linearize_np(pnode: np.ndarray, attach: np.ndarray, ctr: np.ndarray,
                   actor: np.ndarray, weight: np.ndarray) -> np.ndarray:
-    """Numpy twin of the device `_linearize_segments` for n = n_segs+1 nodes
+    """Numpy twin of the device `_linearize_segments_r` for n = n_segs+1 nodes
     (node 0 is the virtual head). Returns each segment's start position."""
     n = len(pnode)
     if n <= 1:
@@ -182,7 +182,7 @@ class SegmentMirror:
         and residual inserts — with parent slot and Lamport key; exactly the
         rows the round stages as chain-touch/break inputs. `rev(slots) ->
         (actor_rank, ctr)` resolves slots against the post-round element
-        index. Chain breaks mirror `_break_chains_core`: slot p+1 loses its
+        index. Chain breaks mirror `break_chains_r`: slot p+1 loses its
         chain bit when a new child of p Lamport-exceeds it."""
         ins_slot = np.asarray(ins_slot, np.int64)
         ins_par = np.asarray(ins_par, np.int64)

@@ -81,6 +81,32 @@ def run_head_fields(plan, batch_rank, ta, tc, pa, pc) -> dict:
     }
 
 
+def build_desc_template(plan, tc, op_row, head_rank, row_actor_rank,
+                        row_seq, R: int, N: int) -> np.ndarray:
+    """The (9, R) run-descriptor TEMPLATE of one full round: every row
+    that is a pure function of (op columns, interning) — only the
+    head/parent SLOT rows and the base-slot meta (document state) are
+    filled per application. Shared by `_plan_round` and the cross-doc
+    planner's rank seeding (engine/cross_doc.py)."""
+    from ..ops.ingest import (DESC_ACTOR, DESC_CTR0, DESC_ELEM_BASE,
+                              DESC_HAS_VALUE, DESC_META, DESC_WIN_ACTOR,
+                              DESC_WIN_SEQ, META_N_ELEMS, META_N_RUNS)
+    hpos = plan.hpos
+    n_runs = plan.n_runs
+    run_len = plan.run_len
+    tmpl = np.zeros((9, R), np.int32)
+    tmpl[DESC_ELEM_BASE] = N          # padding sentinel
+    tmpl[DESC_CTR0, :n_runs] = tc[hpos]
+    tmpl[DESC_ACTOR, :n_runs] = head_rank
+    tmpl[DESC_WIN_ACTOR, :n_runs] = row_actor_rank[op_row[hpos]]
+    tmpl[DESC_WIN_SEQ, :n_runs] = row_seq[op_row[hpos]]
+    tmpl[DESC_ELEM_BASE, :n_runs] = np.cumsum(run_len) - run_len
+    tmpl[DESC_HAS_VALUE, :n_runs] = 1
+    tmpl[DESC_META, META_N_ELEMS] = plan.n_pairs
+    tmpl[DESC_META, META_N_RUNS] = n_runs
+    return tmpl
+
+
 def _resolve_refs_learned(merged_index, head_parent_pre, n_runs, rpos,
                           res_is_ins, n_res_ins, batch_rank, ta, tc, pa,
                           pc, decode, obj_id):
@@ -356,16 +382,18 @@ class DeviceTextDoc(CausalDeviceDoc):
         if plan is not None:
             self._execute_plan(b, plan)
 
-    def _plan_round(self, b: TextChangeBatch, mask, shadow):
+    def _plan_round(self, b: TextChangeBatch, mask, shadow,
+                    stage: bool = True):
         """Host planning of one causally-ready round: run detection, elemId
         resolution, validity checks, and h2d staging of the packed device
         inputs. Mutates NOTHING (actor interning must already cover the
         batch); returns (plan, shadow') where shadow' reflects the round as
-        if committed — `_execute_plan` later applies it for real."""
-        from ..ops.ingest import (DESC_ACTOR, DESC_CTR0, DESC_ELEM_BASE,
-                                  DESC_HAS_VALUE, DESC_HEAD_SLOT,
-                                  DESC_PARENT_SLOT, DESC_WIN_ACTOR,
-                                  DESC_WIN_SEQ, RES_ACTOR, RES_CTR, RES_KIND,
+        if committed — `_execute_plan` later applies it for real. With
+        `stage=False` the plan keeps its packed inputs as host arrays (the
+        stacked executor, engine/stacked.py, uploads every document's
+        together)."""
+        from ..ops.ingest import (DESC_HEAD_SLOT, DESC_PARENT_SLOT,
+                                  RES_ACTOR, RES_CTR, RES_KIND,
                                   RES_NEW_SLOT, RES_SLOT, RES_VALUE,
                                   RES_WIN_ACTOR, RES_WIN_SEQ, bucket)
 
@@ -375,7 +403,9 @@ class DeviceTextDoc(CausalDeviceDoc):
         def st(arr):
             """Stage one packed input h2d (non-blocking from pinned
             memory on the staging stream of a card; the plan keeps the
-            pinned buffer alive)."""
+            pinned buffer alive) — or keep it on the host."""
+            if not stage:
+                return arr
             t, pin = stage_h2d(arr, self.device, self._stage_stream)
             if pin is not None:
                 pinned.append(pin)
@@ -572,27 +602,19 @@ class DeviceTextDoc(CausalDeviceDoc):
         desc_dev = blob_dev = None
         ascii_clear = False
         if n_runs:
-            from ..ops.ingest import (DESC_META, META_BASE_SLOT,
-                                      META_N_ELEMS, META_N_RUNS)
+            from ..ops.ingest import DESC_META, META_BASE_SLOT
             R = bucket(n_runs, 64)
             # descriptor template: 7 of the 9 rows plus two meta slots are
             # pure functions of the op columns + this doc's interning —
             # only the head/parent SLOT rows and the base-slot meta encode
             # the document's pre-round element count. Cache the template
-            # with the rank entry; each repeat application pays one
-            # (9, R) copy + two row fills.
+            # with the rank entry (the cross-doc planner seeds it for a
+            # whole population, engine/cross_doc.py); each repeat
+            # application pays one (9, R) copy + two row fills.
             tmpl = rc.get("desc_tmpl") if full_round else None
             if tmpl is None:
-                tmpl = np.zeros((9, R), np.int32)
-                tmpl[DESC_ELEM_BASE] = N          # padding sentinel
-                tmpl[DESC_CTR0, :n_runs] = tc[hpos]
-                tmpl[DESC_ACTOR, :n_runs] = head_rank
-                tmpl[DESC_WIN_ACTOR, :n_runs] = row_actor_rank[op_row[hpos]]
-                tmpl[DESC_WIN_SEQ, :n_runs] = row_seq[op_row[hpos]]
-                tmpl[DESC_ELEM_BASE, :n_runs] = np.cumsum(run_len) - run_len
-                tmpl[DESC_HAS_VALUE, :n_runs] = 1
-                tmpl[DESC_META, META_N_ELEMS] = n_pairs
-                tmpl[DESC_META, META_N_RUNS] = n_runs
+                tmpl = build_desc_template(plan, tc, op_row, head_rank,
+                                           row_actor_rank, row_seq, R, N)
                 if full_round:
                     tmpl.setflags(write=False)
                     rc["desc_tmpl"] = tmpl
@@ -606,7 +628,8 @@ class DeviceTextDoc(CausalDeviceDoc):
             # h2d once per (batch, device) and reuse the (immutable) device
             # buffer across every application — at headline scale it is
             # the plan's largest transfer
-            sb = getattr(b, "_staged_blob", None) if full_round else None
+            sb = (getattr(b, "_staged_blob", None)
+                  if full_round and stage else None)
             if sb is not None and sb[0] == (N, self.device):
                 blob_dev = sb[1]
             else:
@@ -614,7 +637,7 @@ class DeviceTextDoc(CausalDeviceDoc):
                                 else np.int32)
                 blob[:n_pairs] = plan.blob
                 blob_dev = st(blob)
-                if full_round:
+                if full_round and stage:
                     b._staged_blob = ((N, self.device), blob_dev)
             desc_dev = st(desc)
 
@@ -668,7 +691,7 @@ class DeviceTextDoc(CausalDeviceDoc):
         # chain bits of elements that lost Lamport-max-child status to this
         # round's inserts (R-sized; keeps materialize census-free). The
         # dense path's breaks are applied from the descriptor
-        # (_fused_expand), so only mixed rounds stage a touch matrix.
+        # (_fused_expand_r), so only mixed rounds stage a touch matrix.
         touch_dev = None
         if not dense and ins_par:
             arr_p = np.concatenate(ins_par)
@@ -750,14 +773,15 @@ class DeviceTextDoc(CausalDeviceDoc):
             try:
                 seg_S = bucket(mirror_after.n_segs + 2, 64)
                 sp_key = (seg_S, n_elems_after, self.device)
-                if mc_entry is not None and sp_key in mc_entry[2]:
+                if (mc_entry is not None and stage
+                        and sp_key in mc_entry[2]):
                     # the staged (immutable) segplan device buffer is
                     # shared across applications outright
                     seg_plan_dev = mc_entry[2][sp_key]
                 else:
                     seg_plan_dev = st(
                         mirror_after.plan(seg_S, n_elems_after))
-                    if mc_entry is not None:
+                    if mc_entry is not None and stage:
                         mc_entry[2][sp_key] = seg_plan_dev
             except Exception:
                 logger.warning(
@@ -771,9 +795,10 @@ class DeviceTextDoc(CausalDeviceDoc):
         touched = None
         if res_target_slot is not None and res_is_assign.any():
             touched = np.unique(res_target_slot[res_is_assign])
-        n_elems_dev = st(np.array(n_elems_after, np.int32))
+        n_elems_dev = (st(np.array(n_elems_after, np.int32)) if stage
+                       else None)
         staged_event = None
-        if self._stage_stream is not None:
+        if self._stage_stream is not None and stage:
             staged_event = torch.cuda.Event()
             staged_event.record(self._stage_stream)
         exec_plan = _RoundExec(

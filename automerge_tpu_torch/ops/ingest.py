@@ -4,34 +4,46 @@ Counterpart of the text- and map-engine subset of
 `automerge_tpu/ops/ingest.py`: run expansion (through
 ops/fused_round.py), residual placement with the LWW register fast path,
 chain breaks, the chain-condensed materialization (self-contained and
-host-planned), the map round, and the register writeback. Every function
-is a plain function on tensors, on the device its inputs live on; shapes
-and `bucket()` sizes are the JAX package's, so the two produce identical
-tables.
+host-planned), the map round, the register writeback, the DocSet's dense
+expansion and the stacking helpers of the multi-document tier. Every
+function is a plain function on tensors, on the device its inputs live
+on; shapes and `bucket()` sizes are the JAX package's, so the two produce
+identical tables.
+
+**Row forms.** Every program is written once, over a leading doc axis:
+its operands are (D, ...) stacks, one row per document (the `*_r`
+functions). The stacked documents (engine/stacked.py, engine/doc_set.py)
+run them on their stacks, where the JAX package `vmap`s its one-document
+programs (a kernel bound through ctypes cannot be vmapped). A
+one-document program (`materialize_codes`, `apply_map_round`, ...) is its
+row form at D = 1 (`_row` in, `_one` out).
 
 **In-place rounds** (the port's form of the JAX package's `*_donated`
 twins). The functions here run out of place by default. Given a
-`TableStore`, the commit-path scatters (`_scatter_rows_9`,
-`_register_fast_path`, `_break_chains_core`, `scatter_registers_packed`)
-write the round's rows into the store's buffers instead, which are the
-live tables' storage: a round at an unchanged capacity allocates no
-table set, and a round that grows the capacity allocates one, once.
-The document selects them with `donate_buffers` (engine/base.py), and a
-round that raises after its first in-place write leaves no valid table
-state (`TableStore.writes` tells the two cases apart).
+`TableStore` (one document, D = 1), the commit-path scatters
+(`_scatter_rows_9_r`, `_register_fast_path_r`, `break_chains_r`,
+`scatter_registers_packed_r`) write the round's rows into the store's
+buffers instead, which are the live tables' storage: a round at an
+unchanged capacity allocates no table set, and a round that grows the
+capacity allocates one, once. The document selects them with
+`donate_buffers` (engine/base.py), and a round that raises after its
+first in-place write leaves no valid table state (`TableStore.writes`
+tells the two cases apart).
 
 Semantics that differ between JAX and PyTorch are made explicit here
 rather than inherited:
 
 - `.at[i].set(v, mode="drop")` drops indices outside the array (and wraps
-  negatives). `_set_drop` / `_set_drop_rows` reproduce it without a host
-  sync: dropped indices are redirected to one scratch row (column) past
-  the end, which is cut off.
-- a JAX gather clamps an out-of-range index; `_take` does so explicitly.
+  negatives). `_set_drop_r` / `_set_drop_rows_r` reproduce it without a
+  host sync: dropped indices are redirected to a scratch column past each
+  row's end, which is cut off. A row's scratch is its own: flattened to
+  D * n without it, row d's sentinel n would land on row d + 1's slot 0.
+- a JAX gather clamps an out-of-range index; `_take_r` does so explicitly.
 - uint32 hashing wraps; torch has no uint32 shift on the CPU, so the
   hashes run in int64 with explicit 32-bit masks (`_mix32`).
 - every int32 prefix sum passes `dtype=torch.int32` (torch would widen).
-- `lax.sort(..., num_keys=k)` becomes successive stable sorts (`_lexsort`).
+- `lax.sort(..., num_keys=k)` becomes successive stable sorts along each
+  row (`_lexsort_r`).
 """
 
 from __future__ import annotations
@@ -42,7 +54,7 @@ import numpy as np
 import torch
 
 from .._common import KIND_DEL, KIND_INC, KIND_INS, KIND_SET  # noqa: F401
-from .scan_kernels import fused_segment_scans
+from .scan_kernels import fused_segment_scans, multi_scan
 
 I32 = torch.int32
 
@@ -65,8 +77,7 @@ META_N_ELEMS, META_BASE_SLOT, META_N_RUNS = range(3)
 RES_KIND, RES_SLOT, RES_NEW_SLOT, RES_CTR, RES_ACTOR, RES_VALUE, \
     RES_WIN_ACTOR, RES_WIN_SEQ = range(8)
 
-# Row layout of the packed (D, 5, M) stacked map-op upload (the stacked
-# executor is not part of this package; the layout is shared format).
+# Row layout of the packed (D, 5, M) stacked map-op upload.
 MOP_KIND, MOP_SLOT, MOP_VALUE, MOP_WIN_ACTOR, MOP_WIN_SEQ = range(5)
 
 # Packed-writeback row layout for scatter_registers_packed: one (6, S).
@@ -80,6 +91,21 @@ def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, dtype=I32, device=like.device)
 
 
+def _row(*ts) -> tuple:
+    """One document's operands as one-row stacks (a row form's D = 1)."""
+    return tuple(t[None] for t in ts)
+
+
+def _one(out, store=None, keys=()) -> tuple:
+    """Row 0 of each of a row form's D = 1 results. With a `store`, the
+    leading `keys` results are the store's own views: the engine knows
+    in-place tables by identity (`TableStore.holds`)."""
+    out = tuple(t[0] for t in out)
+    if store is not None:
+        out = tuple(store.views[k] for k in keys) + out[len(keys):]
+    return out
+
+
 def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """`a[idx]` with JAX gather semantics: negative indices wrap once,
     then every index clamps into range."""
@@ -87,6 +113,16 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     idx = idx.to(torch.int64)
     idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
     return a[idx]
+
+
+def _take_r(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row-wise `a[idx]` with JAX gather semantics (negatives wrap once,
+    then every index clamps into its row); a (1, M) `idx` serves every
+    row."""
+    n = a.shape[1]
+    idx = idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    return a.gather(1, idx.expand(a.shape[0], -1))
 
 
 def _drop_index(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -98,32 +134,66 @@ def _drop_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where((idx >= 0) & (idx < n), idx, n)
 
 
-def _set_drop(dst: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
-    """`dst.at[idx].set(vals, mode="drop")` along dim 0, out of place.
+def _flat_rows(idx: torch.Tensor, stride: int) -> torch.Tensor:
+    """(D, M) in-row indices -> flat (D * M,) indices into a (D, stride)
+    buffer."""
+    D = idx.shape[0]
+    if D > 1:
+        idx = idx + torch.arange(D, dtype=torch.int64,
+                                 device=idx.device)[:, None] * stride
+    return idx.reshape(-1)
+
+
+def _set_drop_r(dst: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    """Row-wise `dst.at[idx].set(vals, mode="drop")` of a (D, n, ...)
+    `dst` with (D, M) `idx`, out of place (a scalar `vals` broadcasts).
 
     Instead of a mask, which would need a host sync to compact, dropped
-    rows write to one scratch row appended past the end and cut off
+    indices write to a scratch column appended to each row and cut off
     again; only they may collide, so live writes stay deterministic."""
-    n = dst.shape[0]
-    out = torch.cat([dst, dst.new_zeros((1,) + tuple(dst.shape[1:]))])
-    if not torch.is_tensor(vals):
+    D, n = dst.shape[:2]
+    trail = tuple(dst.shape[2:])
+    out = torch.cat([dst, dst.new_zeros((D, 1) + trail)], 1)
+    if torch.is_tensor(vals):
+        vals = vals.to(dst.dtype).reshape((-1,) + trail)
+    else:
         # a fill on the device: a pageable h2d copy would sync the stream
         vals = dst.new_full((), vals)
-    out.index_put_((_drop_index(idx, n),), vals.to(dst.dtype))
-    return out[:n]
+    out.view((-1,) + trail).index_put_(
+        (_flat_rows(_drop_index(idx, n), n + 1),), vals)
+    return out[:, :n]
 
 
-def _prev(a: torch.Tensor) -> torch.Tensor:
-    """[0, a[0], ..., a[-2]]"""
-    return torch.cat([a.new_zeros(1), a[:-1]])
+def _set_drop(dst: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    """`dst.at[idx].set(vals, mode="drop")` along dim 0: `_set_drop_r` of
+    one row."""
+    return _set_drop_r(dst[None], idx[None],
+                       vals[None] if torch.is_tensor(vals) else vals)[0]
 
 
-def _lexsort(keys) -> torch.Tensor:
-    """Stable ascending order over `keys` (most significant first) — the
-    `lax.sort(..., num_keys=len(keys))` permutation."""
-    order = torch.arange(keys[0].shape[0], device=keys[0].device)
+def _prev_r(a: torch.Tensor) -> torch.Tensor:
+    """[0, a[:, 0], ..., a[:, -2]] per row."""
+    return torch.cat([a.new_zeros((a.shape[0], 1)), a[:, :-1]], 1)
+
+
+def _ext_r(a: torch.Tensor, fill, out_cap: int) -> torch.Tensor:
+    """(D, C) rows extended to (D, out_cap) with their padding fill."""
+    D, C = a.shape
+    if C >= out_cap:
+        return a
+    return torch.cat([a, a.new_full((D, out_cap - C), fill)], 1)
+
+
+def _lexsort_r(keys) -> torch.Tensor:
+    """Row-wise stable ascending order over (D, n) `keys` (most
+    significant first), as int64 (D, n) orders — the `lax.sort(...,
+    num_keys=len(keys))` permutation of each row: successive stable sorts
+    from the least significant key."""
+    D, n = keys[0].shape
+    order = torch.arange(n, device=keys[0].device).expand(D, n)
     for k in reversed(keys):
-        order = order[torch.sort(k[order], stable=True).indices]
+        order = order.gather(
+            1, torch.sort(k.gather(1, order), dim=1, stable=True).indices)
     return order
 
 
@@ -218,324 +288,357 @@ class TableStore:
             self._bufs[b][lo:hi, di] = torch.stack([v for _, v in group])
         self.writes += 1
 
+    def put_row(self, keys, idx: torch.Tensor, updates):
+        """`put` of a row form's one-row (1, M) indices and updates."""
+        self.put(keys, idx[0],
+                 tuple(u[0] if torch.is_tensor(u) else u for u in updates))
 
-def _set_drop_rows(rows, fills, idx, updates, n: int) -> torch.Tensor:
-    """Write K aligned rows at `idx` as ONE column scatter into a
-    (K, n + 1) int32 buffer: row r is `rows[r]` padded with `fills[r]` to
-    length n, and out-of-range `idx` drops into the scratch column n.
-    Returns the (K, n) view; each of its rows is contiguous, so no
-    transpose copy is needed."""
-    C = rows[0].shape[0]
-    buf = torch.empty((len(rows), n + 1), dtype=I32, device=rows[0].device)
+
+def _set_drop_rows_r(rows, fills, idx, updates, n: int) -> torch.Tensor:
+    """Write K aligned (D, C) tables at (D, M) `idx` as ONE scatter into a
+    (K, D, n + 1) int32 buffer: table r is `rows[r]` padded with
+    `fills[r]` to n, and each row's out-of-range `idx` drops into its
+    scratch column n. Returns the (K, D, n) view; every row of it is
+    contiguous, so no transpose copy is needed."""
+    D, C = rows[0].shape
+    buf = torch.empty((len(rows), D, n + 1), dtype=I32,
+                      device=rows[0].device)
     for r, (t, fill) in enumerate(zip(rows, fills)):
-        buf[r, :C] = t
-        buf[r, C:] = fill
-    buf[:, _drop_index(idx, n)] = torch.stack([u.to(I32) for u in updates])
-    return buf[:, :n]
+        buf[r, :, :C] = t
+        buf[r, :, C:] = fill
+    buf.view(len(rows), -1)[:, _flat_rows(_drop_index(idx, n), n + 1)] = \
+        torch.stack([u.to(I32).reshape(-1) for u in updates])
+    return buf[:, :, :n]
 
 
-def _scatter_rows_9(tables, idx, updates, out_cap: int, store=None):
-    """Write 9 aligned element-table rows at `idx` as ONE scatter (shared
-    index vector; out-of-range `idx` drops), the tables first extended to
+def _scatter_rows_9_r(tables, idx, updates, out_cap: int, store=None):
+    """Write the 9 element tables at (D, M) `idx` as ONE scatter (shared
+    index rows; out-of-range `idx` drops), the tables first extended to
     `out_cap` with their padding fills. Row order: TEXT_TABLE_KEYS; bool
-    rows ride as int32. With a `store` the rows land in its buffers (one
-    scatter per dtype) and its views come back."""
+    tables ride as int32. With a `store` (D = 1) the rows land in its
+    buffers (one scatter per dtype) and its views come back."""
     if store is not None:
         store.grow(out_cap)
-        store.put(TEXT_TABLE_KEYS, idx, updates)
-        return store.rows()
-    out = _set_drop_rows(tables, (0, 0, 0, 0, 0, -1, 0, 0, 0), idx, updates,
-                         max(tables[0].shape[0], out_cap))
+        store.put_row(TEXT_TABLE_KEYS, idx, updates)
+        return _row(*store.rows())
+    out = _set_drop_rows_r(tables, TEXT_TABLE_FILLS, idx, updates,
+                           max(tables[0].shape[1], out_cap))
     return (out[0], out[1], out[2], out[3], out[4].bool(), out[5], out[6],
             out[7].bool(), out[8].bool())
 
 
-def _unpack_desc(desc):
-    return (desc[DESC_HEAD_SLOT], desc[DESC_PARENT_SLOT], desc[DESC_CTR0],
-            desc[DESC_ACTOR], desc[DESC_WIN_ACTOR], desc[DESC_WIN_SEQ],
-            desc[DESC_ELEM_BASE], desc[DESC_HAS_VALUE].bool())
+def _unpack_desc_r(desc):
+    """The run rows of a (D, 9, R) descriptor stack."""
+    return (desc[:, DESC_HEAD_SLOT], desc[:, DESC_PARENT_SLOT],
+            desc[:, DESC_CTR0], desc[:, DESC_ACTOR], desc[:, DESC_WIN_ACTOR],
+            desc[:, DESC_WIN_SEQ], desc[:, DESC_ELEM_BASE],
+            desc[:, DESC_HAS_VALUE].bool())
 
 
-def _break_chains_core(chain, parent, ctr, actor, p_slots, h_ctr, h_actor,
-                       store=None):
-    """Clear the chain bit of slot p+1 for every touched parent p whose new
-    child Lamport-exceeds (ctr, actor) of p+1 (breaks are sticky). With a
-    `store`, in place."""
-    C = chain.shape[0]
-    q = (p_slots + 1).clamp(0, C - 1)
-    cq = ctr[q.long()]
-    aq = actor[q.long()]
+def break_chains_r(chain, parent, ctr, actor, p_slots, h_ctr, h_actor,
+                   store=None):
+    """Clear the chain bit of slot p+1 for every touched parent p whose
+    new child Lamport-exceeds (ctr, actor) of p+1 (breaks are sticky):
+    (D, T) touched parents per row. With a `store` (D = 1), in place."""
+    C = chain.shape[1]
+    q = (p_slots + 1).clamp(0, C - 1).long()
+    cq = ctr.gather(1, q)
+    aq = actor.gather(1, q)
     brk = (p_slots >= 1) & ((h_ctr > cq) | ((h_ctr == cq) & (h_actor > aq)))
     tgt = torch.where(brk, q, C)
     if store is not None:
-        store.put(("chain",), tgt, (False,))
-        return store.views["chain"]
-    return _set_drop(chain, tgt, False)
+        store.put_row(("chain",), tgt, (False,))
+        return store.views["chain"][None]
+    return _set_drop_r(chain, tgt, False)
 
 
-def _break_chains_packed(chain, parent, ctr, actor, touch, store=None):
-    """`_break_chains_core` with the (p_slot, ctr, actor) touch rows packed
-    as one (3, T) int32 matrix."""
-    return _break_chains_core(chain, parent, ctr, actor,
-                              touch[0], touch[1], touch[2], store)
+def _register_fast_path_r(value_n, has_n, wa_n, ws_n, wc_n, kind, is_assign,
+                          op_slot, op_value, op_win_actor, op_win_seq,
+                          conflict_slots, out_cap, store=None):
+    """Shared LWW register resolution, (D, M) ops against (D, out_cap)
+    registers: a single plain inline set in this round targeting an empty
+    register or the op's own actor's earlier write is written here;
+    everything else is flagged `slow` for the host. With a `store` (D = 1,
+    capacity `out_cap`) the writes land in place.
 
-
-def _register_fast_path(value_n, has_n, wa_n, ws_n, wc_n, kind, is_assign,
-                        op_slot, op_value, op_win_actor, op_win_seq,
-                        conflict_slots, out_cap, store=None):
-    """Shared LWW register resolution: a single plain inline set in this
-    round targeting an empty register or the op's own actor's earlier
-    write is written here; everything else is flagged `slow` for the host.
-    With a `store` (of capacity `out_cap`) the writes land in place.
-
-    Returns the updated registers plus the packed (7, M) `slow_info`
+    Returns the updated registers plus the packed (D, 7, M) `slow_info`
     [slow, tslot, reg_value, reg_has, reg_win_actor, reg_win_seq,
     reg_win_counter]."""
+    D = kind.shape[0]
+    dev = kind.device
     tslot = torch.where(is_assign, op_slot, out_cap)
     tclip = tslot.clamp(0, out_cap - 1).long()
-    counts = torch.zeros(out_cap + 1, dtype=I32, device=value_n.device)
-    counts.index_add_(0, tslot.clamp(0, out_cap).long(), is_assign.to(I32))
-    cmask = torch.zeros(out_cap + 1, dtype=torch.bool, device=value_n.device)
-    cmask[conflict_slots.clamp(0, out_cap).long()] = True
-    empty = ~has_n[tclip] & (wa_n[tclip] < 0)
-    self_over = (~wc_n[tclip] & (wa_n[tclip] == op_win_actor)
-                 & (ws_n[tclip] < op_win_seq))
+    counts = torch.zeros((D, out_cap + 1), dtype=I32, device=dev)
+    counts.view(-1).index_add_(
+        0, _flat_rows(tslot.clamp(0, out_cap).long(), out_cap + 1),
+        is_assign.to(I32).reshape(-1))
+    cmask = torch.zeros((D, out_cap + 1), dtype=torch.bool, device=dev)
+    cmask.view(-1)[_flat_rows(conflict_slots.clamp(0, out_cap).long(),
+                              out_cap + 1)] = True
+    g_h, g_wa = has_n.gather(1, tclip), wa_n.gather(1, tclip)
+    empty = ~g_h & (g_wa < 0)
+    self_over = (~wc_n.gather(1, tclip) & (g_wa == op_win_actor)
+                 & (ws_n.gather(1, tclip) < op_win_seq))
     fast = (is_assign & (kind == KIND_SET)
-            & (counts[tclip] == 1) & (empty | self_over)
-            & ~cmask[tclip] & (op_value >= 0))
+            & (counts.gather(1, tclip) == 1) & (empty | self_over)
+            & ~cmask.gather(1, tclip) & (op_value >= 0))
     f_idx = torch.where(fast, tslot, out_cap)
-    M = f_idx.shape[0]
-    ones = torch.ones(M, dtype=I32, device=value_n.device)
+    ones = torch.ones_like(f_idx)
     upd = (op_value, ones, op_win_actor, op_win_seq, torch.zeros_like(ones))
     if store is not None:
-        store.put(REG_KEYS, f_idx, upd)
-        value_n, has_n, wa_n, ws_n, wc_n = (store.views[k] for k in REG_KEYS)
+        store.put_row(REG_KEYS, f_idx, upd)
+        value_n, has_n, wa_n, ws_n, wc_n = (store.views[k][None]
+                                            for k in REG_KEYS)
     else:
-        regs = _set_drop_rows((value_n, has_n, wa_n, ws_n, wc_n), (0,) * 5,
-                              f_idx, upd, value_n.shape[0])
-        value_n, has_n, wa_n, ws_n, wc_n = (
-            regs[0], regs[1].bool(), regs[2], regs[3], regs[4].bool())
-
+        regs = _set_drop_rows_r((value_n, has_n, wa_n, ws_n, wc_n), (0,) * 5,
+                                f_idx, upd, value_n.shape[1])
+        value_n, has_n, wa_n, ws_n, wc_n = (regs[0], regs[1].bool(), regs[2],
+                                            regs[3], regs[4].bool())
     slow = is_assign & ~fast
     slow_info = torch.stack([
         slow.to(I32), tslot,
-        value_n[tclip], has_n[tclip].to(I32),
-        wa_n[tclip], ws_n[tclip], wc_n[tclip].to(I32)])
+        value_n.gather(1, tclip), has_n.gather(1, tclip).to(I32),
+        wa_n.gather(1, tclip), ws_n.gather(1, tclip),
+        wc_n.gather(1, tclip).to(I32)], 1)
     return value_n, has_n, wa_n, ws_n, wc_n, slow_info
 
 
-def apply_residual(parent, ctr, actor, value, has_value, win_actor, win_seq,
-                   win_counter, chain, op_kind, op_slot, op_new_slot, op_ctr,
-                   op_actor, op_value, op_win_actor, op_win_seq,
-                   conflict_slots, *, out_cap: int, store=None):
-    """Place irregular inserts and run the LWW register fast path (padding
-    rows: kind=-1, slots=out_cap). Returns the 9 tables + (7, M)
-    slow_info. With a `store`, in place."""
-    M = op_kind.shape[0]
-    kind = op_kind.to(I32)
+def _apply_residual_packed_r(parent, ctr, actor, value, has_value,
+                             win_actor, win_seq, win_counter, chain, res,
+                             conflict_slots, *, out_cap: int, store=None):
+    """Place irregular inserts and run the LWW register fast path: (D, 8,
+    M) residual ops (row layout: RES_*; padding rows: kind=-1,
+    slots=out_cap), (D, K) conflict slots. Returns the 9 tables + the
+    (D, 7, M) slow_info. With a `store` (D = 1), in place."""
+    kind = res[:, RES_KIND]
     is_ins = kind == KIND_INS
     is_assign = (kind == KIND_SET) | (kind == KIND_DEL) | (kind == KIND_INC)
-
-    ins_idx = torch.where(is_ins, op_new_slot, out_cap)
-    zeros = torch.zeros(M, dtype=I32, device=op_kind.device)
-    (parent_n, ctr_n, actor_n, value_n, has_n, wa_n, ws_n, wc_n,
-     chain_n) = _scatter_rows_9(
+    op_slot = res[:, RES_SLOT]
+    zeros = torch.zeros_like(op_slot)
+    tables = _scatter_rows_9_r(
         (parent, ctr, actor, value, has_value, win_actor, win_seq,
          win_counter, chain),
-        ins_idx,
-        (op_slot, op_ctr, op_actor, zeros, zeros,
+        torch.where(is_ins, res[:, RES_NEW_SLOT], out_cap),
+        (op_slot, res[:, RES_CTR], res[:, RES_ACTOR], zeros, zeros,
          torch.full_like(zeros, -1), zeros, zeros, zeros),
         out_cap, store)
-
-    (value_n, has_n, wa_n, ws_n, wc_n, slow_info) = _register_fast_path(
-        value_n, has_n, wa_n, ws_n, wc_n, kind, is_assign, op_slot,
-        op_value, op_win_actor, op_win_seq, conflict_slots, out_cap, store)
-    return (parent_n, ctr_n, actor_n, value_n, has_n, wa_n, ws_n, wc_n,
-            chain_n, slow_info)
-
-
-def _apply_residual_packed(parent, ctr, actor, value, has_value, win_actor,
-                           win_seq, win_counter, chain, res, conflict_slots,
-                           *, out_cap: int, store=None):
-    """`apply_residual` taking the residual op columns as one packed
-    (8, M) int32 matrix (row layout: RES_*)."""
-    return apply_residual(
-        parent, ctr, actor, value, has_value, win_actor, win_seq,
-        win_counter, chain,
-        res[RES_KIND], res[RES_SLOT], res[RES_NEW_SLOT],
-        res[RES_CTR], res[RES_ACTOR], res[RES_VALUE], res[RES_WIN_ACTOR],
-        res[RES_WIN_SEQ], conflict_slots, out_cap=out_cap, store=store)
+    regs = _register_fast_path_r(
+        *tables[3:8], kind, is_assign, op_slot, res[:, RES_VALUE],
+        res[:, RES_WIN_ACTOR], res[:, RES_WIN_SEQ], conflict_slots, out_cap,
+        store)
+    return tables[:3] + regs[:5] + (tables[8], regs[5])
 
 
-def _ext(a: torch.Tensor, fill, out_cap: int) -> torch.Tensor:
-    """`a` extended to `out_cap` with its padding fill."""
-    C = a.shape[0]
-    if C >= out_cap:
-        return a
-    return torch.cat([a, a.new_full((out_cap - C,), fill)])
+def _map_round_r(regs, kind, slot, value, win_actor, win_seq,
+                 conflict_slots, out_cap: int):
+    kind = kind.to(I32)
+    is_assign = (kind == KIND_SET) | (kind == KIND_DEL) | (kind == KIND_INC)
+    regs = [_ext_r(t, f, out_cap) for t, f in zip(regs, REG_FILLS)]
+    return _register_fast_path_r(*regs, kind, is_assign, slot, value,
+                                 win_actor, win_seq, conflict_slots, out_cap)
 
 
 def apply_map_round(value, has_value, win_actor, win_seq, win_counter,
                     op_kind, op_slot, op_value, op_win_actor, op_win_seq,
                     conflict_slots, *, out_cap: int):
     """One causally-ready round of map ops (set/del/inc on interned keys):
-    `apply_residual` without inserts. Key registers are dense slots; the
+    the residual round without inserts. Key registers are dense slots; the
     LWW fast path takes single uncontended inline-int sets, and dels,
     incs, pooled values, multi-writer rounds and occupied registers land
     in the `slow` mask for the host (padding: kind=-1, slot=out_cap).
     Returns the 5 registers + the (7, M) slow_info."""
-    kind = op_kind.to(I32)
-    is_assign = (kind == KIND_SET) | (kind == KIND_DEL) | (kind == KIND_INC)
-    regs = [_ext(t, f, out_cap) for t, f in zip(
-        (value, has_value, win_actor, win_seq, win_counter), REG_FILLS)]
-    return _register_fast_path(
-        *regs, kind, is_assign, op_slot, op_value, op_win_actor, op_win_seq,
-        conflict_slots, out_cap)
+    return _one(_map_round_r(
+        _row(value, has_value, win_actor, win_seq, win_counter),
+        *_row(op_kind, op_slot, op_value, op_win_actor, op_win_seq,
+              conflict_slots), out_cap))
+
+
+def apply_map_round_r(value, has_value, win_actor, win_seq, win_counter,
+                      ops, conflict_slots, *, out_cap: int):
+    """`apply_map_round` over the doc axis: one round of every stacked
+    map document. `ops` is the packed (D, 5, M) int32 op matrix (MOP_*
+    rows; padding kind=-1, slot=out_cap), `conflict_slots` (D, K).
+    Returns the 5 stacked registers + the (D, 7, M) slow_info."""
+    return _map_round_r(
+        (value, has_value, win_actor, win_seq, win_counter),
+        ops[:, MOP_KIND], ops[:, MOP_SLOT], ops[:, MOP_VALUE],
+        ops[:, MOP_WIN_ACTOR], ops[:, MOP_WIN_SEQ], conflict_slots, out_cap)
 
 
 # ---------------------------------------------------------- materialize
 
-def _linearize_segments(parent, attach_off, ctr, actor, weight, valid):
-    """Condensed-tree linearization: per-parent children ordered by
-    descending (attach, ctr, actor), successor chain by pointer doubling,
-    weighted list ranking. Returns each segment's start position."""
-    n = parent.shape[0]
+def _linearize_segments_r(parent, attach_off, ctr, actor, weight, valid):
+    """Condensed-tree linearization of (D, n) trees, each row on its own:
+    per-parent children ordered by descending (attach, ctr, actor),
+    successor chain by pointer doubling, weighted list ranking. Returns
+    each segment's start position."""
+    D, n = parent.shape
+    dev = parent.device
     steps = max(1, math.ceil(math.log2(max(2, n))))
-    idx = _arange(n, parent)
+    idx = torch.arange(n, dtype=I32, device=dev)
     is_seg = valid & (idx != 0)
     big = n + 1
 
     sort_parent = torch.where(is_seg, parent, big)
-    neg_off = torch.where(is_seg, -attach_off, big)
-    neg_ctr = torch.where(is_seg, -ctr, big)
-    neg_actor = torch.where(is_seg, -actor, big)
-    order = _lexsort([sort_parent, neg_off, neg_ctr, neg_actor])
-    p_s = sort_parent[order]
+    order = _lexsort_r([sort_parent, torch.where(is_seg, -attach_off, big),
+                        torch.where(is_seg, -ctr, big),
+                        torch.where(is_seg, -actor, big)])
+    p_s = sort_parent.gather(1, order)
     idx_s = order.to(I32)
-
     in_group = p_s < big
-    false1 = torch.zeros(1, dtype=torch.bool, device=parent.device)
-    same_next = torch.cat([(p_s[1:] == p_s[:-1]) & in_group[1:], false1])
-    next_in_sorted = torch.cat([idx_s[1:], idx_s.new_full((1,), -1)])
-    next_sib = torch.full((n,), -1, dtype=I32, device=parent.device)
-    next_sib[order] = torch.where(same_next, next_in_sorted, -1)
-
-    group_start = torch.cat([~false1, p_s[1:] != p_s[:-1]]) & in_group
-    first_child = _set_drop(
-        torch.full((n,), -1, dtype=I32, device=parent.device),
+    false1 = torch.zeros((D, 1), dtype=torch.bool, device=dev)
+    same_next = torch.cat([(p_s[:, 1:] == p_s[:, :-1]) & in_group[:, 1:],
+                           false1], 1)
+    next_in_sorted = torch.cat([idx_s[:, 1:], idx_s.new_full((D, 1), -1)], 1)
+    next_sib = torch.full((D, n), -1, dtype=I32, device=dev).scatter_(
+        1, order, torch.where(same_next, next_in_sorted, -1))
+    group_start = torch.cat([~false1, p_s[:, 1:] != p_s[:, :-1]], 1) \
+        & in_group
+    first_child = _set_drop_r(
+        torch.full((D, n), -1, dtype=I32, device=dev),
         torch.where(group_start, p_s, big - 1),
         torch.where(group_start, idx_s, -1))
 
     has_next = next_sib >= 0
-    safe_parent = torch.where(is_seg, parent, 0)
-    anc = torch.where(has_next | (idx == 0), idx, safe_parent).long()
+    anc = torch.where(has_next | (idx == 0), idx,
+                      torch.where(is_seg, parent, 0)).long()
     for _ in range(steps):
-        anc = anc[anc]
-
-    succ = torch.where(first_child >= 0, first_child, next_sib[anc])
-
+        anc = anc.gather(1, anc)
+    succ = torch.where(first_child >= 0, first_child, _take_r(next_sib, anc))
     nxt = torch.where(succ >= 0, succ, n)
     nxt = torch.where(is_seg | (idx == 0), nxt, idx)
-    nxt = torch.cat([nxt, nxt.new_full((1,), n)]).long()
+    nxt = torch.cat([nxt, nxt.new_full((D, 1), n)], 1).long()
     dist = torch.where(is_seg, weight, 0).to(I32)
-    dist = torch.cat([dist, dist.new_zeros(1)])
+    dist = torch.cat([dist, dist.new_zeros((D, 1))], 1)
     for _ in range(steps + 1):
-        dist, nxt = dist + dist[nxt], nxt[nxt]
-    start = dist[0] - dist[:n]
-    return torch.where(is_seg, start, torch.where(idx == 0, 0, big)).to(I32)
+        dist, nxt = dist + dist.gather(1, nxt), nxt.gather(1, nxt)
+    start = dist[:, :1] - dist[:, :n]
+    return torch.where(is_seg, start,
+                       torch.where(idx == 0, 0, big)).to(I32)
 
 
-def _expand_S(table, sidx, live_seg, heads, C: int):
-    """S-space table -> per-segment deltas at the heads' slots (C-sized,
-    prefix-summed by the caller): slots of segment k read table[k]."""
-    d = torch.where(sidx == 1, table, table - _prev(table))
-    tgt = torch.where(live_seg, heads, C)
-    return _set_drop(torch.zeros(C, dtype=table.dtype, device=table.device),
-                     tgt, d)
+def _expand_S_r(table, sidx, live_seg, heads, C: int):
+    """(D, S) segment table -> per-segment deltas at the heads' slots
+    ((D, C), prefix-summed by the caller): slots of segment k read
+    table[k]."""
+    d = torch.where(sidx == 1, table, table - _prev_r(table))
+    return _set_drop_r(torch.zeros((table.shape[0], C), dtype=table.dtype,
+                                   device=table.device),
+                       torch.where(live_seg, heads, C), d)
 
 
-def _codes(value, vis, vis_rank, C: int, as_u8: bool):
+def _codes_r(value, vis, vis_rank, C: int, as_u8: bool):
     tgt = torch.where(vis, vis_rank, C)
+    D = value.shape[0]
     if as_u8:
         # known-7-bit documents scatter 1-byte codes: 4x fewer bytes each way
-        return _set_drop(torch.zeros(C, dtype=torch.uint8,
-                                     device=value.device),
-                         tgt, value.to(torch.uint8))
-    return _set_drop(torch.full((C,), -1, dtype=value.dtype,
-                                device=value.device), tgt, value)
+        return _set_drop_r(torch.zeros((D, C), dtype=torch.uint8,
+                                       device=value.device),
+                           tgt, value.to(torch.uint8))
+    return _set_drop_r(torch.full((D, C), -1, dtype=value.dtype,
+                                  device=value.device), tgt, value)
 
 
-def _materialize_core(parent, ctr, actor, value, has_value, chain, n_elems,
-                      S, with_pos, as_u8):
-    """RGA positions + visible compaction from the maintained chain bits.
+def _per_row(n_elems):
+    """Element counts broadcasting over (D, C): a (D,) tensor as a
+    column; a scalar (one document) as it is."""
+    if torch.is_tensor(n_elems) and n_elems.dim() == 1:
+        return n_elems[:, None]
+    return n_elems
+
+
+def _segment_scans(chain, has_value, n_elems):
+    """`fused_segment_scans` of (D, C) rows: (D,) counts take the kernel's
+    row form, a scalar count (one document) its 1-D form."""
+    if torch.is_tensor(n_elems) and n_elems.dim() == 1:
+        return fused_segment_scans(chain, has_value, n_elems)
+    return _row(*fused_segment_scans(chain[0], has_value[0], n_elems))
+
+
+def _seg_visibility_r(vis, cumvis, heads_raw, n_segs, ne, S: int):
+    """(sidx, heads, next_head, live_seg, head_pre, seg_vis) of (D, S)
+    segment tables: `n_segs` (D,), `ne` the per-row element counts
+    (`_per_row`)."""
+    C = vis.shape[1]
+    sidx = torch.arange(S, dtype=I32, device=vis.device)
+    live_seg = (sidx >= 1) & (sidx <= n_segs[:, None])
+    heads = heads_raw.clamp(0, C - 1)
+    next_head = torch.where(
+        (sidx + 1 <= n_segs[:, None]) & (sidx + 1 < S),
+        _take_r(heads_raw, (sidx + 1).clamp(0, S - 1)[None]), ne + 1)
+    head_pre = _take_r(cumvis, heads) - _take_r(vis, heads).to(I32)
+    last = (next_head - 1).clamp(0, C - 1)
+    seg_vis = torch.where(live_seg, _take_r(cumvis, last) - head_pre, 0)
+    return sidx, heads, next_head, live_seg, head_pre, seg_vis
+
+
+def _place(value, vis, is_elem, cumvis, seg_base, starts, sidx, live_seg,
+           heads, with_pos: bool, as_u8: bool):
+    """Element placement from the per-segment bases: the codes, and the
+    positions when `with_pos` (the S->slot expansions prefix-summed in
+    one pass)."""
+    C = value.shape[1]
+    if with_pos:
+        exp = _cumsum(torch.stack(
+            [_expand_S_r(t, sidx, live_seg, heads, C)
+             for t in (seg_base, starts, heads)], 1), 2)
+        sb_exp, starts_exp, seg_head_exp = exp[:, 0], exp[:, 1], exp[:, 2]
+    else:
+        sb_exp = _cumsum(_expand_S_r(seg_base, sidx, live_seg, heads, C), 1)
+    vis_rank = sb_exp + cumvis - vis.to(I32)
+    codes = _codes_r(value, vis, vis_rank, C, as_u8)
+    if not with_pos:
+        return codes, None
+    idx = torch.arange(C, dtype=I32, device=value.device)
+    pos = torch.where(is_elem, starts_exp + (idx - seg_head_exp),
+                      torch.where(idx == 0, -1, C + 1).to(I32))
+    return codes, pos
+
+
+def _materialize_core_r(parent, ctr, actor, value, has_value, chain,
+                        n_elems, S, with_pos, as_u8):
+    """RGA positions + visible compaction of (D, C) tables from the
+    maintained chain bits, each row on its own.
 
     Segments (maximal chain runs, contiguous in slot space) compact into S
     nodes, the condensed tree linearizes in O(S log S), and element
     position = segment start + offset. The segment ranks and the visible
-    prefix sum come from ONE `fused_segment_scans` pass (the JAX package
-    ran a (2, C) cumsum here and kept the Pallas kernel for other
-    callers)."""
-    C = parent.shape[0]
-    idx = _arange(C, parent)
-    is_elem = (idx >= 1) & (idx <= n_elems)
+    prefix sum of every row come from ONE `fused_segment_scans` launch
+    (the JAX package ran a (2, C) cumsum here and kept the Pallas kernel
+    for other callers). Returns (codes, scalars (D, 2) = [n_vis, n_segs])
+    or, `with_pos`, (pos, codes, scalars)."""
+    D, C = parent.shape
+    ne = _per_row(n_elems)
+    idx = torch.arange(C, dtype=I32, device=parent.device)
+    is_elem = (idx >= 1) & (idx <= ne)
     vis = has_value & is_elem
-    rank_incl, _seg_head, cumvis = fused_segment_scans(chain, has_value,
-                                                       n_elems)
-    n_segs = rank_incl[-1]
-
-    sidx = _arange(S, parent)
-    heads = torch.searchsorted(rank_incl, sidx, right=False,
-                               out_int32=True).clamp(0, C - 1)
-
-    valid = sidx <= n_segs
-    live_seg = valid & (sidx >= 1)
-    next_head = torch.where((sidx + 1 <= n_segs) & (sidx + 1 < S),
-                            _take(heads, (sidx + 1).clamp(0, S - 1)),
-                            n_elems + 1)
-
-    p_slot = _take(parent, heads)
-    node_parent = _take(rank_incl, p_slot)
-    attach = p_slot - _take(heads, node_parent.clamp(0, S - 1))
-    nctr = _take(ctr, heads)
-    nactor = _take(actor, heads)
+    rank_incl, _seg_head, cumvis = _segment_scans(chain, has_value, n_elems)
+    n_segs = rank_incl[:, -1]
+    sidx = torch.arange(S, dtype=I32, device=parent.device)
+    heads_raw = torch.searchsorted(rank_incl, sidx.expand(D, S).contiguous(),
+                                   right=False, out_int32=True)
+    valid = sidx <= n_segs[:, None]
+    sidx, heads, next_head, live_seg, head_pre, seg_vis = _seg_visibility_r(
+        vis, cumvis, heads_raw, n_segs, ne, S)
+    p_slot = _take_r(parent, heads)
+    node_parent = _take_r(rank_incl, p_slot)
+    attach = p_slot - _take_r(heads, node_parent.clamp(0, S - 1))
     weight = torch.where(live_seg, next_head - heads, 0)
-    starts = _linearize_segments(node_parent, attach, nctr, nactor, weight,
-                                 valid)
-
-    n_vis = cumvis[C - 1]
-    head_pre = _take(cumvis, heads) - _take(vis, heads).to(I32)
-    last = (next_head - 1).clamp(0, C - 1)
-    seg_vis = torch.where(live_seg, _take(cumvis, last) - head_pre, 0)
-
-    order_key = torch.where(live_seg, starts, C + 2)
-    perm = torch.sort(order_key, stable=True).indices
-    sv_perm = seg_vis[perm]
-    base_perm = _cumsum(sv_perm) - sv_perm          # exclusive, by pos
-    rank_base = torch.zeros(S, dtype=I32, device=parent.device)
-    rank_base[perm] = base_perm
-    seg_base = rank_base - head_pre
-
-    if with_pos:
-        d3 = torch.stack([_expand_S(seg_base, sidx, live_seg, heads, C),
-                          _expand_S(starts, sidx, live_seg, heads, C),
-                          _expand_S(heads, sidx, live_seg, heads, C)])
-        exp = _cumsum(d3, 1)
-        sb_exp, starts_exp, seg_head_exp = exp[0], exp[1], exp[2]
-    else:
-        sb_exp = _cumsum(_expand_S(seg_base, sidx, live_seg, heads, C))
-    vis_rank = sb_exp + cumvis - vis.to(I32)
-
-    codes = _codes(value, vis, vis_rank, C, as_u8)
-    scalars = torch.stack([n_vis, n_segs])
-    if with_pos:
-        pos = torch.where(is_elem, starts_exp + (idx - seg_head_exp),
-                          torch.where(idx == 0, -1, C + 1).to(I32))
-        return pos, codes, scalars
-    return codes, scalars
+    starts = _linearize_segments_r(node_parent, attach, _take_r(ctr, heads),
+                                   _take_r(actor, heads), weight, valid)
+    perm = torch.sort(torch.where(live_seg, starts, C + 2), dim=1,
+                      stable=True).indices
+    sv_perm = seg_vis.gather(1, perm)
+    rank_base = torch.zeros((D, S), dtype=I32, device=parent.device)
+    rank_base.scatter_(1, perm, _cumsum(sv_perm, 1) - sv_perm)
+    codes, pos = _place(value, vis, is_elem, cumvis, rank_base - head_pre,
+                        starts, sidx, live_seg, heads, with_pos, as_u8)
+    scalars = torch.stack([cumvis[:, C - 1], n_segs], 1)
+    return (pos, codes, scalars) if with_pos else (codes, scalars)
 
 
 # Odd 32-bit mixing constants for the plan-consistency hashes (see
-# `_materialize_core_planned`). engine/segments.SegmentMirror
+# `_materialize_core_planned_r`). engine/segments.SegmentMirror
 # {head_checksum, aux_checksum} run `mix32_np`, the numpy twin of `_mix32`.
 HASH_K1 = np.uint32(2654435761)   # 0x9E3779B1
 HASH_K2 = np.uint32(2246822519)   # 0x85EBCA77
@@ -579,82 +682,60 @@ def mix32_np(x: np.ndarray) -> np.ndarray:
     return x
 
 
-def _materialize_core_planned(parent, ctr, actor, value, has_value, chain,
-                              n_elems, segplan, S, with_pos, as_u8):
-    """Materialization with HOST-PLANNED segment structure.
+def _materialize_core_planned_r(parent, ctr, actor, value, has_value, chain,
+                                n_elems, segplan, S, with_pos, as_u8):
+    """Materialization of (D, C) tables with HOST-PLANNED segment
+    structure.
 
-    `segplan` is the (4, S) int32 matrix of engine/segments
+    `segplan` is the (D, 4, S) int32 stack of engine/segments
     SegmentMirror.plan(): [head slots, position->segment permutation,
     segment starts, meta(n_segs)]. What remains on the device is the
     visibility prefix sum, the S->slot expansion sum and the codes
     scatter, plus the plan-consistency scalars: the segment count and two
     nonlinear hashes re-derived from the REAL chain bits, which the engine
-    checks against the mirror at its scalar sync."""
-    C = value.shape[0]
-    idx = _arange(C, value)
-    is_elem = (idx >= 1) & (idx <= n_elems)
+    checks against the mirror at its scalar sync. Returns (codes, scalars
+    (D, 5) = [n_vis, n_segs, n_segs from the chain bits, head hash, aux
+    hash]) or, `with_pos`, (pos, codes, scalars)."""
+    D, C = value.shape
+    ne = _per_row(n_elems)
+    idx = torch.arange(C, dtype=I32, device=value.device)
+    is_elem = (idx >= 1) & (idx <= ne)
     vis = has_value & is_elem
-    cumvis = _cumsum(vis.to(I32))
-    n_vis = cumvis[C - 1]
-
-    heads_raw = segplan[0]
-    heads = heads_raw.clamp(0, C - 1)
-    perm = segplan[1].long()
-    n_segs = segplan[3, 0]
-    sidx = _arange(S, value)
-    live_seg = (sidx >= 1) & (sidx <= n_segs)
-
-    next_head = torch.where((sidx + 1 <= n_segs) & (sidx + 1 < S),
-                            _take(heads_raw, (sidx + 1).clamp(0, S - 1)),
-                            n_elems + 1)
-    head_pre = _take(cumvis, heads) - _take(vis, heads).to(I32)
-    last = (next_head - 1).clamp(0, C - 1)
-    seg_vis = torch.where(live_seg, _take(cumvis, last) - head_pre, 0)
-
-    sv_perm = _take(seg_vis, perm)
-    base_perm = _cumsum(sv_perm) - sv_perm
-    rank_base = _set_drop(torch.zeros(S, dtype=I32, device=value.device),
-                          perm, base_perm)
-    seg_base = rank_base - head_pre
-
-    if with_pos:
-        starts = segplan[2]
-        d3 = torch.stack([_expand_S(seg_base, sidx, live_seg, heads, C),
-                          _expand_S(starts, sidx, live_seg, heads, C),
-                          _expand_S(heads, sidx, live_seg, heads, C)])
-        exp = _cumsum(d3, 1)
-        sb_exp, starts_exp, seg_head_exp = exp[0], exp[1], exp[2]
-    else:
-        sb_exp = _cumsum(_expand_S(seg_base, sidx, live_seg, heads, C))
-    vis_rank = sb_exp + cumvis - vis.to(I32)
-    codes = _codes(value, vis, vis_rank, C, as_u8)
+    cumvis = _cumsum(vis.to(I32), 1)
+    n_segs = segplan[:, 3, 0]
+    sidx, heads, _next, live_seg, head_pre, seg_vis = _seg_visibility_r(
+        vis, cumvis, segplan[:, 0], n_segs, ne, S)
+    perm = segplan[:, 1]
+    sv_perm = _take_r(seg_vis, perm)
+    rank_base = _set_drop_r(torch.zeros((D, S), dtype=I32,
+                                        device=value.device),
+                            perm, _cumsum(sv_perm, 1) - sv_perm)
+    codes, pos = _place(value, vis, is_elem, cumvis, rank_base - head_pre,
+                        segplan[:, 2], sidx, live_seg, heads, with_pos,
+                        as_u8)
 
     seg_start = is_elem & ~chain
-    n_segs_dev = seg_start.sum(dtype=I32)
     zero = torch.zeros((), dtype=torch.int64, device=value.device)
-    head_hash_dev = _as_i32(torch.where(seg_start, _mix32(idx), zero).sum())
+    head_hash = _as_i32(torch.where(seg_start, _mix32(idx), zero).sum(1))
     u = lambda t: t.to(torch.int64) & _M32  # noqa: E731
     aux_key = (_mul32(u(parent), HASH_K2) + _mul32(u(ctr), HASH_K3)
                + _mul32(u(actor), HASH_K4))
-    aux_hash_dev = _as_i32(torch.where(
-        seg_start, _mix32(aux_key + idx.to(torch.int64)), zero).sum())
-    scalars = torch.stack([n_vis, n_segs, n_segs_dev, head_hash_dev,
-                           aux_hash_dev])
-
-    if with_pos:
-        pos = torch.where(is_elem, starts_exp + (idx - seg_head_exp),
-                          torch.where(idx == 0, -1, C + 1).to(I32))
-        return pos, codes, scalars
-    return codes, scalars
+    aux_hash = _as_i32(torch.where(
+        seg_start, _mix32(aux_key + idx.to(torch.int64)), zero).sum(1))
+    scalars = torch.stack([cumvis[:, C - 1], n_segs,
+                           seg_start.sum(1, dtype=I32), head_hash,
+                           aux_hash], 1)
+    return (pos, codes, scalars) if with_pos else (codes, scalars)
 
 
 def _slice_live(cols, L):
-    """Restrict the element columns to the live-window bucket `L`: table
-    capacity can exceed the live prefix by up to 50%, and every pass of
-    the materialization scales with operand length."""
-    if L is None or L >= cols[0].shape[0]:
+    """Restrict the element columns to the live-window bucket `L` (along
+    their last dim): table capacity can exceed the live prefix by up to
+    50%, and every pass of the materialization scales with operand
+    length."""
+    if L is None or L >= cols[0].shape[-1]:
         return cols
-    return tuple(c[:L] for c in cols)
+    return tuple(c[..., :L] for c in cols)
 
 
 def materialize_text_planned(parent, ctr, actor, value, has_value, chain,
@@ -662,8 +743,8 @@ def materialize_text_planned(parent, ctr, actor, value, has_value, chain,
                              L: int = None):
     """(pos, codes, scalars) with host-planned segment structure."""
     cols = _slice_live((parent, ctr, actor, value, has_value, chain), L)
-    return _materialize_core_planned(*cols, n_elems, segplan, S,
-                                     with_pos=True, as_u8=as_u8)
+    return _one(_materialize_core_planned_r(
+        *_row(*cols), n_elems, segplan[None], S, True, as_u8))
 
 
 def materialize_codes_planned(parent, ctr, actor, value, has_value, chain,
@@ -671,8 +752,8 @@ def materialize_codes_planned(parent, ctr, actor, value, has_value, chain,
                               as_u8: bool = False, L: int = None):
     """(codes, scalars) with host-planned segment structure."""
     cols = _slice_live((parent, ctr, actor, value, has_value, chain), L)
-    return _materialize_core_planned(*cols, n_elems, segplan, S,
-                                     with_pos=False, as_u8=as_u8)
+    return _one(_materialize_core_planned_r(
+        *_row(*cols), n_elems, segplan[None], S, False, as_u8))
 
 
 def materialize_text(parent, ctr, actor, value, has_value, chain, n_elems,
@@ -681,14 +762,34 @@ def materialize_text(parent, ctr, actor, value, has_value, chain, n_elems,
     tombstones (head = -1, padding > n); `codes` is the visible values in
     list order (uint8 when `as_u8`)."""
     cols = _slice_live((parent, ctr, actor, value, has_value, chain), L)
-    return _materialize_core(*cols, n_elems, S, with_pos=True, as_u8=as_u8)
+    return _one(_materialize_core_r(*_row(*cols), n_elems, S, True, as_u8))
 
 
 def materialize_codes(parent, ctr, actor, value, has_value, chain, n_elems,
                       *, S: int, as_u8: bool = False, L: int = None):
     """Codes-only materialization for `text()`."""
     cols = _slice_live((parent, ctr, actor, value, has_value, chain), L)
-    return _materialize_core(*cols, n_elems, S, with_pos=False, as_u8=as_u8)
+    return _one(_materialize_core_r(*_row(*cols), n_elems, S, False, as_u8))
+
+
+def materialize_codes_r(parent, ctr, actor, value, has_value, chain,
+                        n_elems, *, S: int, as_u8: bool = False):
+    """`materialize_codes` over the doc axis: (D, C) tables, (D,) counts
+    on the device; the segment scans of every row are ONE row-form
+    `fused_segment_scans` launch on (D, C). Returns (codes (D, C),
+    scalars (D, 2))."""
+    return _materialize_core_r(parent, ctr, actor, value, has_value, chain,
+                               n_elems, S, False, as_u8)
+
+
+def materialize_codes_planned_r(parent, ctr, actor, value, has_value, chain,
+                                n_elems, segplan, *, S: int,
+                                as_u8: bool = False):
+    """`materialize_codes_planned` over the doc axis: (D, 4, S) segment
+    plans. Returns (codes (D, C), scalars (D, 5))."""
+    return _materialize_core_planned_r(parent, ctr, actor, value, has_value,
+                                       chain, n_elems, segplan, S, False,
+                                       as_u8)
 
 
 def segment_visible_counts(has_value, n_elems, segplan, *, S: int,
@@ -696,21 +797,11 @@ def segment_visible_counts(has_value, n_elems, segplan, *, S: int,
     """Per-segment VISIBLE character counts (S-sized) — the dirty-span
     feed of the incremental text pull; `segplan` is the mirror's plan."""
     hv = _slice_live((has_value,), L)[0]
-    C = hv.shape[0]
-    idx = _arange(C, hv)
+    idx = _arange(hv.shape[0], hv)
     vis = hv & (idx >= 1) & (idx <= n_elems)
     cumvis = _cumsum(vis.to(I32))
-    heads_raw = segplan[0]
-    n_segs = segplan[3, 0]
-    sidx = _arange(S, hv)
-    live_seg = (sidx >= 1) & (sidx <= n_segs)
-    heads = heads_raw.clamp(0, C - 1)
-    next_head = torch.where((sidx + 1 <= n_segs) & (sidx + 1 < S),
-                            _take(heads_raw, (sidx + 1).clamp(0, S - 1)),
-                            n_elems + 1)
-    head_pre = _take(cumvis, heads) - _take(vis, heads).to(I32)
-    last = (next_head - 1).clamp(0, C - 1)
-    return torch.where(live_seg, _take(cumvis, last) - head_pre, 0)
+    return _seg_visibility_r(*_row(vis, cumvis, segplan[0]), segplan[3, :1],
+                             n_elems, S)[-1][0]
 
 
 # ------------------------------------------------------ host interplay
@@ -748,19 +839,179 @@ def scatter_registers(value, has_value, win_actor, win_seq, win_counter,
             _set_drop(win_counter, slots, wc))
 
 
+def scatter_registers_packed_r(value, has_value, win_actor, win_seq,
+                               win_counter, wb, store=None):
+    """Host-resolved register writeback over the doc axis: every
+    document's resolved rows as one (D, 6, S) int32 matrix (row layout:
+    WB_*; padding rows carry an out-of-range slot and drop). With a
+    `store` (D = 1, whose views are the registers passed), in place."""
+    upd = (wb[:, WB_VALUE], wb[:, WB_HAS], wb[:, WB_WIN_ACTOR],
+           wb[:, WB_WIN_SEQ], wb[:, WB_WIN_COUNTER])
+    if store is not None:
+        store.put_row(REG_KEYS, wb[:, WB_SLOT], upd)
+        return tuple(store.views[k][None] for k in REG_KEYS)
+    regs = _set_drop_rows_r((value, has_value, win_actor, win_seq,
+                             win_counter), (0,) * 5, wb[:, WB_SLOT], upd,
+                            value.shape[1])
+    return (regs[0], regs[1].bool(), regs[2], regs[3], regs[4].bool())
+
+
 def scatter_registers_packed(value, has_value, win_actor, win_seq,
                              win_counter, wb, store=None):
     """`scatter_registers` with the resolved rows packed as one (6, S)
-    int32 matrix (row layout: WB_*; padding rows carry an OOB slot). With
-    a `store` (whose views are the registers passed), in place."""
-    slots = wb[WB_SLOT]
-    if store is not None:
-        store.put(REG_KEYS, slots,
-                  (wb[WB_VALUE], wb[WB_HAS], wb[WB_WIN_ACTOR],
-                   wb[WB_WIN_SEQ], wb[WB_WIN_COUNTER]))
-        return tuple(store.views[k] for k in REG_KEYS)
-    return (_set_drop(value, slots, wb[WB_VALUE]),
-            _set_drop(has_value, slots, wb[WB_HAS].bool()),
-            _set_drop(win_actor, slots, wb[WB_WIN_ACTOR]),
-            _set_drop(win_seq, slots, wb[WB_WIN_SEQ]),
-            _set_drop(win_counter, slots, wb[WB_WIN_COUNTER].bool()))
+    int32 matrix: `scatter_registers_packed_r` of one document."""
+    return _one(scatter_registers_packed_r(
+        *_row(value, has_value, win_actor, win_seq, win_counter, wb),
+        store=store), store, REG_KEYS)
+
+
+# ------------------------------------------------------- run expansion
+
+def _expand_columns_r(run_ctr0, run_actor, run_win_actor, run_win_seq,
+                      run_elem_base, run_has_value, N: int, extra=None):
+    """The boundary-delta prefix sum of the run expansion over the doc
+    axis: ONE `multi_scan` launch on (D * K, N). Channels: ctr (+1 per
+    element), [`extra` (D, R) deltas stepping +1 per element,] actor,
+    win_actor, win_seq, has_value. Returns (D, K, N) int32.
+
+    Every per-element column is piecewise affine over runs (constant or +1
+    per element), so the columns come from boundary deltas at each run's
+    first element and one shared prefix sum — no per-element gathers. A
+    run's first element takes its delta in place of the step; live run
+    starts are distinct, so that is one add of (delta - step) per column.
+    Padding runs (elem_base == N) add zero at a clamped column instead."""
+    D, R = run_ctr0.shape
+    dev = run_ctr0.device
+    run_len_prev = run_elem_base - _prev_r(run_elem_base)
+    first = torch.arange(R, dtype=I32, device=dev) == 0
+    wa_v = torch.where(run_has_value, run_win_actor, -1)
+    ws_v = torch.where(run_has_value, run_win_seq, 0)
+    has_v = run_has_value.to(I32)
+
+    def step1(v):       # +1-per-element column: reset at each run start
+        return torch.where(first, v, v - (_prev_r(v) + run_len_prev - 1))
+
+    def const(v):       # piecewise-constant column
+        return torch.where(first, v, v - _prev_r(v))
+    chans = [step1(run_ctr0)] + ([step1(extra)] if extra is not None
+                                 else [])
+    chans += [const(run_actor), const(wa_v), const(ws_v), const(has_v)]
+    K = len(chans)
+    step = (torch.arange(K, device=dev) < K - 4).to(I32)
+    deltas = step[None, :, None].expand(D, K, N).contiguous()
+    upd = torch.stack(chans, 1) - step[None, :, None]
+    upd = torch.where((run_elem_base < N)[:, None, :], upd, 0)
+    deltas.scatter_add_(
+        2, run_elem_base.clamp(0, N - 1).long()[:, None, :].expand(D, K, R),
+        upd)
+    return multi_scan(deltas.view(D * K, N)).view(D, K, N)
+
+
+def expand_runs_dense_r(parent, ctr, actor, value, has_value, win_actor,
+                        win_seq, win_counter, chain,
+                        run_parent_slot, run_ctr0, run_actor,
+                        run_win_actor, run_win_seq, run_elem_base,
+                        run_has_value, blob, n_run_elems, base_slot, *,
+                        out_cap: int):
+    """`expand_runs_dense` over the doc axis (the DocSet's fast tier):
+    every row writes its padded run window [base_slot, base_slot + N) —
+    inactive rows too, past their live region, as under the JAX
+    package's vmap — with the (5, N) boundary-delta prefix sum of every
+    row as ONE `multi_scan` launch on (D * 5, N). Run descriptors are
+    (D, R), `blob` (D, N), `n_run_elems`/`base_slot` (D,)."""
+    D, N = blob.shape
+    dev = blob.device
+    cols = _expand_columns_r(run_ctr0, run_actor, run_win_actor,
+                             run_win_seq, run_elem_base, run_has_value, N)
+    j = torch.arange(N, dtype=I32, device=dev)
+    live = j < n_run_elems[:, None]
+    is_start = _set_drop_r(torch.zeros((D, N), dtype=torch.bool, device=dev),
+                           run_elem_base, True)
+    parent_col = _set_drop_r((base_slot[:, None] - 1) + j, run_elem_base,
+                             run_parent_slot)
+    has_col = (cols[:, 4] > 0) & live
+    # dynamic_update_slice clamps its start so the window fits
+    start = base_slot.clamp(0, max(out_cap - N, 0))
+    return _scatter_rows_9_r(
+        (parent, ctr, actor, value, has_value, win_actor, win_seq,
+         win_counter, chain), start[:, None] + j,
+        (parent_col, cols[:, 0], cols[:, 1], blob.to(I32), has_col,
+         torch.where(has_col, cols[:, 2], -1),
+         torch.where(has_col, cols[:, 3], 0),
+         torch.zeros((D, N), dtype=I32, device=dev), live & ~is_start),
+        out_cap)
+
+
+# --- stacking documents ----------------------------------------------------
+
+def _stack_padded(tables, fills, out_cap: int) -> tuple:
+    """Per-document table tuples -> one (D, out_cap) tensor per column,
+    each document's column extended with its padding fill."""
+    def ext(t, fill):
+        n = t.shape[0]
+        return t if n >= out_cap else torch.cat([t, t.new_full(
+            (out_cap - n,), fill)])
+    return tuple(torch.stack([ext(doc[k], fills[k]) for doc in tables])
+                 for k in range(len(fills)))
+
+
+def _remap_r(ranks, remaps):
+    """Re-rank (D, C) actor ranks through per-row (D, L) remaps (clamped
+    gather; the caller masks which slots take it)."""
+    hi = remaps.shape[1] - 1
+    return remaps.gather(1, ranks.clamp(0, hi).long())
+
+
+def stack_register_tables(tables, remaps, *, out_cap: int) -> tuple:
+    """Per-document register 5-tuples -> stacked (D, out_cap) columns,
+    each row's pending actor-rank remap ((D, L) int32, identity rows for
+    unaffected documents) folded into the gather."""
+    value, has_value, win_actor, win_seq, win_counter = _stack_padded(
+        tables, REG_FILLS, out_cap)
+    win_actor = torch.where(win_actor >= 0, _remap_r(win_actor, remaps),
+                            win_actor)
+    return value, has_value, win_actor, win_seq, win_counter
+
+
+def stack_element_tables(tables, remaps, n_elems, *, out_cap: int) -> tuple:
+    """Per-document element 9-tuples -> stacked (D, out_cap) columns with
+    each row's pending remap folded in (`remap_actors` per row: live
+    slots 1..n_elems[d] re-rank `actor`, every slot a non-negative
+    `win_actor`)."""
+    (parent, ctr, actor, value, has_value, win_actor, win_seq, win_counter,
+     chain) = _stack_padded(tables, TEXT_TABLE_FILLS, out_cap)
+    idx = torch.arange(out_cap, dtype=I32, device=parent.device)
+    live = (idx >= 1) & (idx <= n_elems[:, None])
+    actor = torch.where(live, _remap_r(actor, remaps), actor)
+    win_actor = torch.where(win_actor >= 0, _remap_r(win_actor, remaps),
+                            win_actor)
+    return (parent, ctr, actor, value, has_value, win_actor, win_seq,
+            win_counter, chain)
+
+
+def stacked_pack_rows(*tables) -> torch.Tensor:
+    """Stacked (D, w) columns -> one (D, K, w) int32 matrix: ONE d2h
+    fetch re-seeds every stacked document's host mirror."""
+    return torch.stack([t.to(I32) for t in tables], 1)
+
+
+def unstack_rows(cols) -> list:
+    """Stacked (D, cap) columns -> per-document table tuples. The columns
+    of each dtype are copied once into a fresh (D, k, cap) block, and a
+    document's tables are views of its own rows of that block: the
+    documents' tables are disjoint and share no storage with the stacked
+    columns, so a later in-place write to one document — through a
+    `TableStore`, or to the stacked columns — can reach no other. One
+    copy per dtype, whatever D; a block lives while any of its documents'
+    tables do."""
+    D = cols[0].shape[0]
+    by_dtype: dict = {}
+    for k, c in enumerate(cols):
+        by_dtype.setdefault(c.dtype, []).append(k)
+    out = [[None] * len(cols) for _ in range(D)]
+    for keys in by_dtype.values():
+        block = torch.stack([cols[k] for k in keys], 1)
+        for r, k in enumerate(keys):
+            for d, t in enumerate(block[:, r].unbind(0)):
+                out[d][k] = t
+    return [tuple(t) for t in out]

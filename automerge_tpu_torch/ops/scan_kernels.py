@@ -11,7 +11,10 @@ Counterpart of `automerge_tpu/ops/scan_pallas.py`:
   `fused_segment_scans` (`_fused_kernel`, scan_pallas.py:76-167,
   `pallas_call` at :142): the segment ranks, segment heads and visible
   counts of the self-contained materialization (ops/ingest.py
-  `_materialize_core`) in one pass.
+  `_materialize_core_r`) in one pass. Given (D, C) rows and one count per
+  row, it scans every row on its own in the same single launch: the
+  DocSet's materialization over its stacked documents (the JAX package
+  vmaps the one-column kernel there).
 
 Both kernels live in `csrc/scan.cu`. Each call is one single-pass launch
 (a chained scan with decoupled look-back over ticketed tiles, 16-byte
@@ -130,7 +133,7 @@ def bind(path) -> ctypes.CDLL:
     lib.amt_multi_scan.argtypes = [vp, vp, vp, cll, ci, ci, vp]
     lib.amt_multi_scan.restype = ci
     lib.amt_fused_segment_scans.argtypes = [
-        vp, vp, ci, vp, ci, vp, cll, vp, vp, vp, vp]
+        vp, vp, ci, ci, vp, ci, ci, vp, cll, vp, vp, vp, vp]
     lib.amt_fused_segment_scans.restype = ci
     return lib
 
@@ -207,58 +210,84 @@ def fused_segment_scans_plain(chain: torch.Tensor, has_value: torch.Tensor,
 
     rank_incl[i] = segment starts at slots <= i; seg_head[i] = the latest
     segment-start slot <= i (0 before the first); cumvis[i] = visible
-    elements at slots <= i. Slot numbers are global: `base + i`."""
-    C = chain.shape[0]
+    elements at slots <= i. Slot numbers are global: `base + i`. On (D, C)
+    rows each row is scanned on its own, with its own count n_elems[d]."""
+    C = chain.shape[-1]
     flat = torch.arange(C, dtype=torch.int32, device=chain.device) + base
+    if chain.dim() == 2:
+        n_elems = _row_counts(n_elems, chain)[:, None]
     is_elem = (flat >= 1) & (flat <= n_elems)
     seg_start = is_elem & ~chain
     vis = is_elem & has_value
-    rank = torch.cumsum(seg_start.to(torch.int32), 0, dtype=torch.int32)
+    rank = torch.cumsum(seg_start.to(torch.int32), -1, dtype=torch.int32)
     cand = torch.where(seg_start, flat, 0)
-    head = torch.cummax(cand, 0).values
-    cumvis = torch.cumsum(vis.to(torch.int32), 0, dtype=torch.int32)
+    head = torch.cummax(cand, -1).values
+    cumvis = torch.cumsum(vis.to(torch.int32), -1, dtype=torch.int32)
     return rank, head, cumvis
+
+
+def _row_counts(n_elems, chain: torch.Tensor) -> torch.Tensor:
+    """Check the per-row element counts of a (D, C) call: an int32 (D,)
+    tensor on the rows' device."""
+    if (not torch.is_tensor(n_elems) or n_elems.device != chain.device
+            or n_elems.dtype != torch.int32
+            or tuple(n_elems.shape) != (chain.shape[0],)):
+        raise ValueError("fused_segment_scans: per-row n_elems must be "
+                         f"int32 ({chain.shape[0]},) on {chain.device}")
+    return n_elems
 
 
 def fused_segment_scans(chain: torch.Tensor, has_value: torch.Tensor,
                         n_elems, base: int = 0):
-    """-> (rank_incl, seg_head, cumvis), int32[C] each.
+    """-> (rank_incl, seg_head, cumvis), int32, shaped like `chain`.
 
-    `n_elems` is an int or an int32 scalar tensor on the same device; the
-    kernel reads it on the device, so a count computed there needs no
-    host sync."""
+    One column of C slots, or (D, C) rows each scanned on its own (the
+    per-document form of the DocSet's materialization): `n_elems` is then
+    one count per row, an int32 (D,) tensor on the rows' device. For one
+    column it is an int or an int32 scalar tensor on the same device. The
+    kernel reads the counts on the device, so counts computed there need
+    no host sync."""
     if chain.device.type == "cpu":
         return fused_segment_scans_plain(chain, has_value, n_elems, base)
-    _check_cuda("fused_segment_scans chain", chain, torch.bool, 1)
-    _check_cuda("fused_segment_scans has_value", has_value, torch.bool, 1)
-    C = chain.shape[0]
-    if has_value.shape[0] != C:
+    rows = chain.dim() == 2
+    _check_cuda("fused_segment_scans chain", chain, torch.bool,
+                2 if rows else 1)
+    _check_cuda("fused_segment_scans has_value", has_value, torch.bool,
+                2 if rows else 1)
+    if has_value.shape != chain.shape:
         raise ValueError("fused_segment_scans: chain and has_value differ "
-                         f"in length ({C} vs {has_value.shape[0]})")
-    if not torch.is_tensor(n_elems):
-        # a fill on the device: a pageable h2d copy would sync the stream
-        n_elems = torch.full((), int(n_elems), dtype=torch.int32,
-                             device=chain.device)
-    if (n_elems.device != chain.device or n_elems.dtype != torch.int32
-            or n_elems.numel() != 1):
-        raise ValueError("fused_segment_scans: n_elems must be one int32 "
-                         f"on {chain.device}")
+                         f"in shape ({tuple(chain.shape)} vs "
+                         f"{tuple(has_value.shape)})")
+    if rows:
+        n_elems = _row_counts(n_elems, chain)
+    else:
+        if not torch.is_tensor(n_elems):
+            # a fill on the device: a pageable h2d copy would sync the
+            # stream
+            n_elems = torch.full((), int(n_elems), dtype=torch.int32,
+                                 device=chain.device)
+        if (n_elems.device != chain.device or n_elems.dtype != torch.int32
+                or n_elems.numel() != 1):
+            raise ValueError("fused_segment_scans: n_elems must be one "
+                             f"int32 on {chain.device}")
     n_elems = n_elems.contiguous()
-    rank = torch.empty(C, dtype=torch.int32, device=chain.device)
+    D, C = (chain.shape if rows else (1, chain.shape[0]))
+    rank = torch.empty(chain.shape, dtype=torch.int32, device=chain.device)
     head = torch.empty_like(rank)
     cumvis = torch.empty_like(rank)
-    if C == 0:
+    if rank.numel() == 0:
         return rank, head, cumvis
     lib = load()
     with torch.cuda.device(chain.device):
-        scratch = _scratch(n_tiles(C, lib.amt_fused_scan_tile()),
+        scratch = _scratch(D * n_tiles(C, lib.amt_fused_scan_tile()),
                            FS_STATUS_WORDS, chain.device)
         rc = lib.amt_fused_segment_scans(
-            chain.data_ptr(), has_value.data_ptr(), C, n_elems.data_ptr(),
-            int(base), scratch.data_ptr(), scratch.numel() * 8,
+            chain.data_ptr(), has_value.data_ptr(), D, C,
+            n_elems.data_ptr(), 1 if rows else 0, int(base),
+            scratch.data_ptr(), scratch.numel() * 8,
             rank.data_ptr(), head.data_ptr(), cumvis.data_ptr(),
             torch.cuda.current_stream(chain.device).cuda_stream)
     _raise_on(rc, "fused_segment_scans")
     launches["fused_segment_scans"] += 1
-    _note_shape("fused_segment_scans", (C,))
+    _note_shape("fused_segment_scans", tuple(chain.shape))
     return rank, head, cumvis

@@ -11,16 +11,22 @@ and tile-edge sizes, on unaligned views, twice in a row on one shape (a
 reused scratch) and 50 times at each merge shape. It then drives the
 port's DeviceTextDoc through the headline text merge at full width (a
 1,000,000-char document taking a 10,000-actor x 1,000-op concurrent
-batch), the self-contained materialization, and a residual round with the
-incremental pull; times each kernel at every shape those paths launched
+batch), the self-contained materialization, a residual round with the
+incremental pull, bench.py's `--pipeline` stream, a 1,000,000-key map
+document, and the multi-document tier (phase 8: the stacked executor at
+bench.py measure_fused's and a cfg12 lane's populations, the DocSet at
+cfg3 with its mirror heal and graduation, each against a CPU run of the
+same stream); times each kernel at every shape those paths launched
 it with (device time over CUDA-graph replays, inputs rotated through
 copies so each call reads them from HBM; one eager call at the merge
 shapes is timed before the paths); and checks that each wrapper call runs
 one kernel. Every phase raises on failure.
 With --profile, it then runs the headline commit (commit_prepared +
-_materialize + _scalars) of each materialization path once more under
-torch.profiler, prints the device's busy share and the kernels that took
-the most device time, and writes the Chrome traces to DIR.
+_materialize + _scalars) of each materialization path and one stacked
+apply once more under torch.profiler, prints the device's busy share and
+the kernels that took the most device time, writes the Chrome traces to
+DIR, and prints the host profile (cProfile) of one stacked apply and one
+DocSet build.
 
 The output ends with three lines: one JSON object describing every
 kernel, the card's name and power limit as nvidia-smi reports them, and
@@ -59,6 +65,20 @@ RING_DISPATCH_BUDGET = 3       # per committed batch (bench.py:528-529)
 RING_SYNC_BUDGET = 1
 MAP_ACTORS = 1_000             # map phase: 1,000 actors x 1,000 own keys
 MAP_KEYS_PER_ACTOR = 1_000
+FUSED_TEXT_DOCS = 192          # 8a: bench.py measure_fused's defaults
+FUSED_MAP_DOCS = 96
+FUSED_KEYS = 64
+FUSED_ROUNDS = 6
+FUSED_OPS = 8
+STACK_REPS = 5                 # timed reps, after one warm-up rep
+SHARD_MAP_DOCS = 640           # 8b: bench.py measure_sharded's lane
+SHARD_TEXT_DOCS = 64
+SHARD_CAP = 2048
+SHARD_ROUNDS = 2
+DOCSET_DOCS = 1_000            # 8c: benchmarks/run_all.py config3_docset
+DOCSET_ACTORS = 10
+DOCSET_CHARS = 50
+DOCSET_REPS = 5                # fresh timed runs, after one warm-up run
 
 
 def log(*a):
@@ -266,7 +286,10 @@ def check_kernels(torch, S):
     log(f"tiles: multi_scan {ms_tile} columns, fused_segment_scans "
         f"{fs_tile} slots")
     shapes = [(6, 1), (6, 256), (6, 1000), (6, 1025), (6, 1_048_576),
-              (6, N_MERGE)]
+              (6, N_MERGE),
+              # the stacked rounds' and the DocSet's short rows
+              (FUSED_TEXT_DOCS * 6, 256), (SHARD_TEXT_DOCS * 6, 256),
+              (DOCSET_DOCS * 5, 512), (7 * 6, 257)]
     for K in (1, 6, 13):
         for N in (4095, 4096, 4097, 2 * ms_tile + 3):
             shapes.append((K, N))
@@ -311,6 +334,26 @@ def check_kernels(torch, S):
         log(f"fused_segment_scans C={C} n_elems={n_elems} base={base} "
             f"byte offset {lead}: bit-exact vs plain, two calls")
 
+    # the row form: every row scanned on its own with its own count (an
+    # all-padding row, a full row, rows of a length off 16 bytes, rows of
+    # several tiles)
+    for D, C in ((DOCSET_DOCS, 768), (7, 1001), (64, 2 * fs_tile + 3),
+                 (3, 16)):
+        chain = torch.from_numpy(rng.random((D, C)) < 0.9).to(dev)
+        has = torch.from_numpy(rng.random((D, C)) < 0.95).to(dev)
+        n = rng.integers(0, C + 1, D).astype(np.int32)
+        n[0], n[-1] = 0, C
+        ne = torch.from_numpy(n).to(dev)
+        want = S.fused_segment_scans_plain(chain, has, ne)
+        for call in range(2):
+            got = S.fused_segment_scans(chain, has, ne)
+            torch.cuda.synchronize()
+            if not _fs_equal(torch, got, want):
+                raise AssertionError(f"fused_segment_scans rows differ at "
+                                     f"({D}, {C}), call {call}")
+        log(f"fused_segment_scans rows ({D}, {C}), per-row n_elems: "
+            "bit-exact vs plain, two calls")
+
     # 50 launches at each merge shape, every one bit-exact
     x = torch.from_numpy(
         rng.integers(-50, 50, (6, N_MERGE), dtype=np.int32)).to(dev)
@@ -350,9 +393,11 @@ def _ms_bound(K, N):
     return bound(2 * K * N * 4, K * N)
 
 
-def _fs_bound(C):
-    # reads chain + has (1 B each) and n_elems, writes three int32 columns
-    return bound(2 * C + 4 + 3 * 4 * C, 3 * C)
+def _fs_bound(shape):
+    # reads chain + has (1 B each) and one n_elems per row, writes three
+    # int32 columns
+    D, C = shape if len(shape) == 2 else (1, shape[0])
+    return bound(2 * D * C + 4 * D + 3 * 4 * D * C, 3 * D * C)
 
 
 def ms_copies(torch, rng, K, N, dev):
@@ -361,10 +406,12 @@ def ms_copies(torch, rng, K, N, dev):
             .to(dev) for _ in range(n_copies(torch, 4 * K * N))]
 
 
-def fs_copies(torch, rng, C, dev):
-    """Seeded (chain, has_value) pairs for a timing, one per copy."""
-    return [_fs_inputs(torch, rng, C, dev)
-            for _ in range(n_copies(torch, 2 * C))]
+def fs_copies(torch, rng, shape, dev):
+    """Seeded (chain, has_value) pairs of `shape` ((C,) or rows (D, C))
+    for a timing, one per copy."""
+    n = int(np.prod(shape))
+    return [tuple(t.view(shape) for t in _fs_inputs(torch, rng, n, dev))
+            for _ in range(n_copies(torch, 2 * n))]
 
 
 def ms_calls(torch, S, x):
@@ -377,17 +424,18 @@ def fs_calls(torch, S, chain, has, ne):
     """fused_segment_scans on (chain, has, ne): (kernel, plain version,
     library yardstick: the three library scans alone on precomputed
     inputs)."""
-    flat = torch.arange(chain.shape[0], dtype=torch.int32,
+    flat = torch.arange(chain.shape[-1], dtype=torch.int32,
                         device=chain.device)
-    is_elem = (flat >= 1) & (flat <= ne)
+    is_elem = (flat >= 1) & (flat <= (ne[:, None] if chain.dim() == 2
+                                      else ne))
     ss = (is_elem & ~chain).to(torch.int32)
     cand = torch.where(ss > 0, flat, 0)
     vis = (is_elem & has).to(torch.int32)
 
     def library():
-        torch.cumsum(ss, 0, dtype=torch.int32)
-        torch.cummax(cand, 0)
-        torch.cumsum(vis, 0, dtype=torch.int32)
+        torch.cumsum(ss, -1, dtype=torch.int32)
+        torch.cummax(cand, -1)
+        torch.cumsum(vis, -1, dtype=torch.int32)
     return (lambda: S.fused_segment_scans(chain, has, ne),
             lambda: S.fused_segment_scans_plain(chain, has, ne), library)
 
@@ -437,18 +485,18 @@ def time_kernels(torch, S, ms_shapes, fs_shapes, n_elems_of):
             "library_ms": time_ms(torch, [library]),
             "bound_ms": b_ms, "bound_by": b_by})
         del xs, kern
-    for (C,) in sorted(fs_shapes):
-        pairs = fs_copies(torch, rng, C, dev)
-        ne = torch.tensor(n_elems_of(C), dtype=torch.int32, device=dev)
+    for shape in sorted(fs_shapes, key=lambda s: int(np.prod(s))):
+        pairs = fs_copies(torch, rng, shape, dev)
+        ne = torch.tensor(n_elems_of(shape), dtype=torch.int32, device=dev)
         kern = [lambda c=c, h=h: S.fused_segment_scans(c, h, ne)
                 for c, h in pairs]
         _, plain, library = fs_calls(torch, S, *pairs[0], ne)
         got = S.fused_segment_scans(*pairs[0], ne)
         want = S.fused_segment_scans_plain(*pairs[0], ne)
         err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-        b_ms, b_by = _fs_bound(C)
+        b_ms, b_by = _fs_bound(shape)
         out["fused_segment_scans"].append({
-            "shape": [C], "copies": len(pairs), "max_abs_err": err,
+            "shape": list(shape), "copies": len(pairs), "max_abs_err": err,
             "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, [plain]),
             "library_ms": time_ms(torch, [library]),
             "bound_ms": b_ms, "bound_by": b_by})
@@ -951,30 +999,518 @@ def map_phase(torch, M, card: str, device=None, n_actors: int = MAP_ACTORS,
     return out
 
 
+# --- the multi-document tier (bench.py measure_fused and measure_sharded,
+# benchmarks/run_all.py config3_docset) --------------------------------------
+
+def stack_text_round(doc_ids, seq: int, base_ctr: int, ops_per_doc: int):
+    """One serving round for a text population (bench.py
+    _sharded_text_round): every doc receives one causally-ready change
+    appending an ins+set run."""
+    out = {}
+    run = ops_per_doc // 2
+    for obj in doc_ids:
+        ops, key = [], ("_head" if seq == 1 else f"a:{base_ctr - 1}")
+        for k in range(run):
+            ctr = base_ctr + k
+            ops.append({"action": "ins", "obj": obj, "key": key,
+                        "elem": ctr})
+            ops.append({"action": "set", "obj": obj, "key": f"a:{ctr}",
+                        "value": chr(97 + ctr % 26)})
+            key = f"a:{ctr}"
+        out[obj] = [{"actor": "a", "seq": seq, "deps": {}, "ops": ops}]
+    return out
+
+
+def stack_map_round(doc_ids, seq: int, key_space: int, ops_per_doc: int,
+                    counter: bool = False):
+    """One serving round for a map population (bench.py
+    _sharded_map_round): `ops_per_doc` register writes rotating through
+    the key space; with `counter`, one `inc` of the doc's counter too."""
+    out = {}
+    for di, obj in enumerate(doc_ids):
+        ops = [{"action": "set", "obj": obj,
+                "key": f"k{(seq * 7 + di + j) % key_space}",
+                "value": seq * 100 + j} for j in range(ops_per_doc)]
+        if counter:
+            ops.append({"action": "inc", "obj": obj, "key": "cnt",
+                        "value": 1})
+        out[obj] = [{"actor": "a", "seq": seq, "deps": {}, "ops": ops}]
+    return out
+
+
+def fused_stream(text_ids, map_ids, key_space, n_rounds, ops, n_reps):
+    """bench.py measure_fused's stream: a seed round (64 text ops, 64 map
+    ops and a counter per map doc), then n_reps reps of n_rounds rounds
+    of `ops` ops per doc plus one counter `inc` per map doc."""
+    seed = stack_text_round(text_ids, 1, 1, 64)
+    seed.update(stack_map_round(map_ids, 1, key_space, 64))
+    for obj in map_ids:
+        seed[obj][0]["ops"].append({"action": "set", "obj": obj,
+                                    "key": "cnt", "value": 0,
+                                    "datatype": "counter"})
+    reps = []
+    for rep in range(n_reps):
+        seq0 = 2 + rep * n_rounds
+        base = 33 + (seq0 - 2) * (ops // 2)
+        rounds = []
+        for r in range(n_rounds):
+            chunk = stack_text_round(text_ids, seq0 + r,
+                                     base + (ops // 2) * r, ops)
+            chunk.update(stack_map_round(map_ids, seq0 + r, key_space, ops,
+                                         counter=True))
+            rounds.append(chunk)
+        reps.append(rounds)
+    return seed, reps
+
+
+def shard_stream(text_ids, map_ids, key_space, n_rounds, n_reps):
+    """bench.py measure_sharded's lane stream: map docs seeded with their
+    whole key space then rounds of 2 ops per doc; text docs seeded with
+    64 ops then rounds of 4 ops; both populations in every round."""
+    seed = stack_text_round(text_ids, 1, 1, 64)
+    seed.update(stack_map_round(map_ids, 1, key_space, key_space))
+    reps = []
+    for rep in range(n_reps):
+        seq0 = 2 + rep * n_rounds
+        base = 33 + (seq0 - 2) * 2
+        rounds = []
+        for r in range(n_rounds):
+            chunk = stack_text_round(text_ids, seq0 + r, base + 2 * r, 4)
+            chunk.update(stack_map_round(map_ids, seq0 + r, key_space, 2))
+            rounds.append(chunk)
+        reps.append(rounds)
+    return seed, reps
+
+
+def run_stacked(torch, M, device, text_ids, map_ids, text_cap, map_cap,
+                seed, reps, warmup: int = 1):
+    """Drive a stacked population through `apply_stacked`: the seed round,
+    `warmup` untimed reps, then the timed reps, each apply checked stacked
+    and within its round budget. The kernel counts are set to 0 just
+    before the timed reps and read just after. Returns (docs, record)."""
+    docs = {d: M.DeviceTextDoc(d, capacity=text_cap, device=device)
+            for d in text_ids}
+    docs.update({d: M.DeviceMapDoc(d, capacity=map_cap, device=device)
+                 for d in map_ids})
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def apply(chunk):
+        st = M.stacked.apply_stacked([(docs[k], v) for k, v in chunk.items()])
+        if not st or not st["fused"]:
+            raise AssertionError(f"an apply left the stacked path: {st}")
+        M.stacked.assert_round_budget(st)
+        return st
+
+    apply(seed)
+    for rounds in reps[:warmup]:
+        for chunk in rounds:
+            apply(chunk)
+    sync()
+    M.S.reset_launches()
+    times, rates, stats = [], [], []
+    for rounds in reps[warmup:]:
+        admitted = 0
+        t0 = time.perf_counter()
+        for chunk in rounds:
+            stats.append(apply(chunk))
+            admitted += sum(len(c["ops"]) for v in chunk.values()
+                            for c in v)
+        sync()
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        rates.append(admitted / dt)
+    launches = dict(M.S.launches)
+    shapes = {k: dict(v) for k, v in M.S.launch_shapes.items()}
+    return docs, {
+        "stats": stats, "launches": launches, "shapes": shapes,
+        "times": times, "rates": rates,
+        "text_passes": sum(st["passes"] for st in stats if st["text_docs"]),
+        "passes": sum(st["passes"] for st in stats),
+        "dispatches": sum(st["dispatches"] for st in stats),
+        "syncs": sum(st["syncs"] for st in stats)}
+
+
+def stacked_state(docs) -> dict:
+    out = {}
+    for k, d in docs.items():
+        out[k] = d.text() if hasattr(d, "text") else d.to_dict()
+    return out
+
+
+def stacked_phase(torch, M, card: str, label: str, device=None,
+                  text_ids=(), map_ids=(), text_cap: int = 1024,
+                  map_cap: int = 256, stream=None) -> dict:
+    """One stacked population on the card and the same stream on the CPU:
+    every apply stacked, fused and within budget, `multi_scan` once per
+    text pass at (D * 6, N), and the final texts, map values and counters
+    equal the CPU run's. Raises on any failed check."""
+    seed, reps = stream
+    docs, rec = run_stacked(torch, M, device, text_ids, map_ids, text_cap,
+                            map_cap, seed, reps)
+    cuda = torch.device(device or "cuda").type == "cuda"
+    if cuda:
+        want_shapes = {(len(text_ids) * 6, n)
+                       for (_k, n) in rec["shapes"]["multi_scan"]}
+        if (rec["launches"]["multi_scan"] != rec["text_passes"]
+                or set(rec["shapes"]["multi_scan"]) != want_shapes):
+            raise AssertionError(
+                f"{label}: multi_scan launched {rec['launches']} at "
+                f"{rec['shapes']} for {rec['text_passes']} text passes")
+    got = stacked_state(docs)
+    cpu_docs, _ = run_stacked(torch, M, "cpu", text_ids, map_ids, text_cap,
+                              map_cap, seed, reps)
+    if got != stacked_state(cpu_docs):
+        raise AssertionError(f"{label}: the card's state differs from the "
+                             "CPU run")
+    if map_ids and "cnt" in got[map_ids[0]]:
+        n_inc = sum(len(r) for r in reps)
+        if any(got[m]["cnt"] != n_inc for m in map_ids):
+            raise AssertionError(f"{label}: a counter missed an inc")
+    n_applies = len(rec["stats"])
+    out = {
+        "text_docs": len(text_ids), "map_docs": len(map_ids),
+        "text_cap": text_cap, "map_cap": map_cap,
+        "applies": n_applies, "reps": len(rec["times"]),
+        "ops_per_s_median": float(np.median(rec["rates"])),
+        "ops_per_s_min": min(rec["rates"]), "ops_per_s_max": max(rec["rates"]),
+        "rep_s": rec["times"],
+        "programs_per_pass": rec["dispatches"] / rec["passes"],
+        "syncs_per_apply": rec["syncs"] / n_applies,
+        "passes_per_apply": rec["passes"] / n_applies,
+        "launches": rec["launches"], "shapes": rec["shapes"],
+        "cells": max(text_cap, map_cap) * (5 * len(map_ids)
+                                           + 9 * len(text_ids))}
+    log(f"{label} ({card}): median {out['ops_per_s_median']:.0f} admitted "
+        f"wire ops/s (range {out['ops_per_s_min']:.0f}-"
+        f"{out['ops_per_s_max']:.0f}) over {out['reps']} reps of "
+        f"{n_applies // max(out['reps'], 1)} applies; "
+        f"{out['programs_per_pass']:.2f} round programs per pass, "
+        f"{out['syncs_per_apply']:.2f} syncs per apply; launches "
+        f"{rec['launches']} at {rec['shapes']}; equal to the CPU run")
+    log(f"{label} record: " + json.dumps(dict(out, shapes={
+        k: {"x".join(map(str, sh)): n for sh, n in v.items()}
+        for k, v in out["shapes"].items()})))
+    return out
+
+
+def docset_batch(TB, C, obj_id: str, seed: int, n_actors: int, run: int):
+    """benchmarks/run_all.py config3_docset's doc_batch: n_actors
+    concurrent typing runs from the head of an empty doc."""
+    n_ops = n_actors * run * 2
+    actors = [f"actor-{i:03d}" for i in range(n_actors)]
+    op_change = np.repeat(np.arange(n_actors, dtype=np.int32), run * 2)
+    kind = np.tile(np.array([C.KIND_INS, C.KIND_SET], np.int8),
+                   n_actors * run)
+    ta = np.repeat(np.arange(n_actors, dtype=np.int32), run * 2)
+    tc = np.zeros(n_ops, np.int32)
+    pa = np.zeros(n_ops, np.int32)
+    pc = np.zeros(n_ops, np.int32)
+    val = np.zeros(n_ops, np.int64)
+    ctrs = np.arange(1, run + 1, dtype=np.int32)
+    for a in range(n_actors):
+        s = a * run * 2
+        tc[s: s + 2 * run: 2] = ctrs
+        tc[s + 1: s + 2 * run: 2] = ctrs
+        pa[s] = C.HEAD_PARENT
+        pa[s + 2: s + 2 * run: 2] = a
+        pc[s + 2: s + 2 * run: 2] = ctrs[:-1]
+        val[s + 1: s + 2 * run: 2] = 97 + ((a + seed) % 26)
+    return TB(
+        obj_id=obj_id, actors=actors, seqs=np.ones(n_actors, np.int32),
+        deps=[{}] * n_actors, messages=[None] * n_actors,
+        op_change=op_change, op_kind=kind, op_target_actor=ta,
+        op_target_ctr=tc, op_parent_actor=pa, op_parent_ctr=pc,
+        op_value=val, actor_table=actors, value_pool=[])
+
+
+def docset_general_round(ids, n_general: int, run: int):
+    """The round after the bulk build: the first n_general docs each get
+    a change that needs the general path (deletes of six elements and one
+    overwrite — no run), so they graduate and merge through the stacked
+    executor together; every other doc appends a typing run on the fast
+    tier."""
+    out = {}
+    for d, obj in enumerate(ids):
+        if d < n_general:
+            ops = [{"action": "del", "obj": obj, "key": f"actor-000:{j}"}
+                   for j in range(1, 7)]
+            ops.append({"action": "set", "obj": obj, "key": "actor-001:1",
+                        "value": "Z"})
+            out[obj] = [{"actor": "z-edit", "seq": 1,
+                         "deps": {"actor-000": 1, "actor-001": 1},
+                         "ops": ops}]
+        else:
+            ops, key = [], f"actor-000:{run}"
+            for k in range(4):
+                ctr = 1000 + k
+                ops.append({"action": "ins", "obj": obj, "key": key,
+                            "elem": ctr})
+                ops.append({"action": "set", "obj": obj,
+                            "key": f"actor-000:{ctr}", "value": "+"})
+                key = f"actor-000:{ctr}"
+            out[obj] = [{"actor": "actor-000", "seq": 2, "deps": {},
+                         "ops": ops}]
+    return out
+
+
+def docset_phase(torch, M, card: str, device=None, n_docs: int = DOCSET_DOCS,
+                 n_actors: int = DOCSET_ACTORS, chars: int = DOCSET_CHARS,
+                 reps: int = DOCSET_REPS) -> dict:
+    """benchmarks/run_all.py config3_docset at its defaults: the bulk build
+    on the stacked fast tier plus a planned texts(), timed over fresh
+    runs; then the corrupted-mirror heal (the row form of
+    fused_segment_scans, one launch over the stacked rows), and a round
+    whose graduated docs merge through apply_stacked — every text equal
+    to the CPU run's. Raises on any failed check."""
+    ids = [f"d{d}" for d in range(n_docs)]
+    batches = {f"d{d}": docset_batch(M.TB, M.C, f"d{d}", d, n_actors, chars)
+               for d in range(n_docs)}
+    n_ops = sum(b.n_ops for b in batches.values())
+    cap = n_actors * chars + 64
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def build(dev):
+        ds = M.DeviceTextDocSet(ids, capacity=cap, device=dev)
+        ds.apply_batches(batches)
+        return ds, ds.texts()
+
+    cpu_ds, cpu_texts = build("cpu")
+    if sum(len(t) for t in cpu_texts.values()) != n_docs * n_actors * chars:
+        raise AssertionError("docset CPU run: wrong total length")
+    times = []
+    build_launches = build_shapes = None
+    for r in range(1 + reps):
+        sync()
+        M.S.reset_launches()
+        t0 = time.perf_counter()
+        ds, texts = build(device)
+        sync()
+        dt = time.perf_counter() - t0
+        if r == 0:
+            build_launches = dict(M.S.launches)
+            build_shapes = {k: dict(v) for k, v in M.S.launch_shapes.items()}
+        else:
+            times.append(dt)
+        if texts != cpu_texts:
+            raise AssertionError(f"docset run {r}: texts differ from the "
+                                 "CPU run")
+    if cuda and (build_launches["multi_scan"] != 1
+                 or set(build_shapes["multi_scan"])
+                 != {(n_docs * 5, M.bucket(n_actors * chars, 256))}):
+        raise AssertionError(f"docset build: multi_scan launched "
+                             f"{build_launches} at {build_shapes}")
+
+    # the heal: corrupt one row's mirror; the next texts() serves every row
+    # through the self-contained program (one row-form launch)
+    for s_ds in (ds, cpu_ds):
+        m = s_ds._meta[1].mirror
+        bad = type(m)(np.append(m.heads, 3), np.append(m.par, 2),
+                      np.append(m.hctr, 99), np.append(m.hactor, 0))
+        bad.heads.sort()
+        s_ds._meta[1].mirror = bad
+        s_ds._codes_cache = None
+    heals = heal_watch(logging)
+    sync()
+    M.S.reset_launches()
+    healed = ds.texts()
+    heal_launches = dict(M.S.launches)
+    heal_shapes = {k: dict(v) for k, v in M.S.launch_shapes.items()}
+    if healed != cpu_texts or cpu_ds.texts() != cpu_texts:
+        raise AssertionError("docset heal: texts changed")
+    if not any("diverged" in msg for msg in heals.records):
+        raise AssertionError("docset heal: the corrupted mirror went unseen")
+    C_rows = ds._cap
+    if cuda and (heal_launches["fused_segment_scans"] != 1
+                 or set(heal_shapes["fused_segment_scans"])
+                 != {(n_docs, C_rows)}):
+        raise AssertionError(f"docset heal: fused_segment_scans launched "
+                             f"{heal_launches} at {heal_shapes}")
+    ds._codes_cache = None
+    M.S.reset_launches()
+    n_warn = len(heals.records)
+    if ds.texts() != cpu_texts or len(heals.records) != n_warn or \
+            M.S.launches["fused_segment_scans"]:
+        raise AssertionError("docset: the call after the heal was not "
+                             "planned")
+    logging.getLogger("automerge_tpu_torch.engine").removeHandler(heals)
+
+    # graduated docs merge through the stacked executor on the card
+    general = docset_general_round(ids, 3, chars)
+    tb = {o: M.TB.from_changes(c, o) for o, c in general.items()}
+    M.stacked.LAST_STATS.clear()
+    M.S.reset_launches()
+    ds.apply_batches(tb)
+    sync()
+    gen_stats = dict(M.stacked.LAST_STATS)
+    gen_launches = dict(M.S.launches)
+    gen_shapes = {k: dict(v) for k, v in M.S.launch_shapes.items()}
+    cpu_ds.apply_batches({o: M.TB.from_changes(c, o)
+                          for o, c in general.items()})
+    if not gen_stats or gen_stats["text_docs"] != 3:
+        raise AssertionError(f"docset: the graduated docs did not take "
+                             f"apply_stacked: {gen_stats}")
+    if cuda and gen_launches["multi_scan"] < 2:
+        raise AssertionError(f"docset general round: launches "
+                             f"{gen_launches}")
+    after = ds.texts()
+    if after != cpu_ds.texts() or len(ds._overlay) != 3:
+        raise AssertionError("docset general round differs from the CPU "
+                             "run")
+    out = {
+        "docs": n_docs, "actors": n_actors, "chars": chars, "ops": n_ops,
+        "capacity": cap, "reps": reps,
+        "build_s": times, "build_s_median": float(np.median(times)),
+        "ops_per_s_median": n_ops / float(np.median(times)),
+        "docs_per_s_median": n_docs / float(np.median(times)),
+        "total_chars": sum(len(t) for t in texts.values()),
+        "launches": {k: build_launches[k] + heal_launches[k]
+                     + gen_launches[k] for k in build_launches},
+        "shapes": {k: {sh: build_shapes[k].get(sh, 0)
+                       + heal_shapes[k].get(sh, 0)
+                       + gen_shapes[k].get(sh, 0)
+                       for sh in set(build_shapes[k]) | set(heal_shapes[k])
+                       | set(gen_shapes[k])} for k in build_shapes},
+        "heal_launches": heal_launches,
+        "general_stats": gen_stats}
+    log(f"docset ({card}): {n_docs} docs x {n_actors} actors x {chars} "
+        f"chars, {n_ops} ops: build + planned texts() median "
+        f"{out['build_s_median']:.4f} s over {reps} fresh runs "
+        f"({out['ops_per_s_median']:.0f} ops/s, "
+        f"{out['docs_per_s_median']:.0f} docs/s), {out['total_chars']} "
+        f"chars; heal launches {heal_launches} at {heal_shapes}; general round "
+        f"{gen_stats['text_docs']} graduated docs stacked, launches "
+        f"{gen_launches}; equal to the CPU run")
+    log("docset record: " + json.dumps(dict(out, shapes={
+        k: {"x".join(map(str, sh)): n for sh, n in v.items()}
+        for k, v in out["shapes"].items()})))
+    return out
+
+
+def host_profile(fn, top: int = 16):
+    """cProfile of one fn() call: the host functions that took the most
+    time of their own, printed as seconds of own time | cumulative |
+    calls | function."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: kv[1][2], reverse=True)
+    log("own s | cumulative s | calls | function")
+    for (path, line, name), (_cc, nc, tt, ct, _callers) in rows[:top]:
+        log(f"{tt:.4f} | {ct:.4f} | {nc} | "
+            f"{os.path.basename(path)}:{line} {name}")
+
+
+def profiled_apply(torch, M, device, n_text: int, n_map: int):
+    """One 8a apply of `n_text` text and `n_map` map docs (after the seed
+    round and one warm-up rep) under torch.profiler. Returns (wall s,
+    device time µs, device operations, the device events, the profiler,
+    apply(chunk), the next rep's rounds)."""
+    from torch.profiler import ProfilerActivity, profile
+    text_ids = [f"fz-t{i:05d}" for i in range(n_text)]
+    map_ids = [f"fz-m{i:05d}" for i in range(n_map)]
+    seed, reps = fused_stream(text_ids, map_ids, FUSED_KEYS, FUSED_ROUNDS,
+                              FUSED_OPS, 3)
+    docs, _ = run_stacked(torch, M, device, text_ids, map_ids, 1024, 256,
+                          seed, reps[:2])
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def apply(chunk):
+        if not M.stacked.apply_stacked([(docs[k], v)
+                                        for k, v in chunk.items()]):
+            raise AssertionError("profiled apply left the stacked path")
+        sync()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU]
+                 + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+        t0 = time.perf_counter()
+        apply(reps[2][0])
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in events)
+    return (wall, dev_us, sum(e.count for e in events), events, prof, apply,
+            reps[2])
+
+
+def profile_multi_doc(torch, M, out_dir: str, device=None):
+    """One 8a apply (after the seed round and one warm-up rep) under
+    torch.profiler — its wall time, the summed device time of its kernels
+    and the device's busy share — then the device operations of the same
+    apply over a quarter of the population (whether they grow with the
+    doc count), one 8a apply under cProfile (the host functions that took
+    the most time), and one 8c build + planned texts() under cProfile."""
+    wall, dev_us, n_ops, events, prof, apply, rounds = profiled_apply(
+        torch, M, device, FUSED_TEXT_DOCS, FUSED_MAP_DOCS)
+    log(f"profile 8a apply: wall {wall * 1e3:.3f} ms, device kernel time "
+        f"{dev_us / 1e3:.3f} ms, device busy share "
+        f"{dev_us / 1e3 / (wall * 1e3):.4f}, {n_ops} device operations")
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    log("self device ms | calls | kernel")
+    for e in events[:10]:
+        log(f"{e.self_device_time_total / 1e3:14.4f} | {e.count:5d} | "
+            f"{e.key[:90]}")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "torch_stacked_apply.json")
+    prof.export_chrome_trace(path)
+    log(f"trace: {path}")
+    q_text, q_map = FUSED_TEXT_DOCS // 4, FUSED_MAP_DOCS // 4
+    q = profiled_apply(torch, M, device, q_text, q_map)
+    log(f"profile 8a apply over {q_text} text + {q_map} map docs: "
+        f"{q[2]} device operations (against {n_ops} over "
+        f"{FUSED_TEXT_DOCS} + {FUSED_MAP_DOCS}), wall {q[0] * 1e3:.3f} "
+        f"ms, device kernel time {q[1] / 1e3:.3f} ms")
+    log("host profile of one 8a apply:")
+    host_profile(lambda: apply(rounds[1]))
+    ids = [f"d{d}" for d in range(DOCSET_DOCS)]
+    batches = {f"d{d}": docset_batch(M.TB, M.C, f"d{d}", d, DOCSET_ACTORS,
+                                     DOCSET_CHARS)
+               for d in range(DOCSET_DOCS)}
+
+    def build():
+        ds = M.DeviceTextDocSet(ids, capacity=DOCSET_ACTORS * DOCSET_CHARS
+                                + 64, device=device)
+        ds.apply_batches(batches)
+        ds.texts()
+    build()
+    log("host profile of one 8c build + planned texts():")
+    host_profile(build)
+
+
 def port_modules():
     """The port's modules the phases drive (ImportError when the package
     is not beside this script)."""
     from types import SimpleNamespace
 
     from automerge_tpu_torch import _common, native, obs
-    from automerge_tpu_torch.engine import (DeviceMapDoc, MapChangeBatch,
+    from automerge_tpu_torch.engine import (DeviceMapDoc, DeviceTextDocSet,
+                                            MapChangeBatch,
                                             PipelinedIngestor, accounting,
-                                            runs)
+                                            runs, stacked)
     from automerge_tpu_torch.engine.columnar import TextChangeBatch
     from automerge_tpu_torch.engine.text_doc import DeviceTextDoc
     from automerge_tpu_torch.ops import scan_kernels
+    from automerge_tpu_torch.ops.ingest import bucket
     return SimpleNamespace(
         C=_common, native=native, obs=obs, DeviceMapDoc=DeviceMapDoc,
         MapChangeBatch=MapChangeBatch, PipelinedIngestor=PipelinedIngestor,
         accounting=accounting, runs=runs, TB=TextChangeBatch,
-        DeviceTextDoc=DeviceTextDoc, S=scan_kernels)
+        DeviceTextDoc=DeviceTextDoc, DeviceTextDocSet=DeviceTextDocSet,
+        stacked=stacked, S=scan_kernels, bucket=bucket)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile the headline commit of both "
-                         "materialization paths; traces go to DIR")
+                         "materialization paths and the multi-document "
+                         "tier; traces go to DIR")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1119,30 +1655,63 @@ def main() -> int:
     # 6b. a 1,000,000-key map document: fast-path and slow-path rounds
     map_phase(torch, M, card)
 
+    # 8. the multi-document tier (it runs before phase 7, which times the
+    # kernels at every shape the paths launched): 8a the stacked executor
+    # at cfg17, 8b the largest stack one card takes under the cell gate
+    # (cfg12's lane), 8c the DocSet at cfg3
+    fz_text = [f"fz-t{i:05d}" for i in range(FUSED_TEXT_DOCS)]
+    fz_map = [f"fz-m{i:05d}" for i in range(FUSED_MAP_DOCS)]
+    st_a = stacked_phase(
+        torch, M, card, "8a stacked cfg17", text_ids=fz_text,
+        map_ids=fz_map, text_cap=1024, map_cap=256,
+        stream=fused_stream(fz_text, fz_map, FUSED_KEYS, FUSED_ROUNDS,
+                            FUSED_OPS, 1 + STACK_REPS))
+    sh_text = [f"tdoc-{i:05d}" for i in range(SHARD_TEXT_DOCS)]
+    sh_map = [f"mdoc-{i:05d}" for i in range(SHARD_MAP_DOCS)]
+    st_b = stacked_phase(
+        torch, M, card, "8b stacked cfg12 lane", text_ids=sh_text,
+        map_ids=sh_map, text_cap=SHARD_CAP, map_cap=SHARD_CAP,
+        stream=shard_stream(sh_text, sh_map, 64, SHARD_ROUNDS,
+                            1 + STACK_REPS))
+    if st_b["cells"] > 1 << 23:
+        raise AssertionError(f"8b stacks {st_b['cells']} cells")
+    dset = docset_phase(torch, M, card)
+    stacked_launches = {k: st_a["launches"][k] + st_b["launches"][k]
+                        for k in S.launches}
+    stacked_shapes = {k: {sh: st_a["shapes"][k].get(sh, 0)
+                          + st_b["shapes"][k].get(sh, 0)
+                          for sh in set(st_a["shapes"][k])
+                          | set(st_b["shapes"][k])} for k in S.launches}
+
     # 7. kernel times at every shape the driven paths launched with, then
     # one kernel per call (a profiler session slows later host launches)
     shapes_by_path = {"main": main_shapes, "self_contained": sc_shapes,
-                      "residual": res_shapes, "pipeline": ring["shapes"]}
+                      "residual": res_shapes, "pipeline": ring["shapes"],
+                      "stacked": stacked_shapes, "docset": dset["shapes"]}
     log(f"launches by shape on the driven paths: {shapes_by_path}")
     shapes = {k: set().union(*(p[k] for p in shapes_by_path.values()))
               for k in S.launches}
     n_elems_of = {1_048_576: BASE_LEN, N_MERGE: n_expect}
-    times = time_kernels(torch, S, shapes["multi_scan"],
-                         shapes["fused_segment_scans"],
-                         lambda c: n_elems_of.get(c, c - c // 16))
+    times = time_kernels(
+        torch, S, shapes["multi_scan"], shapes["fused_segment_scans"],
+        lambda sh: (n_elems_of.get(sh[0], sh[0] - sh[0] // 16)
+                    if len(sh) == 1 else
+                    [min(sh[1] - 1, DOCSET_ACTORS * DOCSET_CHARS)] * sh[0]))
     per_call = check_kernels_per_call(torch, S)
 
-    # 8. optional profile of the headline commit
+    # 9. optional profiles: the headline commit, the multi-document tier
     if args.profile:
         for planned in (True, False):
             profile_commit(torch, DeviceTextDoc, TB, C, planned,
                            args.profile)
+        profile_multi_doc(torch, M, args.profile)
 
-    # 9. kernel records: `launches` is the count on the path the kernel
+    # 10. kernel records: `launches` is the count on the path the kernel
     # serves (multi_scan: the planned main path; fused_segment_scans: the
     # self-contained one); `launches_by_path` has each driven path's count
     by_path = {"main": main_launches, "self_contained": sc_launches,
-               "residual": res_launches, "pipeline": ring["launches"]}
+               "residual": res_launches, "pipeline": ring["launches"],
+               "stacked": stacked_launches, "docset": dset["launches"]}
     kernels = []
     for name, replaces, path in (
             ("multi_scan", "automerge_tpu/ops/scan_pallas.py:204", "main"),

@@ -1,0 +1,316 @@
+"""The port's DeviceTextDocSet (automerge_tpu_torch, device="cpu") against
+the JAX package's DeviceTextDocSet.
+
+The twins of tests/test_doc_set_engine.py (all but the mesh-sharded case:
+the port has no mesh yet): the same change streams go through both sets,
+and the texts, the stacked tables' live prefixes (slots 0..n_elems of
+every stacked row — the dense expansion writes past the live region of
+inactive rows), every row's meta (clock, actor table, counts, elemId
+index, segment mirror) and the graduated documents must be equal, with
+zero tolerance."""
+
+import numpy as np
+import pytest
+import torch
+
+from automerge_tpu.engine import DeviceTextDocSet as JSet
+from automerge_tpu.engine import TextChangeBatch as JBatch
+from automerge_tpu_torch import state
+from automerge_tpu_torch.engine import DeviceTextDoc as TDoc
+from automerge_tpu_torch.engine import DeviceTextDocSet as TSet
+from automerge_tpu_torch.engine import TextChangeBatch as TBatch
+from automerge_tpu_torch.engine import stacked as TS
+
+from test_doc_set_engine import typing_change
+
+KEYS = ("parent", "ctr", "actor", "value", "has_value", "win_actor",
+        "win_seq", "win_counter", "chain")
+
+
+def both(ids, capacity=1024):
+    return JSet(ids, capacity=capacity), TSet(ids, capacity=capacity,
+                                               device="cpu")
+
+
+def feed(jds, tds, changes_by_obj: dict):
+    """One apply_batches call on each set with the same changes."""
+    jds.apply_batches({o: JBatch.from_changes(c, o)
+                       for o, c in changes_by_obj.items()})
+    tds.apply_batches({o: TBatch.from_changes(c, o)
+                       for o, c in changes_by_obj.items()})
+
+
+def assert_sets_equal(jds, tds):
+    assert tds.texts() == jds.texts()
+    assert tds._cap == jds._cap
+    assert sorted(tds._overlay) == sorted(jds._overlay)
+    jd, td = jds._ensure_dev(), tds._ensure_dev()
+    for d in range(jds.n_docs):
+        jm, tm = jds._meta[d], tds._meta[d]
+        assert tm.n_elems == jm.n_elems
+        if d in jds._overlay:
+            continue
+        assert tm.clock == jm.clock
+        assert tm.actor_table == jm.actor_table
+        assert tm.all_ascii == jm.all_ascii
+        assert tm.all_deps == jm.all_deps
+        assert tm.seg_bound == jm.seg_bound
+        for a, b in zip(tm.index.rows(), jm.index.rows()):
+            np.testing.assert_array_equal(a, b)
+        assert (tm.mirror is None) == (jm.mirror is None)
+        if jm.mirror is not None:
+            for k in ("heads", "par", "hctr", "hactor"):
+                np.testing.assert_array_equal(getattr(tm.mirror, k),
+                                              getattr(jm.mirror, k))
+        n = jm.n_elems + 1
+        for k in KEYS:
+            a, b = np.asarray(jd[k]), td[k].numpy()
+            assert b.dtype == a.dtype, k
+            np.testing.assert_array_equal(b[d, :n], a[d, :n], err_msg=k)
+    for d, jdoc in jds._overlay.items():
+        tdoc = tds._overlay[d]
+        assert tdoc.text() == jdoc.text()
+        assert tdoc.clock == jdoc.clock
+        assert tdoc.conflicts == jdoc.conflicts
+        n = jdoc.n_elems + 1
+        for k in KEYS:
+            np.testing.assert_array_equal(
+                tdoc._ensure_dev()[k].numpy()[:n],
+                np.asarray(jdoc._ensure_dev()[k])[:n], err_msg=k)
+
+
+def test_bulk_build_matches_single_doc():
+    ids = [f"d{i}" for i in range(5)]
+    jds, tds = both(ids)
+    changes = {obj: [typing_change(f"actor-{a}", 1, f"doc{i}text{a}",
+                                   obj=obj) for a in range(3)]
+               for i, obj in enumerate(ids)}
+    feed(jds, tds, changes)
+    texts = tds.texts()
+    for obj in ids:
+        assert texts[obj] == TDoc(obj, device="cpu").apply_changes(
+            changes[obj]).text()
+    assert_sets_equal(jds, tds)
+
+
+def test_incremental_rounds_and_graduation():
+    ids = ["a", "b"]
+    jds, tds = both(ids)
+    feed(jds, tds, {o: [typing_change("w", 1, "hello", obj=o)] for o in ids})
+    assert tds.texts() == {"a": "hello", "b": "hello"}
+    ch = {"actor": "w", "seq": 2, "deps": {}, "ops":
+          [{"action": "del", "obj": "a", "key": "w:5"}]}
+    feed(jds, tds, {"a": [ch]})
+    assert tds.texts() == {"a": "hell", "b": "hello"}
+    feed(jds, tds, {o: [typing_change(
+        "w", 3 if o == "a" else 2, "!!", start_ctr=6,
+        after="w:4" if o == "a" else "w:5", obj=o)] for o in ids})
+    assert tds.texts() == {"a": "hell!!", "b": "hello!!"}
+    assert_sets_equal(jds, tds)
+
+
+def test_unicode_docset():
+    jds, tds = both(["u"])
+    feed(jds, tds, {"u": [typing_change("w", 1, "héllo", obj="u")]})
+    assert tds.texts()["u"] == "héllo"
+    assert_sets_equal(jds, tds)
+
+
+def test_concurrent_actors_same_position():
+    jds, tds = both(["x"])
+    changes = [typing_change("aaa", 1, "123", obj="x"),
+               typing_change("bbb", 1, "456", start_ctr=1, obj="x")]
+    feed(jds, tds, {"x": changes})
+    single = TDoc("x", device="cpu").apply_changes(changes)
+    assert tds.texts()["x"] == single.text()
+    assert_sets_equal(jds, tds)
+
+
+def test_graduation_carries_causal_history():
+    jds, tds = both(["g"])
+    chA = typing_change("A", 1, "x", obj="g")
+    chB = {"actor": "B", "seq": 1, "deps": {"A": 1}, "ops": [
+        {"action": "ins", "obj": "g", "key": "A:1", "elem": 2},
+        {"action": "set", "obj": "g", "key": "B:2", "value": "y"}]}
+    feed(jds, tds, {"g": [chA]})
+    feed(jds, tds, {"g": [chB]})
+    ch0 = {"actor": "0", "seq": 1, "deps": {"B": 1}, "ops": [
+        {"action": "set", "obj": "g", "key": "A:1", "value": "z"}]}
+    feed(jds, tds, {"g": [ch0]})
+    assert tds.texts()["g"] == "zy"
+    assert tds.doc("g").conflicts_at(0) is None
+    assert_sets_equal(jds, tds)
+
+
+def test_duplicate_batch_is_noop_without_graduation():
+    jds, tds = both(["dup"])
+    ch = [typing_change("w", 1, "abc", obj="dup")]
+    feed(jds, tds, {"dup": ch})
+    feed(jds, tds, {"dup": ch})
+    assert tds.texts()["dup"] == "abc"
+    assert not tds._overlay
+    assert_sets_equal(jds, tds)
+
+
+def test_in_batch_duplicate_change_is_idempotent():
+    jds, tds = both(["ib"])
+    ch = typing_change("w", 1, "a", obj="ib")
+    feed(jds, tds, {"ib": [ch, ch]})
+    assert tds.texts()["ib"] == "a"
+    assert_sets_equal(jds, tds)
+
+
+def test_sequential_same_actor_batch_stays_fast():
+    jds, tds = both(["sq"])
+    feed(jds, tds, {"sq": [
+        typing_change("w", 1, "ab", obj="sq"),
+        typing_change("w", 2, "cd", start_ctr=3, after="w:2", obj="sq")]})
+    assert tds.texts()["sq"] == "abcd"
+    assert not tds._overlay
+    assert_sets_equal(jds, tds)
+
+
+def random_rounds(seed, ids, n_rounds=3):
+    """tests/test_doc_set_engine.py's random docsets: per round and doc,
+    1-3 concurrent typing actors over a shared causal frontier."""
+    rng = np.random.default_rng(seed)
+    ctr = {o: 1 for o in ids}
+    rounds = []
+    for rnd in range(n_rounds):
+        batches = {}
+        for o in ids:
+            n_act = int(rng.integers(1, 4))
+            changes = []
+            for a in range(n_act):
+                text = "".join(chr(97 + int(c))
+                               for c in rng.integers(0, 26, 8))
+                changes.append(typing_change(
+                    f"w{a}", rnd + 1, text, start_ctr=ctr[o], obj=o,
+                    deps={f"w{i}": rnd for i in range(n_act)} if rnd else {}))
+            ctr[o] += 8
+            batches[o] = changes
+        rounds.append(batches)
+    return rounds
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_random_docsets_match_jax(seed):
+    ids = [f"r{i}" for i in range(4)]
+    jds, tds = both(ids)
+    for batches in random_rounds(seed, ids):
+        feed(jds, tds, batches)
+    assert_sets_equal(jds, tds)
+
+
+def test_docset_mirrors_track_chain_bits():
+    ids = ["m0", "m1"]
+    jds, tds = both(ids)
+    for rnd, start in ((1, 1), (2, 100)):
+        feed(jds, tds, {o: [typing_change(
+            f"w{a}", rnd, "abcd", start_ctr=start, obj=o,
+            after=None if rnd == 1 else "w0:2",
+            deps={} if rnd == 1 else {f"w{i}": 1 for i in range(2)})
+            for a in range(2)] for o in ids})
+    tds.texts()
+    chain = tds._ensure_dev()["chain"].numpy()
+    for d in range(len(ids)):
+        meta = tds._meta[d]
+        dev_heads = 1 + np.flatnonzero(~chain[d, 1: meta.n_elems + 1])
+        np.testing.assert_array_equal(meta.mirror.heads[1:], dev_heads)
+    assert_sets_equal(jds, tds)
+
+
+def test_docset_corrupted_mirror_self_heals():
+    from automerge_tpu_torch.engine.segments import SegmentMirror
+    jds, tds = both(["h0", "h1"])
+    feed(jds, tds, {o: [typing_change("w0", 1, "hello", obj=o)]
+                    for o in jds.obj_ids})
+    good = tds.texts()
+    for ds, mirror_cls in ((tds, SegmentMirror), (jds, None)):
+        m = ds._meta[1].mirror
+        cls = mirror_cls or type(m)
+        ds._meta[1].mirror = cls(
+            np.append(m.heads, 3), np.append(m.par, 2),
+            np.append(m.hctr, 99), np.append(m.hactor, 0))
+        ds._meta[1].mirror.heads.sort()
+        ds._codes_cache = None
+    assert tds.texts() == good            # healed via self-contained program
+    chain = tds._ensure_dev()["chain"].numpy()
+    for d in range(2):
+        meta = tds._meta[d]
+        dev_heads = 1 + np.flatnonzero(~chain[d, 1: meta.n_elems + 1])
+        np.testing.assert_array_equal(meta.mirror.heads[1:], dev_heads)
+    tds._codes_cache = None
+    jds._codes_cache = None
+    assert tds.texts() == good            # planned again
+    assert_sets_equal(jds, tds)
+
+
+def test_graduated_group_takes_stacked_executor(monkeypatch):
+    """Two docs needing the general path in one call graduate together and
+    merge through ONE stacked apply; a third stays on the fast tier."""
+    monkeypatch.setenv("AMTPU_STACKED_MIN_OPS", "1")
+    ids = ["p", "q", "r"]
+    jds, tds = both(ids)
+    feed(jds, tds, {o: [typing_change("w", 1, "hello", obj=o)] for o in ids})
+    TS.LAST_STATS.clear()
+    feed(jds, tds, {
+        "p": [{"actor": "w", "seq": 2, "deps": {}, "ops": [
+            {"action": "del", "obj": "p", "key": "w:2"}]}],
+        "q": [{"actor": "v", "seq": 1, "deps": {"w": 1}, "ops": [
+            {"action": "set", "obj": "q", "key": "w:1", "value": "J"}]}],
+        "r": [typing_change("w", 2, "!", start_ctr=6, after="w:5",
+                            obj="r")]})
+    assert TS.LAST_STATS and TS.LAST_STATS["text_docs"] == 2
+    assert sorted(tds._overlay) == [0, 1]
+    assert tds.texts() == {"p": "hllo", "q": "Jello", "r": "hello!"}
+    assert_sets_equal(jds, tds)
+
+
+def test_graduated_doc_owns_its_tables():
+    """A graduated document's tables are copies of its row: writing them
+    in place changes neither the stacked tables nor another row."""
+    jds, tds = both(["a", "b"])
+    feed(jds, tds, {o: [typing_change("w", 1, "abc", obj=o)]
+                    for o in ("a", "b")})
+    before = {k: v.clone() for k, v in tds._ensure_dev().items()}
+    doc = tds.doc("a")
+    for t in doc._ensure_dev().values():
+        t.fill_(1)
+    for k, v in tds._ensure_dev().items():
+        assert torch.equal(v, before[k]), k
+
+
+def test_load_jax_docset_state_and_continue():
+    """A JAX DocSet's state (stacked tables, row meta, a graduated doc)
+    carried into the port continues bit-exact under the same rounds."""
+    ids = [f"s{i}" for i in range(3)]
+
+    def rnd(r):
+        deps = {f"w{a}": r - 1 for a in range(2)} if r > 1 else {}
+        return {o: [typing_change(f"w{a}", r, f"{o}r{r}a{a}",
+                                  start_ctr=16 * r + 8 * a, obj=o,
+                                  after="w0:16" if r > 1 else None,
+                                  deps=deps) for a in range(2)]
+                for o in ids}
+    jds = JSet(ids)
+    for r in (1, 2):
+        jds.apply_batches({o: JBatch.from_changes(c, o)
+                           for o, c in rnd(r).items()})
+    jds.apply_batches({"s0": JBatch.from_changes([{
+        "actor": "w0", "seq": 3, "deps": {"w1": 2}, "ops": [
+            {"action": "del", "obj": "s0", "key": "w0:17"}]}], "s0")})
+    tds = state.load_doc_set_state(TSet(ids, device="cpu"),
+                                   state.doc_set_state(jds))
+    assert_sets_equal(jds, tds)
+    last = rnd(3)
+    last["s0"] = [typing_change("w1", 3, "zz", start_ctr=99, after="w0:16",
+                                deps={"w0": 3}, obj="s0")]
+    feed(jds, tds, last)
+    assert_sets_equal(jds, tds)
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TSet(["x"])

@@ -373,10 +373,11 @@ def test_out_of_range_scatter_drops_like_jax():
                        torch.ones((2, 3), dtype=torch.int32))
     assert got.shape == (4, 3) and got.sum() == 3
     # the column form: rows padded with their fills, columns dropped alike
-    rows = (torch.from_numpy(dst), torch.from_numpy(dst[::-1].copy()))
-    got = TK._set_drop_rows(rows, (0, -1), torch.from_numpy(idx),
-                            (torch.from_numpy(vals), -torch.from_numpy(vals)),
-                            12)
+    rows = (torch.from_numpy(dst)[None],
+            torch.from_numpy(dst[::-1].copy())[None])
+    got = TK._set_drop_rows_r(rows, (0, -1), torch.from_numpy(idx)[None],
+                              (torch.from_numpy(vals)[None],
+                               -torch.from_numpy(vals)[None]), 12)[:, 0]
     want2 = jnp.asarray(np.concatenate([dst[::-1], [-1, -1]])).at[
         jnp.asarray(idx)].set(-jnp.asarray(vals), mode="drop")
     want1 = jnp.asarray(np.concatenate([dst, [0, 0]])).at[
@@ -404,11 +405,11 @@ def test_multi_key_sort_matches_lax_sort(seed):
     idx = np.arange(n, dtype=np.int32)
     want = jax.lax.sort(tuple(map(jnp.asarray, keys + [idx])),
                         num_keys=4)[-1]
-    got = TK._lexsort([torch.from_numpy(k) for k in keys])
+    got = TK._lexsort_r([torch.from_numpy(k)[None] for k in keys])[0]
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # with ties on every key the order is stable (input order)
     tied = [torch.from_numpy(k) for k in keys[:3]]
-    order = TK._lexsort(tied).numpy()
+    order = TK._lexsort_r([k[None] for k in tied])[0].numpy()
     np.testing.assert_array_equal(
         order, np.lexsort([k.numpy() for k in reversed(tied)]))
 
@@ -436,10 +437,10 @@ def test_live_scatter_indices_are_unique(monkeypatch):
     once (or the same value each time): only the dropped sentinel rows may
     collide, so CUDA's unordered index_put_ stays deterministic."""
     seen = []
-    real = TK._set_drop
-    real_rows = TK._set_drop_rows
+    real = TK._set_drop_r
+    real_rows = TK._set_drop_rows_r
 
-    def checked(dst, idx, vals):
+    def checked_one(dst, idx, vals):
         n = dst.shape[0]
         i = idx.to(torch.int64)
         i = torch.where(i < 0, i + n, i)
@@ -453,17 +454,24 @@ def test_live_scatter_indices_are_unique(monkeypatch):
             rows = vk[ik == u]
             assert (rows == rows[0]).all(), f"conflicting writes at {u}"
         seen.append(int(keep.sum()))
+
+    def checked(dst, idx, vals):
+        for d in range(dst.shape[0]):       # each row on its own
+            checked_one(dst[d], idx[d],
+                        vals[d] if torch.is_tensor(vals) else vals)
         return real(dst, idx, vals)
 
     def checked_rows(rows, fills, idx, updates, n):
-        checked(torch.zeros((n, len(rows)), dtype=torch.int32), idx,
-                torch.stack([u.to(torch.int32) for u in updates], dim=1))
+        for d in range(idx.shape[0]):
+            checked_one(torch.zeros((n, len(rows)), dtype=torch.int32),
+                        idx[d], torch.stack([u[d].to(torch.int32)
+                                             for u in updates], dim=1))
         return real_rows(rows, fills, idx, updates, n)
 
-    monkeypatch.setattr(TK, "_set_drop_rows", checked_rows)
-    monkeypatch.setattr(TK, "_set_drop", checked)
-    monkeypatch.setattr(TF, "_set_drop", checked)
-    monkeypatch.setattr(TL, "_set_drop", checked)
+    monkeypatch.setattr(TK, "_set_drop_rows_r", checked_rows)
+    monkeypatch.setattr(TK, "_set_drop_r", checked)
+    monkeypatch.setattr(TF, "_set_drop_r", checked)
+    monkeypatch.setattr(TL, "_set_drop_r", checked)
     jdoc, tdoc = twin_docs(planned=False)
     tdoc.apply_batch(as_port(merge(6, 30)))
     tdoc.apply_batch(as_port(residual_batch(600, 0)))

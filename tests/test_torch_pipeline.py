@@ -557,7 +557,7 @@ def test_failure_before_any_write_leaves_doc_usable(donate, monkeypatch):
         calls.append(1)
         raise RuntimeError("launch failed")
     with monkeypatch.context() as m:
-        m.setattr(F, "multi_scan", failing_scan)
+        m.setattr(I, "multi_scan", failing_scan)
         plan = doc.prepare_batch(hs[1])
         with pytest.raises(RuntimeError, match="launch failed"):
             doc.commit_prepared(plan)
@@ -579,7 +579,7 @@ def test_failure_after_first_inplace_write_loses_doc(monkeypatch):
     def failing_materialize(*a, **k):
         raise RuntimeError("materialize failed")
     with monkeypatch.context() as m:
-        m.setattr(F, "_materialize_core_planned", failing_materialize)
+        m.setattr(F, "_materialize_core_planned_r", failing_materialize)
         plan = doc.prepare_batch(hs[1])
         with pytest.raises(RuntimeError, match="materialize failed"):
             doc.commit_prepared(plan)
@@ -600,7 +600,7 @@ def test_out_of_place_failure_after_dispatch_keeps_doc(monkeypatch):
     def failing_materialize(*a, **k):
         raise RuntimeError("materialize failed")
     with monkeypatch.context() as m:
-        m.setattr(F, "_materialize_core_planned", failing_materialize)
+        m.setattr(F, "_materialize_core_planned_r", failing_materialize)
         with pytest.raises(RuntimeError, match="materialize failed"):
             doc.commit_prepared(doc.prepare_batch(hs[1]))
     assert not doc._device_lost

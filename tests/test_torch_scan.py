@@ -80,6 +80,56 @@ def test_n_elems_as_device_scalar():
         assert torch.equal(x, y)
 
 
+def _row_columns(D, C, seed):
+    rng = np.random.default_rng(seed)
+    return rng.random((D, C)) < 0.7, rng.random((D, C)) < 0.8
+
+
+@pytest.mark.parametrize("D,C,n_elems", [
+    (3, 1000, [999, 0, 500]), (4, 768, [767, 1, 300, 767]),
+    (2, 8193, [8192, 8000]), (5, 64, [0, 0, 63, 10, 40])])
+def test_fused_segment_scans_rows_match_pallas(D, C, n_elems):
+    """The row form: every row of (D, C) scanned on its own with its own
+    count (an all-padding row included) equals the JAX kernel on that
+    row."""
+    chain, has = _row_columns(D, C, seed=D * C)
+    got = S.fused_segment_scans(torch.from_numpy(chain),
+                                torch.from_numpy(has),
+                                torch.tensor(n_elems, dtype=torch.int32))
+    for d in range(D):
+        want = P.fused_segment_scans(jnp.asarray(chain[d]),
+                                     jnp.asarray(has[d]), n_elems[d],
+                                     interpret=True)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and g.shape == (D, C)
+            np.testing.assert_array_equal(g[d].numpy(), np.asarray(w))
+
+
+def test_fused_segment_scans_row_equals_one_column():
+    """A row of the row form equals the one-column form on that row; the
+    counts must be one int32 per row."""
+    chain, has = _row_columns(3, 200, seed=4)
+    ch, hv = torch.from_numpy(chain), torch.from_numpy(has)
+    a = S.fused_segment_scans(ch, hv, torch.tensor([150, 0, 199],
+                                                   dtype=torch.int32))
+    one = S.fused_segment_scans(ch[2], hv[2], 199)
+    for x, y in zip(a, one):
+        assert torch.equal(x[2], y)
+    for bad in (torch.tensor([1, 2], dtype=torch.int32), [150, 0, 199],
+                torch.tensor([150, 0, 199])):
+        with pytest.raises(ValueError, match="per-row n_elems"):
+            S.fused_segment_scans(ch, hv, bad)
+
+
+@pytest.mark.parametrize("D,N", [(4, 256), (2, 512), (1, 256)])
+def test_multi_scan_plain_matches_pallas_short_rows(D, N):
+    """The stacked round's expansion shape: (D * 6, N) with short rows."""
+    x = _channels(D * 6, N, seed=D + N)
+    want = np.asarray(P.multi_scan(jnp.asarray(x), interpret=True))
+    got = S.multi_scan_plain(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_cpu_tensors_take_the_plain_version_and_do_not_count():
     S.reset_launches()
     x = torch.from_numpy(_channels(6, 100, seed=1))
@@ -292,3 +342,40 @@ def test_kernel_wrappers_reject_bad_inputs(cuda_device):
     c = torch.zeros(8, dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError):
         S.fused_segment_scans(c, c[:4], 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,C", [(1000, 768), (64, 2048), (3, 100_003),
+                                 (7, 1001), (2, 16)])
+def test_fused_segment_scans_rows_kernel_matches_plain(cuda_device, D, C):
+    """Row form on the card at the DocSet shapes, rows of a length that is
+    not a multiple of 16 (the scalar path) and many-tile rows included;
+    one launch per call."""
+    chain, has = _row_columns(D, C, seed=C)
+    rng = np.random.default_rng(D)
+    n = rng.integers(0, C, D).astype(np.int32)
+    n[0] = 0
+    n[-1] = C - 1
+    ch, hv = (torch.from_numpy(a).to(cuda_device) for a in (chain, has))
+    ne = torch.from_numpy(n).to(cuda_device)
+    S.reset_launches()
+    got = S.fused_segment_scans(ch, hv, ne)
+    torch.cuda.synchronize()
+    assert S.launches["fused_segment_scans"] == 1
+    assert S.launch_shapes["fused_segment_scans"] == {(D, C): 1}
+    for g, w in zip(got, S.fused_segment_scans_plain(ch, hv, ne)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,N", [(192, 256), (64, 256), (4, 256),
+                                 (192, 512)])
+def test_multi_scan_kernel_short_rows(cuda_device, D, N):
+    """The stacked text lane's (D * 6, N) expansion scan: many short rows
+    (most of a tile's lanes idle), bit-exact and one launch."""
+    x = torch.from_numpy(_channels(D * 6, N, seed=D * N)).to(cuda_device)
+    S.reset_launches()
+    got = S.multi_scan(x)
+    torch.cuda.synchronize()
+    assert S.launches["multi_scan"] == 1
+    assert torch.equal(got, S.multi_scan_plain(x))
