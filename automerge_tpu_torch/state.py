@@ -11,6 +11,9 @@ imports neither engine), and `load_text_doc_state` installs it into a
 `doc_set_state` / `load_doc_set_state` for a `DeviceTextDocSet`: its
 stacked (D, cap) tables, each row's meta (clock, actor table, elemId
 index, segment mirror) and its graduated documents.
+`backend_state_from_jax` carries a whole backend lineage: a JAX
+`DeviceBackendState` becomes this package's, every object's tables on
+`device`, its host bookkeeping as plain values.
 """
 
 from __future__ import annotations
@@ -197,3 +200,69 @@ def load_doc_set_state(port_ds, state: dict):
         port_ds._overlay[d] = load_text_doc_state(doc, st)
     port_ds._codes_cache = None
     return port_ds
+
+
+#: host bookkeeping of a backend core, carried as plain values (one deep
+#: copy, so `history` and `states` keep sharing their change dicts)
+_CORE_FIELDS = ("states", "history", "queue", "clock", "deps", "undo_pos",
+                "undo_stack", "redo_stack", "obj_order", "commands",
+                "actor_rank")
+
+
+def _carry_text_obj(src, dst):
+    load_text_doc_state(dst.doc, host_state(src.doc))
+    dst.max_elem = int(src.max_elem)
+    dst.prev_n = int(src.prev_n)
+    dst.prev_vis = np.array(src.prev_vis, bool)
+    dst.prev_value = np.array(src.prev_value, np.int32)
+    dst.prev_conf = copy.deepcopy(src.prev_conf)
+    dst.announced = bool(src.announced)
+    dst._pool_scan = tuple(src._pool_scan)
+
+
+def _carry_map_obj(src, dst):
+    load_map_doc_state(dst.doc, map_state(src.doc))
+    dst.max_elem = int(src.max_elem)
+    dst.prev = copy.deepcopy(src.prev)
+    dst.announced = bool(src.announced)
+
+
+def backend_state_from_jax(jax_state, device):
+    """This package's backend state for a JAX backend state, on `device`.
+
+    A `DeviceBackendState` carries its core at the state's version (a
+    stale state's fork): pending write-behind rounds are flushed into the
+    JAX engines first, as any read does, then every object's tables go
+    through `load_text_doc_state` / `load_map_doc_state` and the host
+    bookkeeping (clock, deps, history, queue, undo and redo stacks, the
+    delivery log, the diff snapshots) is copied. A graduated (oracle)
+    state is carried by replaying its command log into this package's
+    oracle. Both lineages then take the same further changes alike."""
+    from .backend import device as _device
+    from .backend import facade as _facade
+    from .backend.op_set import OpSetIndex
+    if not hasattr(jax_state, "_core"):
+        version = jax_state._version
+        log = OpSetIndex()
+        log.commands = copy.deepcopy(
+            list(jax_state._index.commands[:version]))
+        return _facade.BackendState(log.fork(version), version)
+    src = jax_state.read_core()
+    src.flush_pending()
+    core = _device._DeviceCore(device)
+    for name, value in copy.deepcopy(
+            {k: getattr(src, k) for k in _CORE_FIELDS}).items():
+        setattr(core, name, value)
+    _carry_map_obj(src.root, core.root)
+    for oid in core.obj_order:
+        w = src.objects[oid]
+        if hasattr(w, "prev_n"):
+            dst = _device._TextObj(oid, w.kind, core.device,
+                                   capacity_hint=int(w.doc._cap))
+            _carry_text_obj(w, dst)
+        else:
+            dst = _device._MapObj(oid, w.kind, core.device,
+                                  capacity_hint=int(w.doc._cap))
+            _carry_map_obj(w, dst)
+        core.objects[oid] = dst
+    return _device.DeviceBackendState(core, jax_state._version)

@@ -13,20 +13,23 @@ port's DeviceTextDoc through the headline text merge at full width (a
 1,000,000-char document taking a 10,000-actor x 1,000-op concurrent
 batch), the self-contained materialization, a residual round with the
 incremental pull, bench.py's `--pipeline` stream, a 1,000,000-key map
-document, and the multi-document tier (phase 8: the stacked executor at
+document, the multi-document tier (phase 8: the stacked executor at
 bench.py measure_fused's and a cfg12 lane's populations, the DocSet at
 cfg3 with its mirror heal and graduation, each against a CPU run of the
-same stream); times each kernel at every shape those paths launched
+same stream), and the public API (phase 9: cfg4's trellis merge of 1,000
+actors through apply_changes, cfg7's interactive latency of 60 local
+inserts into a 100,000-char Text, one graduation; each against the
+oracle or the CPU backend); times each kernel at every shape those paths launched
 it with (device time over CUDA-graph replays, inputs rotated through
 copies so each call reads them from HBM; one eager call at the merge
 shapes is timed before the paths); and checks that each wrapper call runs
 one kernel. Every phase raises on failure.
 With --profile, it then runs the headline commit (commit_prepared +
 _materialize + _scalars) of each materialization path and one stacked
-apply once more under torch.profiler, prints the device's busy share and
-the kernels that took the most device time, writes the Chrome traces to
-DIR, and prints the host profile (cProfile) of one stacked apply and one
-DocSet build.
+apply and one api-a merge once more under torch.profiler, prints the
+device's busy share and the kernels that took the most device time,
+writes the Chrome traces to DIR, and prints the host profile (cProfile)
+of one stacked apply, one DocSet build and one api-a merge.
 
 The output ends with three lines: one JSON object describing every
 kernel, the card's name and power limit as nvidia-smi reports them, and
@@ -79,6 +82,12 @@ DOCSET_DOCS = 1_000            # 8c: benchmarks/run_all.py config3_docset
 DOCSET_ACTORS = 10
 DOCSET_CHARS = 50
 DOCSET_REPS = 5                # fresh timed runs, after one warm-up run
+API_ACTORS = 1_000             # api-a: benchmarks/run_all.py config4_trellis
+API_CARDS = 10
+API_REPS = 5                   # timed merges, after one warm-up merge
+API_TEXT = 100_000             # api-b: run_all.py config7_interactive_latency
+API_CHANGES = 60
+API_SKIP = 10                  # first changes left out of the percentiles
 
 
 def log(*a):
@@ -1388,6 +1397,352 @@ def docset_phase(torch, M, card: str, device=None, n_docs: int = DOCSET_DOCS,
     return out
 
 
+def trellis_changes(am, oracle, n_actors: int, n_cards: int, backend):
+    """benchmarks/run_all.py trellis_changes through the port's API: a
+    board of n_cards cards x 3 tasks made on `backend`, then n_actors
+    peers minted on the oracle backend `oracle`, each doing one task
+    append, retitle or task delete. Returns (base doc, changes, n_ops)."""
+    base = am.change(am.init({"actorId": "base", "backend": backend}),
+                     lambda d: d.update({"cards": [
+                         {"title": f"card{i}",
+                          "tasks": [f"t{j}" for j in range(3)]}
+                         for i in range(n_cards)]}))
+    base_changes = am.get_all_changes(base)
+    changes = []
+    for a in range(n_actors):
+        peer = am.apply_changes(
+            am.init({"actorId": f"actor-{a:05d}", "backend": oracle}),
+            base_changes)
+        k = a % n_cards
+        if a % 3 == 0:
+            peer2 = am.change(peer, lambda d, k=k, a=a: d["cards"][k]
+                              ["tasks"].append(f"new-{a}"))
+        elif a % 3 == 1:
+            peer2 = am.change(peer, lambda d, k=k, a=a: d["cards"][k]
+                              .__setitem__("title", f"retitled-{a}"))
+        else:
+            peer2 = am.change(peer, lambda d, k=k: d["cards"][k]["tasks"]
+                              .__delitem__(0))
+        changes.extend(am.get_changes(base, peer2))
+    return base, changes, sum(len(c["ops"]) for c in changes)
+
+
+def _canon(am, doc) -> str:
+    return json.dumps(am.to_json(doc), sort_keys=True, default=str)
+
+
+def api_trellis(torch, M, card: str, device, n_actors: int, reps: int,
+                n_cards: int = API_CARDS) -> dict:
+    """api-a, cfg4 (benchmarks/run_all.py config4_trellis, merged as
+    benchmarks/cfg4_smoke.py does): each rep loads the saved board afresh
+    on `device` and merges every actor's change with one apply_changes.
+    Every merge must stay on the device tier (no graduation), stack within
+    its round budget, and give the oracle's and the CPU backend's
+    document and save() bytes."""
+    am, dev_be = M.am, M.device_backend
+    backend = am.backend.backend_for(device)
+    oracle = am.backend.facade.Backend
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    base, changes, n_ops = trellis_changes(am, oracle, n_actors, n_cards,
+                                           backend)
+    mint_s = time.perf_counter() - t0
+    saved = am.save(base)
+
+    def merge(be, actor):
+        fresh = am.load(saved, {"actorId": actor, "backend": be})
+        M.stacked.LAST_STATS.clear()
+        dev_be.GRADUATION_STATS.clear()
+        sync()
+        with M.accounting.track() as tr:
+            t = time.perf_counter()
+            merged = am.apply_changes(fresh, changes)
+            sync()
+            dt = time.perf_counter() - t
+        st = dict(M.stacked.LAST_STATS)
+        if not isinstance(am.frontend.get_backend_state(merged),
+                          dev_be.DeviceBackendState):
+            raise AssertionError("api-a: the merge left the device tier")
+        if dev_be.GRADUATION_STATS:
+            raise AssertionError(f"api-a: graduated "
+                                 f"{dev_be.GRADUATION_STATS}")
+        if not st:
+            raise AssertionError("api-a: the merge did not stack")
+        M.stacked.assert_round_budget(st)
+        return merged, dt, st, tr.thread_stats
+
+    merge(backend, "merger")                     # warm-up
+    times, stats, syncs = [], [], []
+    for r in range(reps):
+        merged, dt, st, acct = merge(backend, "merger")
+        times.append(dt)
+        stats.append(st)
+        syncs.append(acct["syncs"])
+    cpu_merged, _, cpu_st, _ = merge(am.backend.backend_for("cpu"), "merger")
+    ref = am.apply_changes(am.init({"actorId": "merger", "backend": oracle}),
+                           am.get_all_changes(base) + changes)
+    if not (_canon(am, merged) == _canon(am, cpu_merged)
+            == _canon(am, ref)):
+        raise AssertionError("api-a: the merged board differs from the CPU "
+                             "backend's or the oracle's")
+    if not am.save(merged) == am.save(cpu_merged) == am.save(ref):
+        raise AssertionError("api-a: save() bytes differ")
+    if len(am.to_json(merged)["cards"]) != n_cards:
+        raise AssertionError("api-a: wrong number of cards")
+    rates = [n_ops / t for t in times]
+    out = {"actors": n_actors, "cards": n_cards, "changes": len(changes),
+           "ops": n_ops, "reps": reps, "mint_s": mint_s,
+           "ops_per_s_median": float(np.median(rates)),
+           "ops_per_s_min": min(rates), "ops_per_s_max": max(rates),
+           "merge_s": times,
+           "programs_per_pass": stats[-1]["dispatches"]
+           / stats[-1]["passes"],
+           "passes": stats[-1]["passes"], "rounds": stats[-1]["rounds"],
+           "syncs_per_apply": float(np.median(syncs)),
+           "stacked": {k: v for k, v in stats[-1].items()
+                       if isinstance(v, (int, float, bool))}}
+    log(f"api-a cfg4 trellis ({card}): {n_actors} actors, {n_ops} ops in "
+        f"{len(changes)} changes; median {out['ops_per_s_median']:.0f} ops/s"
+        f" (range {out['ops_per_s_min']:.0f}-{out['ops_per_s_max']:.0f}) "
+        f"over {reps} merges; {out['programs_per_pass']:.2f} round "
+        f"programs per pass, {out['passes']} passes, "
+        f"{out['syncs_per_apply']:.0f} syncs per apply; minted in "
+        f"{mint_s:.2f} s; equal to the oracle and the CPU backend")
+    return out
+
+
+def api_latency(torch, M, card: str, device, n_base: int, n_changes: int,
+                skip: int = API_SKIP) -> dict:
+    """api-b, cfg7 (benchmarks/run_all.py config7_interactive_latency): a
+    n_base-char Text made through change(), then n_changes local 10-char
+    inserts through change(), each timed whole (full API) and inside the
+    backend's apply_local_change (backend only); then one get_patch read,
+    which flushes the write-behind rounds into the engine. The text must
+    equal the expected string. Returns the record and the final text."""
+    am = M.am
+    base_ns = am.backend.backend_for(device)
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    be_s: list = []
+
+    def timed_alc(state, request):
+        t = time.perf_counter()
+        out = base_ns.apply_local_change(state, request)
+        be_s.append(time.perf_counter() - t)
+        return out
+    timed = type("TimedBackend", (base_ns,), {
+        "apply_local_change": staticmethod(timed_alc)})
+    t = time.perf_counter()
+    doc = am.change(am.init({"actorId": "user", "backend": timed}),
+                    lambda d: d.__setitem__("t", am.Text("x" * n_base)))
+    sync()
+    create_s = time.perf_counter() - t
+    be_s.clear()
+    lat = []
+    want = "x" * n_base
+    for i in range(n_changes):
+        t = time.perf_counter()
+        doc = am.change(doc, lambda d, i=i: d["t"].insert_at(
+            5000 + 11 * i, *"helloworld"))
+        lat.append(time.perf_counter() - t)
+        at = 5000 + 11 * i
+        want = want[:at] + "helloworld" + want[at:]
+    state = am.frontend.get_backend_state(doc)
+    pending = len(state._core.pending)
+    t = time.perf_counter()
+    patch = am.backend.get_patch(state)
+    sync()
+    flush_s = time.perf_counter() - t
+    text = "".join(d["value"] for d in patch["diffs"]
+                   if d["action"] == "insert")
+    if text != want or str(doc["t"]) != want:
+        raise AssertionError("api-b: the text differs from the expected "
+                             "string")
+
+    def pcts(series):
+        w = np.asarray(series[skip:]) * 1e3
+        return float(np.percentile(w, 50)), float(np.percentile(w, 99))
+    (p50, p99), (be50, be99) = pcts(lat), pcts(be_s)
+    out = {"chars": n_base, "changes": n_changes, "skip": skip,
+           "create_s": create_s, "api_p50_ms": p50, "api_p99_ms": p99,
+           "backend_p50_ms": be50, "backend_p99_ms": be99,
+           "pending_before_flush": pending, "flush_read_s": flush_s}
+    log(f"api-b cfg7 interactive ({card}): {n_base} chars, {n_changes} "
+        f"10-char inserts; full API p50 {p50:.4f} ms p99 {p99:.4f} ms, "
+        f"backend p50 {be50:.4f} ms p99 {be99:.4f} ms; {pending} rounds "
+        f"pending before the get_patch read ({flush_s:.4f} s); create "
+        f"{create_s:.4f} s; text as expected")
+    return out, text
+
+
+def api_graduation(torch, M, card: str, device) -> dict:
+    """api-c: one delivery outside the device grammar (an `ins` on a map
+    object) graduates the lineage to the oracle, once; the result equals
+    the oracle's, and the document before it stays on the device."""
+    am, dev_be = M.am, M.device_backend
+    facade = am.backend.facade
+    backend = am.backend.backend_for(device)
+    doc = am.change(am.init({"actorId": "alice", "backend": backend}),
+                    lambda d: d.update({"m": {"k": 1}, "t": am.Text("ab")}))
+    state = am.frontend.get_backend_state(doc)
+    odd = {"actor": "zed", "seq": 1, "deps": dict(state.clock),
+           "ops": [{"action": "ins", "obj": am.get_object_id(doc["m"]),
+                    "key": "_head", "elem": 1}]}
+    dev_be.GRADUATION_STATS.clear()
+    g, patch = am.backend.apply_changes(state, [odd])
+    o, o_patch = facade.apply_changes(
+        facade.apply_changes(facade.init(), state.history())[0], [odd])
+    if dev_be.GRADUATION_STATS != {"out_of_scope": 1}:
+        raise AssertionError(f"api-c: {dev_be.GRADUATION_STATS}")
+    if not isinstance(g, facade.BackendState):
+        raise AssertionError("api-c: the lineage did not graduate")
+    # (the oracle replays the history as remote changes, so only its undo
+    # flags may differ)
+    if (patch["diffs"] != o_patch["diffs"] or patch["clock"] != o_patch[
+            "clock"] or am.backend.get_patch(g)["diffs"]
+            != facade.get_patch(o)["diffs"]):
+        raise AssertionError("api-c: the graduated result differs from the "
+                             "oracle's")
+    after = am.change(doc, lambda d: d["t"].insert_at(2, "c"))
+    if not isinstance(am.frontend.get_backend_state(after),
+                      dev_be.DeviceBackendState) or str(after["t"]) != "abc":
+        raise AssertionError("api-c: the prior document left the device")
+    log(f"api-c graduation ({card}): GRADUATION_STATS "
+        f"{dev_be.GRADUATION_STATS}, equal to the oracle")
+    return dict(dev_be.GRADUATION_STATS)
+
+
+def api_phase(torch, M, card: str, device=None, n_actors: int = API_ACTORS,
+              reps: int = API_REPS, n_base: int = API_TEXT,
+              n_changes: int = API_CHANGES) -> dict:
+    """The public API on `device`: api-a (cfg4 trellis merge), api-b (cfg7
+    interactive latency, with the same session on the CPU backend) and
+    api-c (graduation). The kernel counts are set to 0 before each part
+    and read after it. Raises on any failed check."""
+    launches = {k: 0 for k in M.S.launches}
+    shapes = {k: {} for k in M.S.launches}
+    by_part = {}
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def counted(part, fn):
+        sync()
+        M.S.reset_launches()
+        out = fn()
+        sync()
+        by_part[part] = {k: {"x".join(map(str, sh)): n
+                             for sh, n in v.items()}
+                         for k, v in M.S.launch_shapes.items()}
+        for k, n in M.S.launches.items():
+            launches[k] += n
+            for sh, c in M.S.launch_shapes[k].items():
+                shapes[k][sh] = shapes[k].get(sh, 0) + c
+        return out
+    a = counted("api-a", lambda: api_trellis(torch, M, card, device,
+                                             n_actors, reps))
+    b, text = counted("api-b", lambda: api_latency(torch, M, card, device,
+                                                   n_base, n_changes))
+    _b_cpu, cpu_text = api_latency(torch, M, "cpu backend", "cpu", n_base,
+                                   n_changes)
+    if text != cpu_text:
+        raise AssertionError("api-b: the card's text differs from the CPU "
+                             "backend's")
+    c = counted("api-c", lambda: api_graduation(torch, M, card, device))
+    if cuda and not by_part["api-a"]["multi_scan"]:
+        raise AssertionError("api-a: multi_scan did not launch")
+    if cuda and not by_part["api-b"]["multi_scan"]:
+        raise AssertionError("api-b: multi_scan did not launch")
+    out = {"a": a, "b": b, "c": c, "launches": launches, "shapes": shapes,
+           "launches_by_part": by_part}
+    log(f"api phase launches: {launches}, by part {by_part}")
+    log("api record: " + json.dumps(dict(out, shapes={
+        k: {"x".join(map(str, sh)): n for sh, n in v.items()}
+        for k, v in shapes.items()})))
+    return out
+
+
+def _profiled(torch, cuda: bool, fn):
+    """fn() under torch.profiler: (wall s, device kernel µs, device
+    operations, the device events, the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]
+                 + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (wall, sum(e.self_device_time_total for e in events),
+            sum(e.count for e in events), events, prof)
+
+
+def profile_api(torch, M, out_dir: str, device=None):
+    """api-a: one trellis merge (after a warm-up merge) under
+    torch.profiler — wall time, device kernel time, busy share — and
+    under cProfile. api-b: the creating change of the 100,000-char Text,
+    one write-behind insert and the get_patch read that flushes 60 pending
+    inserts, each under torch.profiler, and the flush under cProfile."""
+    am = M.am
+    backend = am.backend.backend_for(device)
+    base, changes, n_ops = trellis_changes(am, am.backend.facade.Backend,
+                                           API_ACTORS, API_CARDS, backend)
+    saved = am.save(base)
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    os.makedirs(out_dir, exist_ok=True)
+
+    def report(label, prof_out, trace):
+        wall, dev_us, n_dev, _events, prof = prof_out
+        log(f"profile {label}: wall {wall * 1e3:.3f} ms, device kernel time "
+            f"{dev_us / 1e3:.3f} ms, device busy share "
+            f"{dev_us / 1e3 / (wall * 1e3):.4f}, {n_dev} device operations")
+        prof.export_chrome_trace(os.path.join(out_dir, trace))
+
+    def merge():
+        fresh = am.load(saved, {"actorId": "merger", "backend": backend})
+        am.apply_changes(fresh, changes)
+        sync()
+    merge()
+    report(f"api-a merge ({n_ops} ops, load + apply_changes)",
+           _profiled(torch, cuda, merge), "torch_api_merge.json")
+    log("host profile of one api-a merge (load + apply_changes):")
+    host_profile(merge)
+
+    box = {}
+
+    def create():
+        box["doc"] = am.change(
+            am.init({"actorId": "user", "backend": backend}),
+            lambda d: d.__setitem__("t", am.Text("x" * API_TEXT)))
+        sync()
+    report(f"api-b creating change ({API_TEXT} chars)",
+           _profiled(torch, cuda, create), "torch_api_create.json")
+
+    def insert(i):
+        box["doc"] = am.change(box["doc"], lambda d: d["t"].insert_at(
+            5000 + 11 * i, *"helloworld"))
+        sync()
+    for i in range(API_CHANGES - 1):
+        insert(i)
+    report("api-b one write-behind insert",
+           _profiled(torch, cuda, lambda: insert(API_CHANGES - 1)),
+           "torch_api_insert.json")
+    state = am.frontend.get_backend_state(box["doc"])
+
+    def flush():
+        am.backend.get_patch(state)
+        sync()
+    report(f"api-b get_patch read flushing "
+           f"{len(state._core.pending)} pending inserts",
+           _profiled(torch, cuda, flush), "torch_api_flush.json")
+    for i in range(API_CHANGES):
+        insert(i)
+    state = am.frontend.get_backend_state(box["doc"])
+    log("host profile of the api-b flush read:")
+    host_profile(flush)
+
+
 def host_profile(fn, top: int = 16):
     """cProfile of one fn() call: the host functions that took the most
     time of their own, printed as seconds of own time | cumulative |
@@ -1411,7 +1766,6 @@ def profiled_apply(torch, M, device, n_text: int, n_map: int):
     round and one warm-up rep) under torch.profiler. Returns (wall s,
     device time µs, device operations, the device events, the profiler,
     apply(chunk), the next rep's rounds)."""
-    from torch.profiler import ProfilerActivity, profile
     text_ids = [f"fz-t{i:05d}" for i in range(n_text)]
     map_ids = [f"fz-m{i:05d}" for i in range(n_map)]
     seed, reps = fused_stream(text_ids, map_ids, FUSED_KEYS, FUSED_ROUNDS,
@@ -1427,16 +1781,8 @@ def profiled_apply(torch, M, device, n_text: int, n_map: int):
             raise AssertionError("profiled apply left the stacked path")
         sync()
     sync()
-    with profile(activities=[ProfilerActivity.CPU]
-                 + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
-        t0 = time.perf_counter()
-        apply(reps[2][0])
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in events)
-    return (wall, dev_us, sum(e.count for e in events), events, prof, apply,
-            reps[2])
+    return _profiled(torch, cuda, lambda: apply(reps[2][0])) + (apply,
+                                                                reps[2])
 
 
 def profile_multi_doc(torch, M, out_dir: str, device=None):
@@ -1488,7 +1834,9 @@ def port_modules():
     is not beside this script)."""
     from types import SimpleNamespace
 
+    import automerge_tpu_torch as am
     from automerge_tpu_torch import _common, native, obs
+    from automerge_tpu_torch.backend import device as device_backend
     from automerge_tpu_torch.engine import (DeviceMapDoc, DeviceTextDocSet,
                                             MapChangeBatch,
                                             PipelinedIngestor, accounting,
@@ -1502,7 +1850,8 @@ def port_modules():
         MapChangeBatch=MapChangeBatch, PipelinedIngestor=PipelinedIngestor,
         accounting=accounting, runs=runs, TB=TextChangeBatch,
         DeviceTextDoc=DeviceTextDoc, DeviceTextDocSet=DeviceTextDocSet,
-        stacked=stacked, S=scan_kernels, bucket=bucket)
+        stacked=stacked, S=scan_kernels, bucket=bucket, am=am,
+        device_backend=device_backend)
 
 
 def main() -> int:
@@ -1678,6 +2027,11 @@ def main() -> int:
     dset = docset_phase(torch, M, card)
     stacked_launches = {k: st_a["launches"][k] + st_b["launches"][k]
                         for k in S.launches}
+
+    # 9. the public API on the card (before phase 7 too): api-a cfg4's
+    # trellis merge at 1,000 actors, api-b cfg7's interactive latency on a
+    # 100,000-char text, api-c one graduation
+    api = api_phase(torch, M, card)
     stacked_shapes = {k: {sh: st_a["shapes"][k].get(sh, 0)
                           + st_b["shapes"][k].get(sh, 0)
                           for sh in set(st_a["shapes"][k])
@@ -1687,7 +2041,8 @@ def main() -> int:
     # one kernel per call (a profiler session slows later host launches)
     shapes_by_path = {"main": main_shapes, "self_contained": sc_shapes,
                       "residual": res_shapes, "pipeline": ring["shapes"],
-                      "stacked": stacked_shapes, "docset": dset["shapes"]}
+                      "stacked": stacked_shapes, "docset": dset["shapes"],
+                      "api": api["shapes"]}
     log(f"launches by shape on the driven paths: {shapes_by_path}")
     shapes = {k: set().union(*(p[k] for p in shapes_by_path.values()))
               for k in S.launches}
@@ -1699,19 +2054,22 @@ def main() -> int:
                     [min(sh[1] - 1, DOCSET_ACTORS * DOCSET_CHARS)] * sh[0]))
     per_call = check_kernels_per_call(torch, S)
 
-    # 9. optional profiles: the headline commit, the multi-document tier
+    # 10. optional profiles: the headline commit, the multi-document
+    # tier, one api-a merge
     if args.profile:
         for planned in (True, False):
             profile_commit(torch, DeviceTextDoc, TB, C, planned,
                            args.profile)
         profile_multi_doc(torch, M, args.profile)
+        profile_api(torch, M, args.profile)
 
-    # 10. kernel records: `launches` is the count on the path the kernel
+    # 11. kernel records: `launches` is the count on the path the kernel
     # serves (multi_scan: the planned main path; fused_segment_scans: the
     # self-contained one); `launches_by_path` has each driven path's count
     by_path = {"main": main_launches, "self_contained": sc_launches,
                "residual": res_launches, "pipeline": ring["launches"],
-               "stacked": stacked_launches, "docset": dset["launches"]}
+               "stacked": stacked_launches, "docset": dset["launches"],
+               "api": api["launches"]}
     kernels = []
     for name, replaces, path in (
             ("multi_scan", "automerge_tpu/ops/scan_pallas.py:204", "main"),
