@@ -9,7 +9,17 @@ and multi-object rounds merge through `stacked.apply_stacked`
 (backend/device.py). Without a card ``init()`` raises; pass
 ``{"backend": backend.backend_for("cpu")}`` to run the engines' plain
 PyTorch versions on the CPU. Deliveries outside the device grammar
-graduate to the host oracle (backend/facade.py).
+graduate to the host oracle (backend/facade.py). As in the JAX package,
+``Backend`` and the names of the ``backend`` package are the oracle
+facade's; the API binds ``backend.default``, the device backend.
+
+Checkpoints: ``checkpoint_doc(doc)`` captures a document's lineage into
+an ``AMTPUCKPT1`` bundle (a `Checkpoint`), ``restore(ck, options)``
+rebuilds the document from it without replaying its history, on the
+device of the backend `options` name, and ``save(doc, checkpoint=ck)`` /
+``load(delta, checkpoint=ck)`` write and read delta saves. A corrupt
+bundle raises `CheckpointError`. `AsyncCheckpointer` captures engine
+documents and backend states on a worker thread (checkpoint/).
 
 The engines are public too: `DeviceTextDoc(obj_id, capacity=1024,
 device=None)` keeps one text/list object's element tables on the card
@@ -36,9 +46,13 @@ from ._uuid import uuid  # noqa: F401
 from .api import (  # noqa: F401
     apply_changes, change, diff, empty_change, equals, from_,
     get_all_changes, get_changes, get_history, get_missing_deps, init, load,
-    merge, redo, save, to_json, undo,
+    merge, redo, restore, save, to_json, undo,
 )
 from .backend import Backend  # noqa: F401
+from . import checkpoint  # noqa: F401
+from .checkpoint import (  # noqa: F401
+    AsyncCheckpointer, Checkpoint, checkpoint_doc,
+)
 from .engine import (DeviceMapDoc, DeviceTextDoc,  # noqa: F401
                      DeviceTextDocSet, MapChangeBatch, PipelinedIngestor,
                      TextChangeBatch, stacked)
@@ -46,6 +60,6 @@ from .frontend import (  # noqa: F401
     Counter, Frontend, Table, Text, can_redo, can_undo, get_actor_id,
     get_conflicts, get_object_by_id, get_object_id, set_actor_id,
 )
-from .resilience import ProtocolError  # noqa: F401
+from .resilience import CheckpointError, ProtocolError  # noqa: F401
 
 __version__ = "0.1.0"

@@ -6,13 +6,16 @@ change history as plain JSON (the reference uses transit-JSON; the logical
 content — history ++ queue — is the same, src/automerge.js:59-66).
 
 Documents live on the backend their ``init`` options name: by default the
-device backend on the CUDA card (``backend.DeviceBackend``; without a card
-``init()`` raises), or ``{"backend": backend.backend_for("cpu")}`` for the
-engines' plain PyTorch versions on the CPU. Every helper that builds a
-document (``load``, ``get_all_changes``, a history entry's snapshot) builds
-it on the backend of the document it serves. The checkpoint forms of the
-JAX package's API (``save(doc, checkpoint=)``, the delta format of
-``load``, ``restore``) are not ported yet.
+device backend on the CUDA card (``backend.default``, whose namespace is
+``backend.DeviceBackend``; without a card ``init()`` raises), or
+``{"backend": backend.backend_for("cpu")}`` for the engines' plain PyTorch
+versions on the CPU. (``backend.Backend`` is the oracle facade's
+namespace, as in the JAX package.) Every helper that builds a document
+(``load``, ``restore``, ``get_all_changes``, a history entry's snapshot)
+builds it on the backend of the document it serves or the backend its
+``options`` name. The checkpoint forms: ``save(doc, checkpoint=)`` writes
+a delta save, ``load(data, checkpoint=)`` restores one, and ``restore``
+rebuilds a document from a checkpoint bundle (checkpoint/).
 """
 
 from __future__ import annotations
@@ -79,26 +82,48 @@ def redo(doc, options=None):
     return new_doc
 
 
-def save(doc) -> str:
-    """Serialize a document's change history as plain JSON."""
+def save(doc, checkpoint=None) -> str:
+    """Serialize a document's change history as plain JSON.
+
+    With ``checkpoint=`` (a :class:`~.checkpoint.Checkpoint` or bundle
+    bytes from :func:`~.checkpoint.checkpoint_doc`), the save is
+    DELTA-COMPACTED: the change prefix the checkpoint's clock frontier
+    covers is dropped and only the op-log tail is written; ``load`` then
+    needs the same base checkpoint back (checkpoint/__init__.py)."""
     state = Frontend.get_backend_state(doc)
+    if checkpoint is not None:
+        from .checkpoint import save_delta
+        return save_delta(state, checkpoint)
     changes = state.history() + list(state.queue)
     return json.dumps({"format": _SAVE_FORMAT, "changes": changes})
 
 
-def load(data: str, options=None):
+def load(data: str, options=None, checkpoint=None):
     """A document rebuilt from ``save`` output, on the backend `options`
-    name (the default binding otherwise)."""
+    name (the default binding otherwise). A delta save needs its base
+    ``checkpoint``: the checkpoint restores, then the tail replays."""
+    from .checkpoint import DELTA_FORMAT, load_delta
     payload = json.loads(data)
     # envelope validation (resilience.validation): non-dict payloads and a
     # missing/non-array `changes` raise a typed ProtocolError (a
     # ValueError) instead of leaking AttributeError/KeyError
     validate_save_payload(payload, require_changes=False)
     fmt = payload["format"]
+    if fmt == DELTA_FORMAT:
+        return load_delta(payload, checkpoint, options)
     if fmt != _SAVE_FORMAT:
         raise ValueError(f"Unsupported save format: {fmt!r}")
     validate_save_payload(payload, require_changes=True)
     return _doc_from_changes(options, payload["changes"])
+
+
+def restore(checkpoint, options=None):
+    """A document restored directly from a checkpoint bundle, on the
+    backend `options` name. Raises
+    :class:`~.resilience.errors.CheckpointError` if the bundle is corrupt
+    or truncated (every array is content-hashed)."""
+    from .checkpoint import restore_doc
+    return restore_doc(checkpoint, options)
 
 
 def merge(local_doc, remote_doc):

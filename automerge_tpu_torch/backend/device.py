@@ -1816,6 +1816,8 @@ class DeviceBackend:
     get_missing_deps = staticmethod(get_missing_deps)
     undo = staticmethod(undo)
     redo = staticmethod(redo)
+    device = None       # the device `init()` starts lineages on (a
+    # checkpoint restored for this namespace lands there too)
 
 
 Backend = DeviceBackend
@@ -1836,6 +1838,7 @@ def backend_for(device) -> type:
     if ns is None:
         ns = type(f"DeviceBackend_{key.replace(':', '_')}", (DeviceBackend,),
                   {"init": staticmethod(lambda: init(key)),
+                   "device": key,
                    "__doc__": f"DeviceBackend bound to {key}."})
         _BOUND[key] = ns
     return ns

@@ -272,20 +272,30 @@ class CausalDeviceDoc:
     # ------------------------------------------------------------------
 
     def device_footprint(self) -> dict:
-        """Device-resident bytes of this document, computed from
-        dtype x shape over the live engine tables plus subclass extras —
-        never a device sync. Host-side companion state (index ranges,
-        value pool, conflicts) rides along as counts."""
+        """Device-resident bytes of this document — never a device sync.
+        `table_bytes` is dtype x shape over the live engine tables;
+        `storage_bytes` the distinct storages they sit in
+        (`untyped_storage().nbytes()`: an in-place document's tables are
+        rows of one buffer per dtype, an out-of-place round's outputs
+        views of its scatter buffer), which is what the device holds;
+        `device_bytes` adds the subclass extras to it. Host-side
+        companion state (index ranges, value pool, conflicts) rides
+        along as counts."""
         table_bytes = 0
         n_tables = 0
+        storages = {}
         if self._dev is not None:
             for arr in self._dev.values():
                 table_bytes += arr.numel() * arr.element_size()
                 n_tables += 1
+                st = arr.untyped_storage()
+                storages[st.data_ptr()] = st.nbytes()
+        storage_bytes = sum(storages.values())
         extra = self._device_footprint_extra()
         return {
-            "device_bytes": table_bytes + extra,
+            "device_bytes": storage_bytes + extra,
             "table_bytes": table_bytes,
+            "storage_bytes": storage_bytes,
             "n_tables": n_tables,
             "extra_bytes": extra,
             "host": {"value_pool": len(self.value_pool),
@@ -302,8 +312,13 @@ class CausalDeviceDoc:
         return {}
 
     def _note_footprint(self):
-        """Commit-boundary footprint hook; the device-truth gauges it
-        feeds in the JAX package are not part of this package yet."""
+        """Feed this doc's device-resident bytes to the device-truth
+        gauges at a commit boundary (obs/device_truth.py peaks + prom
+        families)."""
+        from ..obs import device_truth
+        if device_truth.ENABLED:
+            device_truth.REGISTRY.note_footprint(
+                "doc", self.obj_id, self.device_footprint()["device_bytes"])
 
     @property
     def dispatch_stats(self) -> dict:

@@ -54,7 +54,8 @@ _POOL_LOCK = threading.Lock()
 
 # the dtypes a round plan stages (int32 matrices and scalars, uint8 blobs)
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
-                 np.dtype(np.uint8): torch.uint8}
+                 np.dtype(np.uint8): torch.uint8,
+                 np.dtype(np.bool_): torch.bool}
 
 
 def plan_workers() -> int:

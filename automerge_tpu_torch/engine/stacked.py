@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..obs import lineage
 from . import accounting, cross_doc
 from .map_doc import DeviceMapDoc
 from .pipeline import stage_h2d
@@ -356,6 +357,13 @@ def apply_stacked(items):
             obs.span("plan", "stack", _t0, args={
                 "docs": len(docs), "map_docs": len(map_docs),
                 "text_docs": len(text_docs), "n_ops": n_wire_ops})
+        if lineage.ENABLED:
+            # the stacked-plan hop: the change's round is part of THIS
+            # multi-object device program population (recorded at the
+            # GO, after every ineligibility gate passed)
+            for _doc, batch in decoded:
+                lineage.hop_delivery(batch, "plan/stacked",
+                                     doc=batch.obj_id)
 
         max_rounds = max((len(g) for _, g, _q, _n in sched), default=0)
         stats["rounds"] = max_rounds

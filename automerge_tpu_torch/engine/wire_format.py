@@ -56,6 +56,7 @@ import numpy as np
 
 from .._common import (HEAD_PARENT, INT32_MAX, KIND_DEL, KIND_INC, KIND_INS,
                        KIND_SET)
+from ..obs.lineage import MAX_CONTEXT_ENTRIES
 from ..resilience.errors import ProtocolError
 
 __all__ = ["WireFormatError", "WireFrame", "encode_batch", "encode_changes",
@@ -65,11 +66,6 @@ __all__ = ["WireFormatError", "WireFrame", "encode_batch", "encode_changes",
 MAGIC = b"AMTPUWIRE1\n"
 FORMAT = "automerge-tpu-wire"
 VERSION = 1
-
-#: Bound on the entries of one lineage trace context (the JAX package's
-#: obs/lineage.py bound; lineage itself is not ported yet).
-MAX_CONTEXT_ENTRIES = 8192
-
 
 class WireFormatError(ProtocolError):
     """A malformed, truncated, corrupt, or wrong-version binary frame.

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from .._common import ROOT_ID
 from .._uuid import uuid as _uuid
+from ..obs import lineage
 from .apply_patch import (InboundIndex, apply_diffs, clone_root_object,
                           copy_inbound, update_parent_objects)
 from .context import Context
@@ -103,6 +104,12 @@ def _make_change(doc, request_type, context, options):
         backend_state, patch = backend.apply_local_change(state["backendState"], request)
         state["backendState"] = backend_state
         state["requests"] = []
+        if lineage.ENABLED:
+            # the origin hop: the change exists as of this local commit.
+            # The origin replica is identified by its actor id — the one
+            # label every downstream replica can reconstruct from the
+            # change itself with zero coordination (INTERNALS §18.1)
+            lineage.hop(actor, state["seq"], "origin", site=actor)
         return _apply_patch_to_doc(doc, patch, state, from_backend=True), request
 
     if context is None:

@@ -19,7 +19,8 @@ under a temporary name and renamed into place, so concurrent processes do
 not race. A failed build raises with the compiler's output: nothing falls
 back to the Python paths because the library is missing. ctypes releases
 the GIL for the duration of each call, so the planner pool's threads walk
-their shards in parallel.
+their shards in parallel. Each compile and each load of the library is a
+build/load event of the device-truth registry (obs/device_truth.py).
 """
 
 from __future__ import annotations
@@ -30,9 +31,12 @@ import json
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
+
+from ..obs import device_truth as _dt
 
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "codec.cpp"
@@ -98,6 +102,7 @@ def build(compiler: str = "g++") -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter_ns()
     try:
         proc = subprocess.run([compiler, *flags, str(SOURCE), "-o", str(tmp)],
                               capture_output=True, text=True, timeout=300)
@@ -109,6 +114,8 @@ def build(compiler: str = "g++") -> Path:
         raise RuntimeError(f"{compiler} failed ({proc.returncode}) building "
                            f"{SOURCE}:\n{proc.stderr}")
     os.replace(tmp, so)
+    _dt.record_build("native_codec", "build", time.perf_counter_ns() - t0,
+                     so.name)
     return so
 
 
@@ -168,7 +175,11 @@ def load() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            _LIB = bind(build())
+            so = build()
+            t0 = time.perf_counter_ns()
+            _LIB = bind(so)
+            _dt.record_build("native_codec", "load",
+                             time.perf_counter_ns() - t0, so.name)
     return _LIB
 
 

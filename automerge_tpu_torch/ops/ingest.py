@@ -294,6 +294,22 @@ class TableStore:
                  tuple(u[0] if torch.is_tensor(u) else u for u in updates))
 
 
+def table_versions(tables) -> tuple:
+    """The write counters of `tables`: torch bumps a tensor's `_version`
+    on every in-place write to its storage, and views share their
+    base's counter, so a `TableStore.put` into a store's buffer bumps
+    every table view of that buffer."""
+    return tuple(t._version for t in tables)
+
+
+def buffers_consumed(tables, versions) -> bool:
+    """True iff an in-place round wrote into any of `tables` since their
+    `table_versions` were read — the port's form of the JAX package's
+    `buffers_consumed` (there a donated call deletes the buffer; here
+    an in-place round overwrites it and the tensor stays alive)."""
+    return any(t._version != v for t, v in zip(tables, versions))
+
+
 def _set_drop_rows_r(rows, fills, idx, updates, n: int) -> torch.Tensor:
     """Write K aligned (D, C) tables at (D, M) `idx` as ONE scatter into a
     (K, D, n + 1) int32 buffer: table r is `rows[r]` padded with

@@ -26,7 +26,10 @@ first use into `csrc/build/` and bound through ctypes.
 Dispatch is by the tensor's device: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel or raises. Each wrapper adds one to
 `launches[name]` where it launches its kernel, and nowhere else, and one
-to `launch_shapes[name][shape]` for the shape it launched at.
+to `launch_shapes[name][shape]` for the shape it launched at. Both routes
+also feed the device-truth registry (obs/device_truth.py: the ``cuda``
+and ``plain`` handles, with the bytes and operations of the call), and
+the library's build and load are its build/load events.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..obs import device_truth as _dt
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCE = _CSRC / "scan.cu"
@@ -60,6 +65,10 @@ launch_shapes = {"multi_scan": {}, "fused_segment_scans": {}}
 _LIB = None
 _LOCK = threading.Lock()
 _I32_MAX = 2**31 - 1
+
+#: device-truth handles: (kernel, route) -> KernelHandle
+_DT = {(k, v): _dt.register(k, v)
+       for k in launches for v in ("cuda", "plain")}
 
 
 def reset_launches():
@@ -120,7 +129,9 @@ def build() -> float:
             f"{proc.stderr}")
     so.with_suffix(".log").write_text(proc.stderr)
     os.replace(tmp, so)
-    return time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    _dt.record_build("scan_kernels", "build", int(secs * 1e9), so.name)
+    return secs
 
 
 def bind(path) -> ctypes.CDLL:
@@ -144,7 +155,11 @@ def load() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is None:
             build()
+            t0 = time.perf_counter_ns()
             _LIB = bind(library_path())
+            _dt.record_build("scan_kernels", "load",
+                             time.perf_counter_ns() - t0,
+                             library_path().name)
     return _LIB
 
 
@@ -179,9 +194,23 @@ def multi_scan_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, 1, dtype=torch.int32)
 
 
+def _ms_cost(x: torch.Tensor) -> tuple:
+    # reads and writes 4 bytes per element; one add per element
+    return 8 * x.numel(), x.numel()
+
+
+def _fs_cost(chain: torch.Tensor) -> tuple:
+    # reads chain + has (1 B each) and one n_elems per row, writes three
+    # int32 columns; three scans' adds per slot
+    rows = chain.shape[0] if chain.dim() == 2 else 1
+    return 14 * chain.numel() + 4 * rows, 3 * chain.numel()
+
+
 def multi_scan(x: torch.Tensor) -> torch.Tensor:
     """Row-wise inclusive prefix sum of an int32 (K, N) matrix; any N."""
     if x.device.type == "cpu":
+        if _dt.ENABLED:
+            _DT["multi_scan", "plain"].note(*_ms_cost(x))
         return multi_scan_plain(x)
     _check_cuda("multi_scan", x, torch.int32, 2)
     out = torch.empty_like(x)
@@ -199,6 +228,8 @@ def multi_scan(x: torch.Tensor) -> torch.Tensor:
     _raise_on(rc, "multi_scan")
     launches["multi_scan"] += 1
     _note_shape("multi_scan", tuple(x.shape))
+    if _dt.ENABLED:
+        _DT["multi_scan", "cuda"].note(*_ms_cost(x))
     return out
 
 
@@ -248,6 +279,8 @@ def fused_segment_scans(chain: torch.Tensor, has_value: torch.Tensor,
     kernel reads the counts on the device, so counts computed there need
     no host sync."""
     if chain.device.type == "cpu":
+        if _dt.ENABLED:
+            _DT["fused_segment_scans", "plain"].note(*_fs_cost(chain))
         return fused_segment_scans_plain(chain, has_value, n_elems, base)
     rows = chain.dim() == 2
     _check_cuda("fused_segment_scans chain", chain, torch.bool,
@@ -290,4 +323,6 @@ def fused_segment_scans(chain: torch.Tensor, has_value: torch.Tensor,
     _raise_on(rc, "fused_segment_scans")
     launches["fused_segment_scans"] += 1
     _note_shape("fused_segment_scans", tuple(chain.shape))
+    if _dt.ENABLED:
+        _DT["fused_segment_scans", "cuda"].note(*_fs_cost(chain))
     return rank, head, cumvis

@@ -19,7 +19,12 @@ cfg3 with its mirror heal and graduation, each against a CPU run of the
 same stream), and the public API (phase 9: cfg4's trellis merge of 1,000
 actors through apply_changes, cfg7's interactive latency of 60 local
 inserts into a 100,000-char Text, one graduation; each against the
-oracle or the CPU backend); times each kernel at every shape those paths launched
+oracle or the CPU backend), and the checkpoint tier (phase 12: bench.py
+measure_restore's cold start of a 1,000,000-element text, full replay
+against snapshot restore, under obs.tracing(); the API's checkpoint forms
+on api-b's document against the CPU backend's bytes; the cfg5f ring with
+a capture after each commit, every bundle a consistent prefix); times
+each kernel at every shape those paths launched
 it with (device time over CUDA-graph replays, inputs rotated through
 copies so each call reads them from HBM; one eager call at the merge
 shapes is timed before the paths); and checks that each wrapper call runs
@@ -88,6 +93,8 @@ API_REPS = 5                   # timed merges, after one warm-up merge
 API_TEXT = 100_000             # api-b: run_all.py config7_interactive_latency
 API_CHANGES = 60
 API_SKIP = 10                  # first changes left out of the percentiles
+CKPT_TAIL_ACTORS = 64          # ckpt-a: bench.py measure_restore's tail of
+CKPT_TAIL_OPS = 200            # 64 actors x 200 ops on the 1,000,000 base
 
 
 def log(*a):
@@ -1551,7 +1558,7 @@ def api_latency(torch, M, card: str, device, n_base: int, n_changes: int,
     state = am.frontend.get_backend_state(doc)
     pending = len(state._core.pending)
     t = time.perf_counter()
-    patch = am.backend.get_patch(state)
+    patch = base_ns.get_patch(state)
     sync()
     flush_s = time.perf_counter() - t
     text = "".join(d["value"] for d in patch["diffs"]
@@ -1590,7 +1597,7 @@ def api_graduation(torch, M, card: str, device) -> dict:
            "ops": [{"action": "ins", "obj": am.get_object_id(doc["m"]),
                     "key": "_head", "elem": 1}]}
     dev_be.GRADUATION_STATS.clear()
-    g, patch = am.backend.apply_changes(state, [odd])
+    g, patch = backend.apply_changes(state, [odd])
     o, o_patch = facade.apply_changes(
         facade.apply_changes(facade.init(), state.history())[0], [odd])
     if dev_be.GRADUATION_STATS != {"out_of_scope": 1}:
@@ -1600,7 +1607,7 @@ def api_graduation(torch, M, card: str, device) -> dict:
     # (the oracle replays the history as remote changes, so only its undo
     # flags may differ)
     if (patch["diffs"] != o_patch["diffs"] or patch["clock"] != o_patch[
-            "clock"] or am.backend.get_patch(g)["diffs"]
+            "clock"] or backend.get_patch(g)["diffs"]
             != facade.get_patch(o)["diffs"]):
         raise AssertionError("api-c: the graduated result differs from the "
                              "oracle's")
@@ -1659,6 +1666,454 @@ def api_phase(torch, M, card: str, device=None, n_actors: int = API_ACTORS,
     log("api record: " + json.dumps(dict(out, shapes={
         k: {"x".join(map(str, sh)): n for sh, n in v.items()}
         for k, v in shapes.items()})))
+    return out
+
+
+# --- the checkpoint tier (bench.py measure_restore, api-b, the ring) --------
+
+def base_changes_json(obj: str, n: int) -> str:
+    """bench.py _base_changes_json: one bulk change typing an n-char
+    document, in the save()/wire JSON shape."""
+    ops = []
+    prev = "_head"
+    for c in range(1, n + 1):
+        ch = chr(97 + (c % 26))
+        ops.append(f'{{"action":"ins","obj":"{obj}","key":"{prev}",'
+                   f'"elem":{c}}}')
+        ops.append(f'{{"action":"set","obj":"{obj}","key":"base:{c}",'
+                   f'"value":"{ch}"}}')
+        prev = f"base:{c}"
+    return ('[{"actor":"base","seq":1,"deps":{},"ops":[' + ",".join(ops)
+            + "]}]")
+
+
+def tail_changes_json(obj: str, n_actors: int, ops_per_change: int,
+                      base_n: int, seed: int = 9) -> str:
+    """bench.py _tail_changes_json: n_actors concurrent typing runs over
+    the base doc (everything past the checkpoint frontier)."""
+    rng = np.random.default_rng(seed)
+    run = ops_per_change // 2
+    targets = rng.zipf(1.2, n_actors).clip(1, base_n)
+    changes = []
+    for a in range(n_actors):
+        actor = f"tail-{a:04d}"
+        ops = []
+        prev = f"base:{int(targets[a])}"
+        ch = chr(97 + (a % 26))
+        for k in range(run):
+            e = base_n + 1 + k
+            ops.append(f'{{"action":"ins","obj":"{obj}","key":"{prev}",'
+                       f'"elem":{e}}}')
+            ops.append(f'{{"action":"set","obj":"{obj}",'
+                       f'"key":"{actor}:{e}","value":"{ch}"}}')
+            prev = f"{actor}:{e}"
+        changes.append(f'{{"actor":"{actor}","seq":1,"deps":{{"base":1}},'
+                       f'"ops":[' + ",".join(ops) + "]}")
+    return "[" + ",".join(changes) + "]"
+
+
+def storage_bytes(doc) -> int:
+    """The bytes of the distinct storages a document's tables sit in."""
+    st = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+          for t in doc._dev.values()}
+    return sum(st.values())
+
+
+def ckpt_engine(torch, M, card: str, device=None, base_n: int = BASE_LEN,
+                tail_actors: int = CKPT_TAIL_ACTORS,
+                ops: int = CKPT_TAIL_OPS, out_dir: str = None) -> dict:
+    """(a) bench.py measure_restore on the port, under obs.tracing(): a
+    base_n-element DeviceTextDoc built from its change log and captured;
+    the full replay (decode base + tail logs, apply, _materialize,
+    _scalars) against the snapshot restore (verify + stage the bundle,
+    decode and apply the tail, the same read); one warm-up each, then
+    min of 2 inside device_truth.steady_state. The restore's staged h2d
+    bytes are exact, the footprint gauge equals the restored tables'
+    storage bytes, and the restored doc read through the self-contained
+    path (mirror dropped) gives the same text. Raises on any failure."""
+    obs, dt, accounting = M.obs, M.dt, M.accounting
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    obj = "ckpt-text"
+    t_phase = time.perf_counter()
+    base_json = base_changes_json(obj, base_n)
+    tail_json = tail_changes_json(obj, tail_actors, ops, base_n)
+    expect = base_n + tail_actors * (ops // 2)
+    with obs.tracing():
+        obs.clear()
+        t0_trace = obs.now()
+        doc = M.DeviceTextDoc(obj, capacity=base_n + 1, device=device)
+        doc.apply_batch(M.TB.from_json(base_json, obj))
+        doc._materialize(with_pos=False)
+        doc._scalars()
+        t = time.perf_counter()
+        bundle = M.ckpt.capture_engine(doc)
+        capture_s = time.perf_counter() - t
+        del doc
+
+        def read(d):
+            d._materialize(with_pos=False)
+            n_vis = int(d._scalars()[0])
+            sync()
+            if n_vis != expect:
+                raise AssertionError(f"checkpoint read n_vis {n_vis} != "
+                                     f"{expect}")
+
+        def full_replay():
+            t = time.perf_counter()
+            d = M.DeviceTextDoc(obj, capacity=base_n + 1, device=device)
+            d.apply_batch(M.TB.from_json(base_json, obj))
+            d.apply_batch(M.TB.from_json(tail_json, obj))
+            read(d)
+            return time.perf_counter() - t, d
+
+        def snapshot_restore():
+            t = time.perf_counter()
+            d = M.ckpt.restore_engine(bundle, device)
+            d.apply_batch(M.TB.from_json(tail_json, obj))
+            read(d)
+            return time.perf_counter() - t, d
+
+        _, full_doc = full_replay()
+        full_text = full_doc.text()
+        del full_doc
+        _, snap_doc = snapshot_restore()
+        if sha(snap_doc.text()) != sha(full_text):
+            raise AssertionError("snapshot restore text differs from the "
+                                 "full replay's")
+        del snap_doc
+        with dt.steady_state() as ss:
+            full_s = min(full_replay()[0] for _ in range(2))
+            snap_s = min(snapshot_restore()[0] for _ in range(2))
+        ss.assert_zero()
+        # one restore alone: exact staged bytes, peak memory, footprint
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with accounting.track() as tr:
+            t = time.perf_counter()
+            d = M.ckpt.restore_engine(bundle, device)
+            sync()
+            restore_only_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        cap = M.bucket(base_n + 1)
+        if tr.stats["h2d_bytes"] != cap * 27:
+            raise AssertionError(f"restore staged {tr.stats['h2d_bytes']} "
+                                 f"bytes, not {cap * 27}")
+        gauge = obs.metrics_snapshot()["device_truth"]["footprint"][
+            "gauges"][f"doc:{obj}"]
+        if gauge != storage_bytes(d) or gauge != \
+                d.device_footprint()["device_bytes"]:
+            raise AssertionError(f"footprint gauge {gauge} != the restored "
+                                 f"tables' storage {storage_bytes(d)}")
+        if any(t.device.type != torch.device(device or "cuda").type
+               for t in d._dev.values()):
+            raise AssertionError("restored tables left the device")
+        d.apply_batch(M.TB.from_json(tail_json, obj))
+        planned = d.text()
+        d.seg_mirror = None           # the self-contained read
+        d._text_cache = None
+        d._mat = None
+        d._seg_bound = d.n_elems + 2
+        contained = d.text()
+        if sha(planned) != sha(full_text) or contained != planned:
+            raise AssertionError("the self-contained read of the restored "
+                                 "doc differs")
+        del d
+        trace = None
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            trace = os.path.join(out_dir, "checkpoint_trace.json")
+            obs.write_trace(trace, since_ns=t0_trace)
+            checked = M.export.validate_chrome_trace(trace)
+        else:
+            checked = M.export.validate_chrome_trace(
+                M.export.to_chrome_trace(obs.snapshot(t0_trace),
+                                         t0_ns=obs.recorder().t0_ns))
+    out = {"restore_full_replay_s": full_s, "restore_snapshot_s": snap_s,
+           "restore_speedup": full_s / snap_s,
+           "restore_bundle_bytes": len(bundle),
+           "restore_log_bytes": len(base_json) + len(tail_json),
+           "restore_tail_ops": tail_actors * ops,
+           "restore_h2d_bytes": tr.stats["h2d_bytes"],
+           "restore_only_s": restore_only_s, "capture_s": capture_s,
+           "restore_peak_mib": peak / 2**20, "footprint_gauge": gauge,
+           "steady_state_builds": ss.recompiles,
+           "trace": checked, "trace_file": trace,
+           "text_sha256": sha(full_text)[:16],
+           "wall_s": time.perf_counter() - t_phase}
+    log(f"ckpt-a engine cold start ({card}): full replay "
+        f"{full_s:.4f} s, snapshot restore + tail {snap_s:.4f} s "
+        f"({out['restore_speedup']:.2f}x); bundle {len(bundle)} bytes, log "
+        f"{out['restore_log_bytes']} bytes; restore alone "
+        f"{restore_only_s:.4f} s staging {tr.stats['h2d_bytes']} h2d bytes, "
+        f"peak device memory {out['restore_peak_mib']:.1f} MiB; capture "
+        f"{capture_s:.4f} s; footprint gauge {gauge} = storage bytes; no "
+        f"build in the timed reps; trace {checked}; text sha256 "
+        f"{out['text_sha256']} (full, snapshot, self-contained); wall "
+        f"{out['wall_s']:.2f} s")
+    return out
+
+
+def _pinned_uuids(M):
+    """A deterministic uuid factory (object ids), so that the card's and
+    the CPU's documents are byte-comparable."""
+    import itertools
+    c = itertools.count(1)
+    M.uuid.set_factory(lambda: f"00000000-0000-0000-0000-{next(c):012d}")
+
+
+def ckpt_api(torch, M, card: str, device, n_base: int = API_TEXT,
+             n_changes: int = API_CHANGES, timed_reps: bool = True) -> dict:
+    """(b) the API's checkpoint forms on api-b's document: a checkpoint
+    after the creating change, 60 inserts, a delta save loaded back with
+    its checkpoint, a full checkpoint restored; a flipped bit raises
+    CheckpointError and the replay fallback lands the same document;
+    restore timed against load(save(doc)) (unless `timed_reps` is
+    false). Returns the record and the bytes the CPU backend's run must
+    equal."""
+    am, ckpt = M.am, M.ckpt
+    backend = am.backend.backend_for(device)
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def o(actor):
+        return {"actorId": actor, "backend": backend}
+    _pinned_uuids(M)
+    t_phase = time.perf_counter()
+    try:
+        doc = am.change(am.init(o("user")),
+                        lambda d: d.__setitem__("t", am.Text("x" * n_base)))
+        ck = am.checkpoint_doc(doc)
+        for i in range(n_changes):
+            doc = am.change(doc, lambda d, i=i: d["t"].insert_at(
+                5000 + 11 * i, *"helloworld"))
+        delta = am.save(doc, checkpoint=ck)
+        back = am.load(delta, o("loader"), checkpoint=ck)
+        full = am.checkpoint_doc(doc)
+        rest = am.restore(full, o("restorer"))
+        saved = am.save(doc)
+        clock = am.frontend.get_backend_state(doc).clock
+        for other, what in ((back, "delta load"), (rest, "restore")):
+            if (am.to_json(other) != am.to_json(doc)
+                    or am.save(other) != saved
+                    or am.frontend.get_backend_state(other).clock != clock):
+                raise AssertionError(f"ckpt-b: the {what} differs from the "
+                                     "document")
+        corrupt = bytearray(full.data)
+        corrupt[len(corrupt) // 2] ^= 0x40
+        try:
+            am.restore(bytes(corrupt), o("bad"))
+        except am.CheckpointError:
+            pass
+        else:
+            raise AssertionError("ckpt-b: a flipped bit restored")
+        fb = ckpt.restore_doc_or_replay(bytes(corrupt),
+                                        am.get_all_changes(doc), o("fb"))
+        if am.save(fb) != saved or am.to_json(fb) != am.to_json(doc):
+            raise AssertionError("ckpt-b: the replay fallback differs")
+
+        def timed(fn):
+            fn()
+            best = None
+            for _ in range(2):
+                sync()
+                t = time.perf_counter()
+                fn()
+                sync()
+                dt_s = time.perf_counter() - t
+                best = dt_s if best is None else min(best, dt_s)
+            return best
+        restore_s = load_s = float("nan")
+        if timed_reps:
+            restore_s = timed(lambda: am.restore(full, o("r")))
+            load_s = timed(lambda: am.load(saved, o("l")))
+        on_device = all(
+            w.doc.device.type == torch.device(device or "cuda").type
+            for w in am.frontend.get_backend_state(rest)._core
+            .objects.values())
+        if not on_device:
+            raise AssertionError("ckpt-b: the restored document left the "
+                                 "device")
+    finally:
+        M.uuid.reset()
+    out = {"chars": n_base, "changes": n_changes,
+           "checkpoint_bytes": len(ck.data), "full_bytes": len(full.data),
+           "delta_bytes": len(delta), "save_bytes": len(saved),
+           "restore_s": restore_s, "load_s": load_s,
+           "restore_vs_load": load_s / restore_s,
+           "wall_s": time.perf_counter() - t_phase}
+    log(f"ckpt-b api ({card}): delta save {len(delta)} bytes "
+        f"({n_changes} changes) against save() {len(saved)}; checkpoint "
+        f"{len(full.data)} bytes; restore {restore_s:.4f} s vs "
+        f"load(save(doc)) {load_s:.4f} s ({out['restore_vs_load']:.2f}x); "
+        f"delta load, restore, replay fallback equal to the document; "
+        f"flipped bit refused; wall {out['wall_s']:.2f} s")
+    return out, (ck.data, delta, full.data, saved)
+
+
+def ring_captures(torch, M, batches, base_n: int, device, donate: bool,
+                  capture: bool) -> tuple:
+    """One cfg5f stream through PipelinedIngestor with an AsyncCheckpointer
+    capture requested after each committed batch (none when `capture` is
+    false). With in-place commits (donate) the deferred grab refuses and
+    the handle's result, taken at that commit boundary, captures on the
+    caller thread; without, the worker captures while the ring runs on.
+    Returns (doc, record, bundles)."""
+    doc = ring_doc(M, base_n, device)
+    batches = fresh(batches)
+    cuda = doc.device.type == "cuda"
+    handles, bundles = [], []
+    if capture and not donate:
+        # a capture at open seeds the commit-boundary snapshot that a grab
+        # racing a commit serves (without one it conflicts, cold)
+        bundles.append(M.ckpt.AsyncCheckpointer.capture(doc))
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with M.ckpt.AsyncCheckpointer() as w:
+        with M.PipelinedIngestor(doc, slots=RING_DEPTH,
+                                 donate=donate) as ring:
+            def committed():
+                ring.commit_next()
+                if not capture:
+                    return
+                h = w.capture_async(doc)
+                if donate:
+                    bundles.append(h.result(300))
+                else:
+                    handles.append(h)
+            for b in batches:
+                ring.feed(b)
+                while ring._n_fed >= RING_DEPTH:
+                    committed()
+            while ring._n_fed:
+                committed()
+            stats = ring.stats
+        doc._materialize(with_pos=False)
+        scal = doc._scalars()
+        stream_s = time.perf_counter() - t0
+        bundles += [h.result(300) for h in handles]
+        drain_s = time.perf_counter() - t0
+        wstats = dict(w.stats)
+    return doc, {"s": stream_s, "drain_s": drain_s, "n_vis": int(scal[0]),
+                 "stats": stats, "writer": wstats}, bundles
+
+
+def ckpt_ring(torch, M, card: str, device=None, base_n: int = BASE_LEN,
+              n_batches: int = RING_BATCHES, n_actors: int = RING_ACTORS,
+              ops: int = OPS_PER_CHANGE) -> dict:
+    """(c) the cfg5f stream with a capture after each committed batch,
+    with and without in-place commits, and once without captures; every
+    bundle restores to a doc whose text is the reference's after some k
+    batches (a consistent prefix). Raises on any failure."""
+    run = ops // 2
+    batches = ring_batches(M, base_n, n_batches, n_actors, ops)
+    total_ops = sum(b.n_ops for b in batches)
+    n_vis = base_n + n_batches * n_actors * run
+    want = {}
+
+    def want_sha(k):
+        if k not in want:
+            want[k] = sha(expected_stream_text(base_n, n_actors, run, k))
+        return want[k]
+    t_phase = time.perf_counter()
+    out = {}
+    for label, donate, capture in (("plain", True, False),
+                                   ("donate", True, True),
+                                   ("no_donate", False, True)):
+        doc, rec, bundles = ring_captures(torch, M, batches, base_n,
+                                          device, donate, capture)
+        if rec["n_vis"] != n_vis or sha(doc.text()) != want_sha(n_batches):
+            raise AssertionError(f"ckpt-c {label}: the stream's text "
+                                 "differs from the reference")
+        del doc
+        ks = []
+        for data in bundles:
+            d = M.ckpt.restore_engine(data, device)
+            k, rem = divmod(d.n_elems - base_n, n_actors * run)
+            if rem or not 0 <= k <= n_batches or sha(d.text()) != \
+                    want_sha(k):
+                raise AssertionError(f"ckpt-c {label}: a bundle is not a "
+                                     "consistent prefix of the stream")
+            ks.append(k)
+            del d
+        w = rec["writer"]
+        if capture and len(bundles) != n_batches + (not donate):
+            raise AssertionError(f"ckpt-c {label}: {len(bundles)} bundles")
+        if donate and capture and (w["sync_fallbacks"] != n_batches
+                                   or w["async_captures"]):
+            raise AssertionError(f"ckpt-c {label}: the deferred grab of "
+                                 f"an in-place doc did not refuse: {w}")
+        if donate and capture and ks != list(range(1, n_batches + 1)):
+            raise AssertionError(f"ckpt-c {label}: boundary captures {ks}")
+        out[label] = {"ops_per_s": total_ops / rec["s"], "stream_s": rec["s"],
+                      "drain_s": rec["drain_s"], "prefixes": ks,
+                      "writer": w, "stats": rec["stats"]}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"ckpt-c ring under captures ({card}): "
+        + "; ".join(f"{k}: {v['ops_per_s']:.0f} ops/s (stream "
+                    f"{v['stream_s']:.4f} s, drained {v['drain_s']:.4f} s, "
+                    f"prefixes {v['prefixes']}, writer {v['writer']})"
+                    for k, v in out.items() if k != "wall_s")
+        + f"; wall {out['wall_s']:.2f} s")
+    return out
+
+
+def ckpt_phase(torch, M, card: str, device=None, base_n: int = BASE_LEN,
+               tail_actors: int = CKPT_TAIL_ACTORS,
+               tail_ops: int = CKPT_TAIL_OPS, n_base: int = API_TEXT,
+               n_changes: int = API_CHANGES, ring_base: int = BASE_LEN,
+               ring_batches_n: int = RING_BATCHES,
+               ring_actors: int = RING_ACTORS, ring_ops: int = OPS_PER_CHANGE,
+               out_dir: str = None) -> dict:
+    """The checkpoint tier on `device`: (a) the engine cold start, (b) the
+    API's checkpoint forms (and the CPU backend's run of them, which must
+    give the same bytes), (c) the ring under captures, (d) obs (inside
+    (a); here the Prometheus pages of the device-truth and lineage
+    families). The kernel counts are set to 0 before the phase and read
+    after it. Raises on any failed check."""
+    cuda = torch.device(device or "cuda").type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    M.S.reset_launches()
+    a = ckpt_engine(torch, M, card, device, base_n, tail_actors, tail_ops,
+                    out_dir)
+    M.lineage.enable(rate=1, capacity=4096)
+    try:
+        b, got = ckpt_api(torch, M, card, device, n_base, n_changes)
+        page = M.prom.expose(M.dt.families() + M.lineage.families())
+        prom = M.prom.validate_prom(page)
+        for fam in ("amtpu_device_kernel_calls_total",
+                    "amtpu_device_footprint_bytes",
+                    "amtpu_lineage_span_seconds", "amtpu_lineage_chains"):
+            if fam not in page:
+                raise AssertionError(f"ckpt-d: {fam} missing from the page")
+    finally:
+        M.lineage.disable()
+        M.lineage.clear()
+    c = ckpt_ring(torch, M, card, device, ring_base, ring_batches_n,
+                  ring_actors, ring_ops)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = dict(M.S.launches)
+    shapes = {k: dict(v) for k, v in M.S.launch_shapes.items()}
+    if cuda:
+        _b_cpu, want = ckpt_api(torch, M, "cpu backend", "cpu", n_base,
+                                n_changes, timed_reps=False)
+        if got != want:
+            raise AssertionError("ckpt-b: the card's checkpoint, delta and "
+                                 "save bytes differ from the CPU backend's")
+        if not launches["multi_scan"] or not launches["fused_segment_scans"]:
+            raise AssertionError(f"ckpt: a kernel missed the checkpoint "
+                                 f"path: {launches}")
+    out = {"a": a, "b": b, "c": c, "prom": prom, "launches": launches,
+           "shapes": shapes}
+    log(f"checkpoint phase launches: {launches}; prom page {prom}; card "
+        "bytes equal to the CPU backend's")
+    log("ckpt record: " + json.dumps(dict(out, shapes={
+        k: {"x".join(map(str, sh)): n for sh, n in v.items()}
+        for k, v in shapes.items()}), default=str))
     return out
 
 
@@ -1731,7 +2186,7 @@ def profile_api(torch, M, out_dir: str, device=None):
     state = am.frontend.get_backend_state(box["doc"])
 
     def flush():
-        am.backend.get_patch(state)
+        am.backend.default.get_patch(state)
         sync()
     report(f"api-b get_patch read flushing "
            f"{len(state._core.pending)} pending inserts",
@@ -1835,7 +2290,7 @@ def port_modules():
     from types import SimpleNamespace
 
     import automerge_tpu_torch as am
-    from automerge_tpu_torch import _common, native, obs
+    from automerge_tpu_torch import _common, _uuid, checkpoint, native, obs
     from automerge_tpu_torch.backend import device as device_backend
     from automerge_tpu_torch.engine import (DeviceMapDoc, DeviceTextDocSet,
                                             MapChangeBatch,
@@ -1843,10 +2298,13 @@ def port_modules():
                                             runs, stacked)
     from automerge_tpu_torch.engine.columnar import TextChangeBatch
     from automerge_tpu_torch.engine.text_doc import DeviceTextDoc
+    from automerge_tpu_torch.obs import device_truth, export, lineage, prom
     from automerge_tpu_torch.ops import scan_kernels
     from automerge_tpu_torch.ops.ingest import bucket
     return SimpleNamespace(
-        C=_common, native=native, obs=obs, DeviceMapDoc=DeviceMapDoc,
+        C=_common, native=native, obs=obs, ckpt=checkpoint, uuid=_uuid,
+        dt=device_truth, export=export, lineage=lineage, prom=prom,
+        DeviceMapDoc=DeviceMapDoc,
         MapChangeBatch=MapChangeBatch, PipelinedIngestor=PipelinedIngestor,
         accounting=accounting, runs=runs, TB=TextChangeBatch,
         DeviceTextDoc=DeviceTextDoc, DeviceTextDocSet=DeviceTextDocSet,
@@ -2037,12 +2495,18 @@ def main() -> int:
                           for sh in set(st_a["shapes"][k])
                           | set(st_b["shapes"][k])} for k in S.launches}
 
+    # 12. the checkpoint tier (before phase 7 too): the engine cold start
+    # at bench.py measure_restore's sizes under obs.tracing(), the API's
+    # checkpoint forms on api-b's document, the cfg5f ring under captures
+    ckpt = ckpt_phase(torch, M, card,
+                      out_dir=os.path.join(here, "chiprun_out"))
+
     # 7. kernel times at every shape the driven paths launched with, then
     # one kernel per call (a profiler session slows later host launches)
     shapes_by_path = {"main": main_shapes, "self_contained": sc_shapes,
                       "residual": res_shapes, "pipeline": ring["shapes"],
                       "stacked": stacked_shapes, "docset": dset["shapes"],
-                      "api": api["shapes"]}
+                      "api": api["shapes"], "checkpoint": ckpt["shapes"]}
     log(f"launches by shape on the driven paths: {shapes_by_path}")
     shapes = {k: set().union(*(p[k] for p in shapes_by_path.values()))
               for k in S.launches}
@@ -2069,7 +2533,7 @@ def main() -> int:
     by_path = {"main": main_launches, "self_contained": sc_launches,
                "residual": res_launches, "pipeline": ring["launches"],
                "stacked": stacked_launches, "docset": dset["launches"],
-               "api": api["launches"]}
+               "api": api["launches"], "checkpoint": ckpt["launches"]}
     kernels = []
     for name, replaces, path in (
             ("multi_scan", "automerge_tpu/ops/scan_pallas.py:204", "main"),

@@ -268,7 +268,7 @@ def test_default_binding_runs_on_the_card_or_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.load(T.save(T.change(T.init({"actorId": "c", "backend": CPU}),
                                lambda x: x.__setitem__("k", 1))))
-    assert T.backend.Backend is T.backend.DeviceBackend
+    assert T.backend.Backend is T.backend.facade.Backend
     assert T.backend.backend_for(None) is T.backend.DeviceBackend
     assert T.backend.backend_for("cpu") is CPU
 
