@@ -34,6 +34,13 @@ text documents as one round program per causal round, and
 hand-written Hopper kernels (ops/scan_kernels.py, csrc/scan.cu); on a CPU
 tensor each kernel's plain PyTorch version runs instead. Host decoding and
 run detection run in a C++ codec built with g++ at first use (native/).
+Sync: `DocSet(backend=None)` holds documents by id (new and restored
+ones on its backend's device: the card by default), `Connection` and
+`SyncHub` replicate them through the ``{docId, clock, changes?}``
+protocol with one batched `ClockMatrix` comparison per local change, and
+every inbound delivery passes the validated, quarantined gate
+(resilience/); `resilience.ChaosLink` and `ResilientChannel` make the
+protocol survive a lossy, reordering link.
 The package imports torch and numpy, never JAX.
 """
 
@@ -61,5 +68,8 @@ from .frontend import (  # noqa: F401
     get_conflicts, get_object_by_id, get_object_id, set_actor_id,
 )
 from .resilience import CheckpointError, ProtocolError  # noqa: F401
+from .sync import (  # noqa: F401
+    ClockMatrix, Connection, DocSet, SyncHub, WatchableDoc,
+)
 
 __version__ = "0.1.0"

@@ -22,17 +22,20 @@ other):
 - delta saves (:func:`save_delta` / ``api.save(doc, checkpoint=...)``) —
   a checkpoint records the clock frontier it covers; later saves carry
   only the op-log tail, and restore = snapshot + tail replay.
+- snapshot-bootstrapped sync — ``SyncHub``/``DocSet`` hand joining peers
+  a checkpoint (``Checkpoint.to_base64``) + tail instead of full history
+  (sync/hub.py), with CheckpointError falling back to full log replay.
 
 A restore lands on a device: ``restore_doc`` on the device of the backend
 namespace its ``options`` name (``backend.DeviceBackend``, the default,
 is the CUDA card; ``backend.backend_for("cpu")`` the CPU), and
 ``restore_engine(data, device=None)`` on `device` (None: the card). The
-bundle carries no device. The snapshot-bootstrapped sync of the JAX
-package (``SyncHub``/``DocSet``) comes with the sync tier.
+bundle carries no device.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 
 from .._common import less_or_equal
@@ -88,6 +91,20 @@ class Checkpoint:
 
     def __len__(self):
         return len(self.data)
+
+    def to_base64(self) -> str:
+        """The bundle as ASCII base64: the sync hub's wire form of a
+        snapshot."""
+        return base64.b64encode(self.data).decode("ascii")
+
+    @classmethod
+    def from_base64(cls, text: str) -> "Checkpoint":
+        try:
+            return cls(base64.b64decode(text.encode("ascii"),
+                                        validate=True))
+        except (ValueError, UnicodeEncodeError) as exc:
+            raise CheckpointError(
+                f"checkpoint is not valid base64: {exc}") from None
 
 
 # ---------------------------------------------------------------------------

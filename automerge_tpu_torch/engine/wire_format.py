@@ -29,7 +29,11 @@ Scope and the parity contract:
 
 - A frame carries the changes of ONE object (text/list or map/table
   grammar; no ``make*`` ops, no multi-object changes). Everything else
-  stays on the dict wire.
+  stays on the dict wire — :func:`split_outgoing` peels the longest
+  frame-scoped suffix off an outgoing change list and leaves the rest
+  (typically just the creation change) as the dict prefix of the same
+  message. Frames below ``AMTPU_WIRE_MIN_OPS`` ops are not minted (the
+  manifest overhead would exceed the payload).
 - ``encode()`` is byte-deterministic, and the frame is LOSSLESS against
   the dict form: :func:`materialize_changes` reconstructs the canonical
   wire dicts (the exact key order the frontend mints), so committed
@@ -37,12 +41,10 @@ Scope and the parity contract:
   dict deliveries (pinned by tests/test_torch_api.py against the JAX
   package's frames).
 - The dict path stays fully supported: decoding is always on, so a
-  document takes binary and dict deliveries alike. (The JAX package's
-  ``AMTPU_WIRE_BINARY`` mint switch is a sync-tier comparator and is
-  not ported. The outbound side of the sync and federation tiers —
-  ``split_outgoing`` and its ``AMTPU_WIRE_MIN_OPS`` threshold,
-  ``combine_frames``, ``WireFrame.ready_under`` and the ``group``
-  ordering token — comes with the port's ``sync/``, which calls it.)
+  document takes binary and dict deliveries alike. A hub always mints
+  frames for in-scope payloads (the JAX package's default; its
+  ``AMTPU_WIRE_BINARY`` mint switch selects a dict comparator and is
+  not ported).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import os
 import struct
 
 import numpy as np
@@ -60,12 +63,14 @@ from ..obs.lineage import MAX_CONTEXT_ENTRIES
 from ..resilience.errors import ProtocolError
 
 __all__ = ["WireFormatError", "WireFrame", "encode_batch", "encode_changes",
-           "decode", "materialize_changes", "as_frame",
-           "validate_trace_context"]
+           "decode", "materialize_changes", "split_outgoing",
+           "combine_frames", "as_frame", "wire_min_ops",
+           "validate_trace_context", "validate_group_token"]
 
 MAGIC = b"AMTPUWIRE1\n"
 FORMAT = "automerge-tpu-wire"
 VERSION = 1
+
 
 class WireFormatError(ProtocolError):
     """A malformed, truncated, corrupt, or wrong-version binary frame.
@@ -73,6 +78,18 @@ class WireFormatError(ProtocolError):
     Subclasses :class:`ProtocolError` so every existing typed-rejection
     path (gate, hub, service per-tenant degradation) handles binary
     malformation exactly like dict-wire malformation."""
+
+
+def wire_min_ops() -> int:
+    """Minimum op count worth a frame: below it the manifest/hash
+    overhead (~3 KB) exceeds the payload and the per-op dict walk is
+    already cheap — the same bulk threshold the columnar decode gate
+    uses (``wire_columns._NUMPY_MIN_OPS``). Read per call, so a test
+    can lower it."""
+    try:
+        return int(os.environ.get("AMTPU_WIRE_MIN_OPS", "64") or 0)
+    except ValueError:
+        return 64
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +289,34 @@ def validate_trace_context(trace):
     return trace
 
 
-def encode_batch(batch, deps=None, trace=None) -> bytes:
+def validate_group_token(group):
+    """Schema-check one per-replication-group ordering token (the
+    optional ``group`` manifest entry): ``[origin_region, room, token]``
+    — the cheap causal metadata one federated region stamps on the
+    frames it mints. One monotone counter per (room, origin region):
+    cross-region ordering costs O(groups), never O(peers). Typed
+    :class:`WireFormatError` on malformation — like trace context, a
+    flipped bit must reject, never crash, and decoders that predate the
+    entry simply never look."""
+    if not isinstance(group, list) or len(group) != 3:
+        raise WireFormatError(
+            "malformed group token: expected [origin_region, room, "
+            f"token], got {group!r}")
+    region, room, token = group
+    if not isinstance(region, str) or not region:
+        raise WireFormatError("group-token origin_region must be a "
+                              "non-empty string")
+    if not isinstance(room, str) or not room:
+        raise WireFormatError("group-token room must be a non-empty "
+                              "string")
+    if not isinstance(token, int) or isinstance(token, bool) \
+            or not 1 <= token < 2**63:
+        raise WireFormatError("group-token counter must be a positive "
+                              "int64")
+    return group
+
+
+def encode_batch(batch, deps=None, trace=None, group=None) -> bytes:
     """Serialize an op-columnar batch (with its per-change columns) to
     one byte-deterministic ``AMTPUWIRE1`` frame.
 
@@ -327,12 +371,17 @@ def encode_batch(batch, deps=None, trace=None) -> bytes:
                 "n_change_actors": cols.n_change_actors}
     if trace:
         manifest["trace"] = validate_trace_context(trace)
+    if group:
+        # per-replication-group ordering token: version-tolerant like
+        # `trace`, covered by the manifest hash
+        manifest["group"] = validate_group_token(list(group))
     return _pack(manifest, arrays)
 
 
 def encode_changes(changes, obj_id: str = None, trace=None) -> bytes:
     """Encode wire-dict changes (all frame-scoped, one object) to a
-    frame. Raises ``WireFormatError`` when out of scope."""
+    frame. Raises ``WireFormatError`` when out of scope — callers that
+    want graceful degradation use :func:`split_outgoing`."""
     from .columnar import MapChangeBatch, TextChangeBatch
     kind, obj = _frame_scope(changes)
     if kind is None:
@@ -473,6 +522,48 @@ def change_in_scope(change):
     return kind, obj
 
 
+def split_outgoing(changes, min_ops: int = None, trace=None, group=None):
+    """Peel the longest frame-scoped suffix off an outbound change list:
+    -> (dict_prefix, frame_or_None). The common history shape — one
+    creation change followed by a long single-object tail — becomes one
+    small dict prefix plus one frame; fully out-of-scope payloads come
+    back unchanged with no frame. ``trace`` (lineage context for the
+    WHOLE change list, prefix included) and ``group`` (the federation's
+    per-replication-group ordering token) ride the frame's manifest."""
+    if min_ops is None:
+        min_ops = wire_min_ops()
+    if not isinstance(changes, list) or not changes:
+        return changes, None
+    kind = "both"
+    obj = None
+    start = len(changes)
+    for i in range(len(changes) - 1, -1, -1):
+        k, o = change_in_scope(changes[i])
+        if k is None or (obj is not None and o != obj):
+            break
+        if k != "both":
+            if kind not in ("both", k):
+                break
+            kind = k
+        obj = o
+        start = i
+    suffix = changes[start:]
+    if not suffix or sum(len(c["ops"]) for c in suffix) < max(1, min_ops):
+        return changes, None
+    if kind == "both":
+        kind = "map"                     # assign-only, plain keys
+    from .columnar import MapChangeBatch, TextChangeBatch
+    cls = TextChangeBatch if kind == "text" else MapChangeBatch
+    try:
+        frame = encode_batch(cls.from_changes(suffix, obj),
+                             deps=[c["deps"] for c in suffix],
+                             trace=trace, group=group)
+    except (ValueError, OverflowError, TypeError):
+        return changes, None             # stay on the dict wire
+    return changes[:start], WireFrame(frame, changes=suffix, trace=trace,
+                                      group=group)
+
+
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
@@ -550,6 +641,11 @@ def decode(data):
     trace = manifest.get("trace")
     if trace is not None:
         validate_trace_context(trace)
+    # optional per-replication-group ordering token: same
+    # version-tolerance contract as trace context
+    group = manifest.get("group")
+    if group is not None:
+        validate_group_token(group)
 
     local_actors = _json_list(sections, "local_actors")
     _require(local_actors is not None, "missing section 'local_actors'")
@@ -693,6 +789,7 @@ def decode(data):
         distinct_actors=bool(nca == n))
     batch._change_columns = cols
     batch._trace = trace
+    batch._group = group
     return batch
 
 
@@ -782,9 +879,10 @@ class WireFrame:
     materializes the canonical dicts once (the quarantine/park and
     history paths)."""
 
-    __slots__ = ("data", "_batch", "_changes", "_trace")
+    __slots__ = ("data", "_batch", "_changes", "_trace", "_group")
 
-    def __init__(self, data: bytes, batch=None, changes=None, trace=None):
+    def __init__(self, data: bytes, batch=None, changes=None, trace=None,
+                 group=None):
         if not isinstance(data, (bytes, bytearray, memoryview)):
             raise WireFormatError(
                 f"wire frame must be bytes, got {type(data).__name__}")
@@ -792,6 +890,7 @@ class WireFrame:
         self._batch = batch
         self._changes = changes
         self._trace = trace
+        self._group = group
 
     # -- cheap introspection (decodes on first use) --------------------
 
@@ -819,6 +918,18 @@ class WireFrame:
             return self._trace
         b = self._batch
         return getattr(b, "_trace", None) if b is not None else None
+
+    @property
+    def group(self):
+        """Per-replication-group ordering token carried in the frame
+        manifest (``[origin_region, room, token]``), or None — same
+        no-forced-decode contract as ``trace``: set at encode time on
+        the sender's object, read from the manifest after the receive
+        side decodes."""
+        if self._group is not None:
+            return self._group
+        b = self._batch
+        return getattr(b, "_group", None) if b is not None else None
 
     @property
     def n_changes(self) -> int:
@@ -860,6 +971,48 @@ class WireFrame:
         self.batch()
         return self
 
+    def ready_under(self, clock: dict) -> bool:
+        """Whether the WHOLE frame is causally admissible against
+        `clock` in row order (each row next-in-sequence or a duplicate,
+        deps covered by the clock plus earlier rows) — the gate's
+        zero-dict fast-lane test. A False here only means the slow
+        (dict/fixpoint) path runs; it never rejects."""
+        b = self.batch()
+        cols = b._change_columns
+        sim: dict = {}
+        seqs = cols.seqs.tolist()
+        gids = cols.dep_gid.tolist()
+        for i, a in enumerate(cols.actor_idx.tolist()):
+            actor = cols.local_actors[a]
+            seq = seqs[i]
+            if seq > sim.get(actor, clock.get(actor, 0)) + 1:
+                return False
+            for da, ds in cols.group_deps[gids[i]].items():
+                if sim.get(da, clock.get(da, 0)) < ds:
+                    return False
+            if seq > sim.get(actor, clock.get(actor, 0)):
+                sim[actor] = seq
+        return True
+
+
+def _intern_ordered_deps(deps: list) -> list:
+    """Cross-frame deps interning for :func:`combine_frames`, keyed on
+    the ORDERED item tuple — `columnar.intern_deps` collapses by sorted
+    content and would replace a later frame's differently-ordered (but
+    content-equal) deps dict with the first frame's, breaking the
+    byte-parity contract the per-frame decode preserves. Ordered-equal
+    dicts still identity-share, which is all the engine's
+    shared-frontier fast path keys on."""
+    cache: dict = {}
+    out = []
+    for d in deps:
+        key = tuple(d.items())
+        hit = cache.get(key)
+        if hit is None:
+            hit = cache[key] = d
+        out.append(hit)
+    return out
+
 
 def as_frame(wire) -> WireFrame:
     """Coerce a message's ``wire`` field (WireFrame or raw bytes) to a
@@ -867,3 +1020,109 @@ def as_frame(wire) -> WireFrame:
     if isinstance(wire, WireFrame):
         return wire
     return WireFrame(wire)
+
+
+def combine_frames(frames):
+    """Concatenate same-object frames into ONE decoded delivery (grouped
+    admission: N peers' frames for one doc still cost one backend apply
+    and one engine batch). Columns concatenate as C memcpys with
+    vectorized id remaps — no per-op Python. -> a WireFrame-shaped
+    delivery (batch()/changes()/obj_id/n_ops), or None when the frames
+    don't share an object/kind."""
+    frames = [as_frame(f) for f in frames]
+    if len(frames) == 1:
+        return frames[0]
+    from .columnar import MapChangeBatch, TextChangeBatch
+    from .wire_columns import change_columns
+    batches = [f.batch() for f in frames]
+    first = batches[0]
+    is_text = isinstance(first, TextChangeBatch)
+    if any(b.obj_id != first.obj_id
+           or isinstance(b, TextChangeBatch) != is_text for b in batches):
+        return None
+    actors, seqs_l, deps, messages, pool = [], [], [], [], []
+    opc, kind_c, val_c = [], [], []
+    ta_c, tc_c, pa_c, pc_c, key_c = [], [], [], [], []
+    table: list = []
+    rank: dict = {}
+    row0 = 0
+    for b in batches:
+        actors.extend(b.actors)
+        seqs_l.append(b.seqs)
+        deps.extend(b.deps)
+        messages.extend(b.messages)
+        opc.append(b.op_change.astype(np.int32) + row0)
+        row0 += b.n_changes
+        kind_c.append(b.op_kind)
+        vals = b.op_value
+        if b.value_pool:
+            shift = np.where(vals < 0, -len(pool), 0)
+            vals = vals + shift
+            pool.extend(b.value_pool)
+        val_c.append(vals)
+        if is_text:
+            remap = np.empty(max(len(b.actor_table), 1), np.int32)
+            for i, a in enumerate(b.actor_table):
+                r = rank.get(a)
+                if r is None:
+                    r = rank[a] = len(table)
+                    table.append(a)
+                remap[i] = r
+            ta_c.append(remap[b.op_target_actor])
+            pa = b.op_parent_actor
+            pa_c.append(np.where(pa == HEAD_PARENT, HEAD_PARENT,
+                                 remap[np.maximum(pa, 0)]).astype(np.int32))
+            tc_c.append(b.op_target_ctr)
+            pc_c.append(b.op_parent_ctr)
+        else:
+            remap = np.empty(max(len(b.key_table), 1), np.int32)
+            for i, k in enumerate(b.key_table):
+                r = rank.get(k)
+                if r is None:
+                    r = rank[k] = len(table)
+                    table.append(k)
+                remap[i] = r
+            key_c.append(remap[b.op_key])
+    common = dict(
+        obj_id=first.obj_id, actors=actors,
+        seqs=np.concatenate(seqs_l), deps=_intern_ordered_deps(deps),
+        messages=messages, op_change=np.concatenate(opc),
+        op_kind=np.concatenate(kind_c), op_value=np.concatenate(val_c),
+        value_pool=pool)
+    if is_text:
+        batch = TextChangeBatch(
+            op_target_actor=np.concatenate(ta_c),
+            op_target_ctr=np.concatenate(tc_c),
+            op_parent_actor=np.concatenate(pa_c),
+            op_parent_ctr=np.concatenate(pc_c),
+            actor_table=table, **common)
+    else:
+        batch = MapChangeBatch(op_key=np.concatenate(key_c),
+                               key_table=table, **common)
+    change_columns(batch)
+    combined = WireFrame.__new__(WireFrame)
+    combined.data = b""                 # synthetic: never retransmitted
+    combined._batch = batch
+    combined._changes = None
+    # merged lineage context, deduped by change identity (N peers'
+    # frames may carry overlapping sampled entries)
+    merged_trace: list = []
+    seen_trace: set = set()
+    for f in frames:
+        for ent in f.trace or ():
+            key = (ent[0], ent[1])
+            if key not in seen_trace:
+                seen_trace.add(key)
+                merged_trace.append(ent)
+    combined._trace = merged_trace or None
+    # group tokens: a combined delivery spanning one (origin region,
+    # room) group keeps the HIGHEST token; mixed-group combines drop the
+    # token — the per-frame observation already happened at delivery
+    groups = [tuple(f.group) for f in frames if f.group]
+    combined._group = None
+    if groups and len({g[:2] for g in groups}) == 1:
+        combined._group = list(max(groups, key=lambda g: g[2]))
+    cached = [f._changes for f in frames]
+    if all(c is not None for c in cached):
+        combined._changes = [c for sub in cached for c in sub]
+    return combined

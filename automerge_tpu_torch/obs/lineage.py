@@ -508,6 +508,11 @@ def clear():
         _ledger.clear()
 
 
+def sampled(actor: str, seq: int) -> bool:
+    led = _ledger
+    return led is not None and led.sampled(actor, seq)
+
+
 def hop(actor: str, seq: int, stage: str, site=None, doc=None, extra=0,
         t_ns: Optional[int] = None):
     """Record one hop for one change — call ONLY behind an
@@ -567,6 +572,39 @@ def payload_keys(payload):
     if wire is not None:
         out.extend(change_keys(wire))
     return out
+
+
+def context_for(delivery) -> Optional[list]:
+    """Wire trace-context for a delivery's sampled changes (None when
+    empty or lineage is off) — what the hub attaches to outbound
+    messages/frames."""
+    led = _ledger
+    if led is None:
+        return None
+    ctx = led.context_for(change_keys(delivery))
+    return ctx or None
+
+
+def adopt(entries):
+    """Merge received wire trace context (already schema-validated by
+    the wire layer) into the ledger."""
+    led = _ledger
+    if led is not None and entries:
+        led.adopt(entries)
+
+
+def adopt_clock(clock: dict, site=None, doc=None):
+    led = _ledger
+    if led is not None:
+        led.adopt_clock(clock, site=site, doc=doc)
+
+
+def site_of(doc_set) -> str:
+    """The replica-site label for a DocSet: its explicit
+    ``_lineage_site`` when the owner named one, else a process-local
+    fallback that at least separates doc sets."""
+    site = getattr(doc_set, "_lineage_site", None)
+    return site if site else f"ds-{id(doc_set) & 0xffff:04x}"
 
 
 def families(prefix: str = "amtpu_lineage") -> list:

@@ -16,10 +16,25 @@ class ProtocolError(ValueError):
     """A malformed or schema-violating wire input was rejected.
 
     Raised by the validation layer (``resilience.validation``) before any
-    document state is touched.
+    document state is touched, and by the inbound gate when the backend
+    rejects a delivery mid-application (after the backend's failure-atomic
+    restore ran, so document state and clock are bit-identical to before
+    the delivery).
 
     Subclasses ``ValueError`` so pre-existing callers that catch
     ``ValueError`` around apply paths keep working unchanged.
+    """
+
+
+class PeerDeadError(ProtocolError):
+    """A peer exhausted its retransmit budget and was declared dead.
+
+    Raised by :class:`~.channel.ResilientChannel` when one envelope has
+    been retransmitted ``max_retries`` times without an ack (or surfaced
+    through the channel's ``on_dead`` callback instead, when one is
+    installed). A dead channel stops retransmitting and drops its send
+    window, so a vanished peer cannot pin memory or timer work forever;
+    recovery is ``revive()`` or a NEW channel.
     """
 
 

@@ -23,7 +23,12 @@ oracle or the CPU backend), and the checkpoint tier (phase 12: bench.py
 measure_restore's cold start of a 1,000,000-element text, full replay
 against snapshot restore, under obs.tracing(); the API's checkpoint forms
 on api-b's document against the CPU backend's bytes; the cfg5f ring with
-a capture after each commit, every bundle a consistent prefix); times
+a capture after each commit, every bundle a consistent prefix), and the
+sync tier (phase 13: run_all.py config9_sync_fanout's 20 peers x 50
+changes on cfg7's 100,000-char text, a reconnect and a late full-history
+join; a 20-peer join storm in one hub.batched() window served from one
+snapshot; two replicas under wan_pair(cross_region) chaos; each against
+the CPU backend's run of the same stream); times
 each kernel at every shape those paths launched
 it with (device time over CUDA-graph replays, inputs rotated through
 copies so each call reads them from HBM; one eager call at the merge
@@ -95,6 +100,11 @@ API_CHANGES = 60
 API_SKIP = 10                  # first changes left out of the percentiles
 CKPT_TAIL_ACTORS = 64          # ckpt-a: bench.py measure_restore's tail of
 CKPT_TAIL_OPS = 200            # 64 actors x 200 ops on the 1,000,000 base
+SYNC_PEERS = 20                # sync-a: run_all.py config9_sync_fanout's 20
+SYNC_CHANGES = 50              # peers x 50 changes, on cfg7's 100,000 chars
+SYNC_STORM = 20                # sync-b: joiners in one hub.batched() window
+SYNC_STORM_MIN = 32            # sync-b: the storm hub's snapshot_min_changes
+SYNC_CHAOS_EDITS = 50          # sync-c: concurrent edits on each side
 
 
 def log(*a):
@@ -2117,6 +2127,436 @@ def ckpt_phase(torch, M, card: str, device=None, base_n: int = BASE_LEN,
     return out
 
 
+# --- the sync tier (run_all.py config9_sync_fanout on cfg7's text) ----------
+
+def _obs_events(M, cat: str, name: str) -> int:
+    return sum(1 for r in M.obs.snapshot() if r[2] == cat and r[3] == name)
+
+
+def _on_device(M, doc, device) -> bool:
+    want = "cuda" if device is None else str(device).split(":")[0]
+    core = M.am.frontend.get_backend_state(doc)._core
+    return all(w.doc.device.type == want
+               for w in [core.root] + list(core.objects.values()))
+
+
+def _pump_pairs(pairs) -> int:
+    """Deliver every queued message of each (out_queue, receiver) pair
+    until all are empty; returns the messages moved."""
+    n = 0
+    moved = True
+    while moved:
+        moved = False
+        for q, conn in pairs:
+            while q:
+                conn.receive_msg(q.pop(0))
+                n += 1
+                moved = True
+    return n
+
+
+def _connect(am, ds_a, ds_b):
+    """A Connection pair between two DocSets; -> the pump pairs."""
+    qa, qb = [], []
+    ca, cb = am.Connection(ds_a, qa.append), am.Connection(ds_b, qb.append)
+    ca.open()
+    cb.open()
+    return [(qa, cb), (qb, ca)]
+
+
+def sync_fanout(torch, M, card: str, device, n_base: int, n_peers: int,
+                n_changes: int) -> tuple:
+    """sync-a: run_all.py config9_sync_fanout at its 20 peers x 50
+    changes of 10 chars inserted at index 0, on cfg7's n_base-char Text:
+    the author's DocSet fans every change out over hub-backed Connections
+    to n_peers DocSets on `device`. Then a peer that missed the 50
+    changes reconnects (its catch-up is one frame and no dict prefix: the
+    gate's wire fast lane), and a late peer joins with the hub's snapshot
+    threshold at 0 (the creation change as dict, the 50-change tail as one
+    AMTPUWIRE1 frame). Every replica must hold cfg9's expected text.
+    Returns the record and the bytes the CPU backend's run must equal."""
+    am = M.am
+    be = am.backend.backend_for(device)
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    _pinned_uuids(M)
+    try:
+        author = am.DocSet(backend=be)
+        t = time.perf_counter()
+        author.set_doc("doc", am.change(
+            am.init({"actorId": "author", "backend": be}),
+            lambda d: d.__setitem__("t", am.Text("x" * n_base))))
+        sync()
+        create_s = time.perf_counter() - t
+        peers = [am.DocSet(backend=be) for _ in range(n_peers)]
+        offline = am.DocSet(backend=be)
+        pairs = []
+        for ds in peers + [offline]:
+            pairs += _connect(am, author, ds)
+        hub = author._sync_hub
+        t = time.perf_counter()
+        _pump_pairs(pairs)
+        sync()
+        join_s = time.perf_counter() - t
+        off_pairs, pairs = pairs[-2:], pairs[:-2]
+        for q, conn in off_pairs:          # the offline peer leaves
+            conn.close()
+            q.clear()
+        # the hub's batched comparisons over the fan-out, the peers' acks
+        # included (tests/test_sync_hub.py counts them around set_doc)
+        calls = [0]
+        pending = hub._matrix.pending
+
+        def counted():
+            calls[0] += 1
+            return pending()
+        hub._matrix.pending = counted
+        t = time.perf_counter()
+        for k in range(n_changes):
+            author.set_doc("doc", am.change(
+                author.get_doc("doc"),
+                lambda d: d["t"].insert_at(0, *"0123456789")))
+            _pump_pairs(pairs)
+        sync()
+        fan_s = time.perf_counter() - t
+        del hub._matrix.pending
+        expect = "0123456789" * n_changes + "x" * n_base
+        texts = [str(ds.get_doc("doc")["t"]) for ds in peers]
+        # each peer's first read of its backend (get_patch) commits the
+        # deliveries the write-behind path holds into its engine table
+        t = time.perf_counter()
+        pending_rounds = 0
+        for ds in peers:
+            state = am.frontend.get_backend_state(ds.get_doc("doc"))
+            pending_rounds += len(state._core.pending)
+            patch = be.get_patch(state)
+            texts.append("".join(d["value"] for d in patch["diffs"]
+                                 if d["action"] == "insert"))
+        sync()
+        read_s = time.perf_counter() - t
+        if any(tx != expect for tx in texts):
+            raise AssertionError("sync-a: a peer's text differs from "
+                                 "cfg9's expected string")
+        if calls[0] != n_changes:
+            raise AssertionError(f"sync-a: {calls[0]} pending() calls for "
+                                 f"{n_changes} changes")
+        if not all(_on_device(M, ds.get_doc("doc"), device) for ds in peers):
+            raise AssertionError("sync-a: a peer's document left the "
+                                 "device")
+
+        def join(ds, label):
+            msgs, qa, qb = [], [], []
+            ca = am.Connection(author, lambda m: (qa.append(m),
+                                                  msgs.append(m)))
+            cb = am.Connection(ds, qb.append)
+            ca.open()
+            cb.open()
+            jp = [(qa, cb), (qb, ca)]
+            with M.obs.tracing(1 << 16):
+                M.obs.clear()
+                t0 = time.perf_counter()
+                _pump_pairs(jp)
+                got = str(ds.get_doc("doc")["t"])
+                sync()
+                dt = time.perf_counter() - t0
+                fast = _obs_events(M, "gate", "wire_fast")
+            if got != expect:
+                raise AssertionError(f"sync-a: the {label} peer's text "
+                                     "differs")
+            data = [m for m in msgs if m.get("changes") or m.get("wire")]
+            shape = [(len(m.get("changes") or ()),
+                      m["wire"].n_changes if m.get("wire") else 0)
+                     for m in data]
+            return dt, fast, shape
+        recon_s, recon_fast, recon_shape = join(offline, "reconnecting")
+        if recon_shape != [(0, n_changes)] or recon_fast != 1:
+            raise AssertionError(f"sync-a: the reconnect caught up as "
+                                 f"{recon_shape} with {recon_fast} fast-lane"
+                                 " deliveries, not one frame of the tail "
+                                 "through the fast lane")
+        hub.snapshot_min_changes = 0
+        late = am.DocSet(backend=be)
+        late_s, late_fast, late_shape = join(late, "late")
+        if late_shape != [(1, n_changes)]:
+            raise AssertionError(f"sync-a: the late join came as "
+                                 f"{late_shape}, not the creation change "
+                                 "and one frame of the tail")
+        del hub.snapshot_min_changes
+        saves = [am.save(ds.get_doc("doc")) for ds in
+                 (author, peers[0], peers[-1], offline, late)]
+        if len(set(saves)) != 1:
+            raise AssertionError("sync-a: replicas' save() bytes differ")
+    finally:
+        M.uuid.reset()
+    deliveries = n_changes * n_peers
+    out = {"chars": n_base, "peers": n_peers, "changes": n_changes,
+           "create_s": create_s, "join_s": join_s, "fanout_s": fan_s,
+           "deliveries_per_s": deliveries / fan_s,
+           "changes_per_s": n_changes / fan_s, "read_s": read_s,
+           "pending_rounds_read": pending_rounds,
+           "pending_per_change": calls[0] / n_changes,
+           "reconnect_s": recon_s, "reconnect_wire_fast": recon_fast,
+           "late_join_s": late_s, "late_join_wire_fast": late_fast,
+           "late_join_shape": late_shape}
+    log(f"sync-a fan-out ({card}): {n_peers} peers joined a {n_base}-char "
+        f"text in {join_s:.3f} s; {n_changes} changes, "
+        f"{out['deliveries_per_s']:.1f} deliveries/s "
+        f"({fan_s:.3f} s); the peers' first reads {read_s:.3f} s "
+        f"({pending_rounds} write-behind rounds committed); "
+        f"{out['pending_per_change']:.0f} pending() call per change; "
+        f"reconnect {recon_s:.3f} s (one frame, {recon_fast} fast-lane "
+        f"delivery); late full-history join {late_s:.3f} s (creation "
+        f"change + one frame of {n_changes}, {late_fast} fast-lane); "
+        "texts as expected")
+    return out, (saves[0], texts[0])
+
+
+def sync_storm(torch, M, card: str, device, n_base: int, n_changes: int,
+               n_peers: int, threshold: int) -> tuple:
+    """sync-b: n_peers fresh peers join an author whose document is cfg7's
+    n_base-char Text plus n_changes 10-char inserts, all inside one
+    hub.batched() window, with the hub's snapshot_min_changes at
+    `threshold`: one flush serves them all from ONE capture (obs events
+    sync/snapshot_capture = 1, snapshot_serve_cached = n_peers - 1), and
+    each peer restores the bundle on `device`. Returns the record and the
+    bytes the CPU backend's run must equal."""
+    am = M.am
+    be = am.backend.backend_for(device)
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    _pinned_uuids(M)
+    try:
+        author = am.DocSet(backend=be)
+        doc = am.change(am.init({"actorId": "author", "backend": be}),
+                        lambda d: d.__setitem__("t", am.Text("x" * n_base)))
+        for k in range(n_changes):
+            doc = am.change(doc, lambda d: d["t"].insert_at(
+                0, *"0123456789"))
+        author.set_doc("doc", doc)
+        history = len(am.frontend.get_backend_state(doc).history())
+        anchor = am.Connection(author, lambda m: None)
+        anchor.open()                       # the author's shared hub
+        hub = author._sync_hub
+        hub.snapshot_min_changes = threshold
+        peers = [am.DocSet(backend=be) for _ in range(n_peers)]
+        sync()
+        with M.obs.tracing(1 << 18):
+            M.obs.clear()
+            t = time.perf_counter()
+            pairs = []
+            with hub.batched():
+                for ds in peers:
+                    pairs += _connect(am, author, ds)
+                _pump_pairs(pairs)
+                t_serve = time.perf_counter()
+            _pump_pairs(pairs)
+            texts = [str(ds.get_doc("doc")["t"]) for ds in peers]
+            sync()
+            storm_s = time.perf_counter() - t
+            serve_s = time.perf_counter() - t_serve
+            # the restored tables read on the device: the planned read,
+            # then the self-contained one (mirror dropped), as ckpt-a
+            t = time.perf_counter()
+            for ds in peers:
+                core = am.frontend.get_backend_state(ds.get_doc("doc"))._core
+                for w in core.objects.values():
+                    ed = w.doc
+                    texts.append(ed.text())
+                    ed.seg_mirror = None
+                    ed._text_cache = None
+                    ed._mat = None
+                    ed._seg_bound = ed.n_elems + 2
+                    texts.append(ed.text())
+            sync()
+            engine_read_s = time.perf_counter() - t
+            captures = _obs_events(M, "sync", "snapshot_capture")
+            cached = _obs_events(M, "sync", "snapshot_serve_cached")
+        want = str(doc["t"])
+        if captures != 1 or cached != n_peers - 1:
+            raise AssertionError(f"sync-b: {captures} captures and {cached}"
+                                 f" cached serves for {n_peers} joiners")
+        if any(tx != want for tx in texts):
+            raise AssertionError("sync-b: a joiner's text differs")
+        if not all(_on_device(M, ds.get_doc("doc"), device) for ds in peers):
+            raise AssertionError("sync-b: a restored document left the "
+                                 "device")
+        saves = {am.save(ds.get_doc("doc")) for ds in peers}
+        if saves != {am.save(doc)}:
+            raise AssertionError("sync-b: a joiner's save() bytes differ")
+        bundle = len(hub._ckpt_cache["doc"][2])
+    finally:
+        M.uuid.reset()
+    out = {"chars": n_base, "history": history, "peers": n_peers,
+           "threshold": threshold, "storm_s": storm_s, "serve_s": serve_s,
+           "engine_reads_s": engine_read_s,
+           "captures": captures, "cached_serves": cached,
+           "bundle_b64_bytes": bundle}
+    log(f"sync-b join storm ({card}): {n_peers} fresh peers joined a "
+        f"{history}-change history in one batched() window in "
+        f"{storm_s:.3f} s (serve and restore {serve_s:.3f} s); "
+        f"{captures} capture, {cached} cached serves of a {bundle}-byte "
+        "base64 bundle; every peer restored on the device, texts equal")
+    return out, (am.save(doc), want)
+
+
+def sync_chaos(torch, M, card: str, device, n_base: int,
+               n_edits: int) -> tuple:
+    """sync-c: two DocSets on `device`, each holding cfg7's n_base-char
+    Text, each with a Connection over a ResilientChannel over
+    wan_pair(profile="cross_region", seed=0); both sides make n_edits
+    concurrent 10-char inserts, one pump round after each pair, then pump
+    until both are idle. The replicas must hold the same text, clock and
+    changes. Returns the record and what the CPU backend's run must
+    equal: each replica's save() bytes, the text, the links' fault
+    counts and the channels' stats."""
+    am = M.am
+    res = am.resilience
+    be = am.backend.backend_for(device)
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    _pinned_uuids(M)
+    try:
+        origin = am.change(am.init({"actorId": "origin", "backend": be}),
+                           lambda d: d.__setitem__("t", am.Text("x" * n_base)))
+        base = am.get_all_changes(origin)
+        sides = {}
+        for name in ("left", "right"):
+            ds = am.DocSet(backend=be)
+            ds.set_doc("doc", am.apply_changes(
+                am.init({"actorId": name, "backend": be}), base))
+            sides[name] = ds
+        chans = {}
+        fwd, rev = res.wan_pair(lambda env: chans["right"].on_wire(env),
+                                lambda env: chans["left"].on_wire(env),
+                                profile="cross_region", seed=0)
+        chans["left"] = res.ResilientChannel(fwd.send, None, seed=1)
+        chans["right"] = res.ResilientChannel(rev.send, None, seed=2)
+        for name in ("left", "right"):
+            conn = am.Connection(sides[name], chans[name].send)
+            chans[name]._deliver = conn.receive_msg
+            conn.open()
+
+        def step():
+            fwd.pump()
+            rev.pump()
+            chans["left"].tick()
+            chans["right"].tick()
+
+        def idle():
+            return fwd.idle and rev.idle and all(c.idle
+                                                 for c in chans.values())
+        sync()
+        t = time.perf_counter()
+        rounds = 0
+        for i in range(n_edits):
+            for name, at, word in (("left", n_base // 20, "helloworld"),
+                                   ("right", n_base // 2, "HELLOWORLD")):
+                ds = sides[name]
+                ds.set_doc("doc", am.change(ds.get_doc("doc"), lambda d,
+                                            p=at + 11 * i, w=word:
+                                            d["t"].insert_at(p, *w)))
+            step()
+            rounds += 1
+        edit_rounds = rounds
+        while not idle():
+            step()
+            rounds += 1
+            if rounds > 20_000:
+                raise AssertionError("sync-c: the chaos pair never went "
+                                     "idle")
+        texts = {n: str(ds.get_doc("doc")["t"]) for n, ds in sides.items()}
+        sync()
+        chaos_s = time.perf_counter() - t
+        saves = {n: am.save(ds.get_doc("doc")) for n, ds in sides.items()}
+        # each replica's history is in its own arrival order (as in the
+        # JAX package), so the two save() byte strings differ; the text,
+        # the clocks and the set of changes must not
+        held = {n: sorted(json.dumps(c, sort_keys=True)
+                          for c in json.loads(saves[n])["changes"])
+                for n in sides}
+        clocks = {n: am.frontend.get_backend_state(ds.get_doc("doc")).clock
+                  for n, ds in sides.items()}
+        if texts["left"] != texts["right"] or held["left"] != \
+                held["right"] or clocks["left"] != clocks["right"]:
+            raise AssertionError("sync-c: the replicas differ after the "
+                                 "chaos session")
+        if len(texts["left"]) != n_base + 2 * 10 * n_edits:
+            raise AssertionError("sync-c: the merged text has the wrong "
+                                 "length")
+        if not all(_on_device(M, ds.get_doc("doc"), device)
+                   for ds in sides.values()):
+            raise AssertionError("sync-c: a replica left the device")
+        link_stats = {"fwd": dict(fwd.stats), "rev": dict(rev.stats)}
+        chan_stats = {n: dict(c.stats) for n, c in chans.items()}
+    finally:
+        M.uuid.reset()
+    out = {"chars": n_base, "edits_per_side": n_edits, "chaos_s": chaos_s,
+           "rounds": rounds, "rounds_after_edits": rounds - edit_rounds,
+           "retransmits": sum(c["retransmits"] for c in chan_stats.values()),
+           "links": link_stats, "channels": chan_stats}
+    log(f"sync-c chaos ({card}): {n_edits} concurrent edits a side over "
+        f"wan_pair(cross_region, seed=0) converged in {rounds} pump "
+        f"rounds ({rounds - edit_rounds} after the last edit), "
+        f"{out['retransmits']} retransmits, {chaos_s:.3f} s; fwd "
+        f"{link_stats['fwd']}, rev {link_stats['rev']}; the replicas hold "
+        f"the same text, clock and {len(held['left'])} changes")
+    return out, (saves["left"], saves["right"], texts["left"], link_stats,
+                 chan_stats)
+
+
+def sync_phase(torch, M, card: str, device=None, n_base: int = API_TEXT,
+               n_peers: int = SYNC_PEERS, n_changes: int = SYNC_CHANGES,
+               n_storm: int = SYNC_STORM, storm_min: int = SYNC_STORM_MIN,
+               chaos_edits: int = SYNC_CHAOS_EDITS) -> dict:
+    """The sync tier on `device`: sync-a (cfg9's fan-out on cfg7's text,
+    a reconnect, a late full-history join), sync-b (a join storm served
+    from one snapshot) and sync-c (two replicas under WAN chaos). Each
+    part then runs as the same stream on the CPU backend, whose texts and
+    save() bytes the card's must equal. The kernel counts are set to 0
+    before the phase and read after the card's parts. Raises on any
+    failed check."""
+    cuda = torch.device(device or "cuda").type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    M.S.reset_launches()
+    a, got_a = sync_fanout(torch, M, card, device, n_base, n_peers,
+                           n_changes)
+    b, got_b = sync_storm(torch, M, card, device, n_base, n_changes,
+                          n_storm, storm_min)
+    c, got_c = sync_chaos(torch, M, card, device, n_base, chaos_edits)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = dict(M.S.launches)
+    shapes = {k: dict(v) for k, v in M.S.launch_shapes.items()}
+    card_s = time.perf_counter() - t_phase
+    if cuda:
+        _, want_a = sync_fanout(torch, M, "cpu backend", "cpu", n_base,
+                                n_peers, n_changes)
+        _, want_b = sync_storm(torch, M, "cpu backend", "cpu", n_base,
+                               n_changes, n_storm, storm_min)
+        _, want_c = sync_chaos(torch, M, "cpu backend", "cpu", n_base,
+                               chaos_edits)
+        for part, got, want in (("sync-a", got_a, want_a),
+                                ("sync-b", got_b, want_b),
+                                ("sync-c", got_c, want_c)):
+            if got != want:
+                raise AssertionError(f"{part}: the card's texts or save() "
+                                     "bytes differ from the CPU backend's")
+        if not launches["multi_scan"] or not launches["fused_segment_scans"]:
+            raise AssertionError(f"sync: a kernel missed the sync path: "
+                                 f"{launches}")
+    out = {"a": a, "b": b, "c": c, "launches": launches, "shapes": shapes,
+           "card_s": card_s, "wall_s": time.perf_counter() - t_phase}
+    log(f"sync phase launches: {launches}; card parts {card_s:.2f} s, "
+        f"with the CPU backend's runs {out['wall_s']:.2f} s; texts and "
+        "save() bytes equal to the CPU backend's")
+    log("sync record: " + json.dumps(dict(out, shapes={
+        k: {"x".join(map(str, sh)): n for sh, n in v.items()}
+        for k, v in shapes.items()}), default=str))
+    return out
+
+
 def _profiled(torch, cuda: bool, fn):
     """fn() under torch.profiler: (wall s, device kernel µs, device
     operations, the device events, the profiler)."""
@@ -2501,12 +2941,19 @@ def main() -> int:
     ckpt = ckpt_phase(torch, M, card,
                       out_dir=os.path.join(here, "chiprun_out"))
 
+    # 13. the sync tier (before phase 7 too): sync-a cfg9's fan-out to 20
+    # peers on cfg7's text, a reconnect and a late full-history join;
+    # sync-b a 20-peer join storm served from one snapshot; sync-c two
+    # replicas under cross-region WAN chaos
+    sync = sync_phase(torch, M, card)
+
     # 7. kernel times at every shape the driven paths launched with, then
     # one kernel per call (a profiler session slows later host launches)
     shapes_by_path = {"main": main_shapes, "self_contained": sc_shapes,
                       "residual": res_shapes, "pipeline": ring["shapes"],
                       "stacked": stacked_shapes, "docset": dset["shapes"],
-                      "api": api["shapes"], "checkpoint": ckpt["shapes"]}
+                      "api": api["shapes"], "checkpoint": ckpt["shapes"],
+                      "sync": sync["shapes"]}
     log(f"launches by shape on the driven paths: {shapes_by_path}")
     shapes = {k: set().union(*(p[k] for p in shapes_by_path.values()))
               for k in S.launches}
@@ -2533,7 +2980,8 @@ def main() -> int:
     by_path = {"main": main_launches, "self_contained": sc_launches,
                "residual": res_launches, "pipeline": ring["launches"],
                "stacked": stacked_launches, "docset": dset["launches"],
-               "api": api["launches"], "checkpoint": ckpt["launches"]}
+               "api": api["launches"], "checkpoint": ckpt["launches"],
+               "sync": sync["launches"]}
     kernels = []
     for name, replaces, path in (
             ("multi_scan", "automerge_tpu/ops/scan_pallas.py:204", "main"),
