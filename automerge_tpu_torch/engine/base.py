@@ -320,6 +320,35 @@ class CausalDeviceDoc:
             device_truth.REGISTRY.note_footprint(
                 "doc", self.obj_id, self.device_footprint()["device_bytes"])
 
+    def compact_tables(self) -> int:
+        """Copy the live tables into storage of their own — one buffer
+        per dtype whose rows are the tables — when their storages hold
+        more than the tables. Every commit ends with it, so between
+        commits a doc holds exactly its tables, the bytes the residency
+        budget counts: an out-of-place round leaves its outputs as rows of
+        a wider scatter buffer (bool tables staged as int32 rows, a
+        scratch column), while a stacked apply already hands each doc
+        tables of its own (`ops.ingest.unstack_rows`). Returns the bytes
+        released. A no-op for a doc writing in place (its store's buffers
+        are the live storage, grown ahead on purpose) and for a doc
+        without tables. The copy runs on the current stream; the values
+        do not change."""
+        if self._dev is None or self._store is not None \
+                or self.donate_buffers:
+            return 0
+        fp = self.device_footprint()
+        if fp["storage_bytes"] <= fp["table_bytes"]:
+            return 0
+        by_dtype: dict = {}
+        for k, t in self._dev.items():
+            by_dtype.setdefault(t.dtype, []).append(k)
+        own = {}
+        for keys in by_dtype.values():
+            own.update(zip(keys, torch.stack(
+                [self._dev[k] for k in keys]).unbind(0)))
+        self._dev = {k: own[k] for k in self._dev}
+        return fp["storage_bytes"] - fp["table_bytes"]
+
     @property
     def dispatch_stats(self) -> dict:
         """Device-interaction counts for this document: total jitted
@@ -815,6 +844,7 @@ class CausalDeviceDoc:
             self._plan_failed()
             raise
         self._invalidate()
+        self.compact_tables()
         self._note_footprint()
         return self
 
@@ -1160,6 +1190,7 @@ class CausalDeviceDoc:
         # streaming tier budgets (asserted <= a small constant on the
         # write-behind path; carried in bench --pipeline records)
         self.last_commit_stats = {**region, "n_rounds": n_rounds}
+        self.compact_tables()
         self._note_footprint()
         return out
 

@@ -630,9 +630,10 @@ def _exec_fused_pass(map_set, map_plans, text_set, text_plans,
 
 
 def _finalize(lane_set: _LaneSet, stats: dict):
-    """Unstack the final stacked tables back onto each doc — disjoint
-    views of one fresh copy per dtype (`unstack_rows`), so a later
-    in-place write to one doc can reach no other — and seed every doc's host mirror from ONE packed d2h
+    """Unstack the final stacked tables back onto each doc — views of
+    fresh buffers of its own (`unstack_rows`), so a later in-place write
+    to one doc can reach no other and releasing one doc frees its
+    tables — and seed every doc's host mirror from ONE packed d2h
     fetch, so reads right after the apply touch pure host state. For the
     text lane the fetch also carries every doc's RGA positions (one
     `stacked_linearize` program riding the same transfer).

@@ -1012,22 +1012,26 @@ def stacked_pack_rows(*tables) -> torch.Tensor:
 
 
 def unstack_rows(cols) -> list:
-    """Stacked (D, cap) columns -> per-document table tuples. The columns
-    of each dtype are copied once into a fresh (D, k, cap) block, and a
-    document's tables are views of its own rows of that block: the
-    documents' tables are disjoint and share no storage with the stacked
-    columns, so a later in-place write to one document — through a
-    `TableStore`, or to the stacked columns — can reach no other. One
-    copy per dtype, whatever D; a block lives while any of its documents'
-    tables do."""
+    """Stacked (D, cap) columns -> per-document table tuples, each table a
+    buffer of its own: the documents share no storage with the stacked
+    columns or with each other, so a later in-place write to one document
+    — through a `TableStore`, or to the stacked columns — can reach no
+    other, a document's storages hold exactly its tables (its
+    ``device_footprint`` counts no other document's bytes), and releasing
+    a document frees its tables whatever the others do. The copies of a
+    dtype are one batched op: `torch._foreach_add` of a zero of the
+    column's kind (the identity, dtype kept) allocates every output
+    itself, and on a card copies in multi-tensor launches of about a
+    hundred rows each, not one launch or one Python call per row."""
     D = cols[0].shape[0]
     by_dtype: dict = {}
     for k, c in enumerate(cols):
         by_dtype.setdefault(c.dtype, []).append(k)
-    out = [[None] * len(cols) for _ in range(D)]
-    for keys in by_dtype.values():
-        block = torch.stack([cols[k] for k in keys], 1)
-        for r, k in enumerate(keys):
-            for d, t in enumerate(block[:, r].unbind(0)):
-                out[d][k] = t
-    return [tuple(t) for t in out]
+    per_key = [None] * len(cols)
+    for dtype, keys in by_dtype.items():
+        own = torch._foreach_add(
+            [row for k in keys for row in cols[k].unbind(0)],
+            False if dtype == torch.bool else 0)
+        for i, k in enumerate(keys):
+            per_key[k] = own[i * D:(i + 1) * D]
+    return list(zip(*per_key))

@@ -26,7 +26,9 @@ first use into `csrc/build/` and bound through ctypes.
 Dispatch is by the tensor's device: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel or raises. Each wrapper adds one to
 `launches[name]` where it launches its kernel, and nowhere else, and one
-to `launch_shapes[name][shape]` for the shape it launched at. Both routes
+to `launch_shapes[name][shape]` for the shape it launched at, both under
+one lock: the shard tier's lane workers launch from several threads at
+once (shard/parallel.py), and an unlocked ``+=`` can lose a count. Both routes
 also feed the device-truth registry (obs/device_truth.py: the ``cuda``
 and ``plain`` handles, with the bytes and operations of the call), and
 the library's build and load are its build/load events.
@@ -64,6 +66,7 @@ launch_shapes = {"multi_scan": {}, "fused_segment_scans": {}}
 
 _LIB = None
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()    # the launch counters above
 _I32_MAX = 2**31 - 1
 
 #: device-truth handles: (kernel, route) -> KernelHandle
@@ -72,14 +75,18 @@ _DT = {(k, v): _dt.register(k, v)
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
-        launch_shapes[k].clear()
+    with _COUNT_LOCK:
+        for k in launches:
+            launches[k] = 0
+            launch_shapes[k].clear()
 
 
-def _note_shape(name: str, shape: tuple):
-    by_shape = launch_shapes[name]
-    by_shape[shape] = by_shape.get(shape, 0) + 1
+def _count_launch(name: str, shape: tuple):
+    """One launch of `name` at `shape`: both counters, under one lock."""
+    with _COUNT_LOCK:
+        launches[name] += 1
+        by_shape = launch_shapes[name]
+        by_shape[shape] = by_shape.get(shape, 0) + 1
 
 
 def n_tiles(length: int, tile: int) -> int:
@@ -226,8 +233,7 @@ def multi_scan(x: torch.Tensor) -> torch.Tensor:
             scratch.numel() * 8, K, N,
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "multi_scan")
-    launches["multi_scan"] += 1
-    _note_shape("multi_scan", tuple(x.shape))
+    _count_launch("multi_scan", tuple(x.shape))
     if _dt.ENABLED:
         _DT["multi_scan", "cuda"].note(*_ms_cost(x))
     return out
@@ -321,8 +327,7 @@ def fused_segment_scans(chain: torch.Tensor, has_value: torch.Tensor,
             rank.data_ptr(), head.data_ptr(), cumvis.data_ptr(),
             torch.cuda.current_stream(chain.device).cuda_stream)
     _raise_on(rc, "fused_segment_scans")
-    launches["fused_segment_scans"] += 1
-    _note_shape("fused_segment_scans", tuple(chain.shape))
+    _count_launch("fused_segment_scans", tuple(chain.shape))
     if _dt.ENABLED:
         _DT["fused_segment_scans", "cuda"].note(*_fs_cost(chain))
     return rank, head, cumvis

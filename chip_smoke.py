@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--blocking-sync]
+    python3 chip_smoke.py --lane-probe [--blocking-sync]
 
 It builds the CUDA kernels from csrc/ and holds each kernel bit-exact
 against its plain PyTorch version: at the main path's shapes, at ragged
@@ -28,7 +29,11 @@ sync tier (phase 13: run_all.py config9_sync_fanout's 20 peers x 50
 changes on cfg7's 100,000-char text, a reconnect and a late full-history
 join; a 20-peer join storm in one hub.batched() window served from one
 snapshot; two replicas under wan_pair(cross_region) chaos; each against
-the CPU backend's run of the same stream); times
+the CPU backend's run of the same stream), and the sharded serving tier
+(phase 14: bench.py measure_sharded's cfg12 populations on 8 lanes,
+streams of the card, with the lane workers, sequentially and on one lane;
+the router's park/drain and migrations; cfg18 through the pager; each
+against a CPU run); times
 each kernel at every shape those paths launched
 it with (device time over CUDA-graph replays, inputs rotated through
 copies so each call reads them from HBM; one eager call at the merge
@@ -40,6 +45,10 @@ apply and one api-a merge once more under torch.profiler, prints the
 device's busy share and the kernels that took the most device time,
 writes the Chrome traces to DIR, and prints the host profile (cProfile)
 of one stacked apply, one DocSet build and one api-a merge.
+With --lane-probe, it runs only `lane_probe` (shard-a's map population
+served alternately with the lane workers and sequentially, each lane
+ingest timed in wall and thread CPU time) and prints its record last.
+With --blocking-sync, host waits on the card block instead of spinning.
 
 The output ends with three lines: one JSON object describing every
 kernel, the card's name and power limit as nvidia-smi reports them, and
@@ -58,6 +67,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -105,6 +115,21 @@ SYNC_CHANGES = 50              # peers x 50 changes, on cfg7's 100,000 chars
 SYNC_STORM = 20                # sync-b: joiners in one hub.batched() window
 SYNC_STORM_MIN = 32            # sync-b: the storm hub's snapshot_min_changes
 SYNC_CHAOS_EDITS = 50          # sync-c: concurrent edits on each side
+MESH_LANES = 8                 # shard-a: bench.py measure_sharded's 8 lanes
+MESH_WARMUP = 2                # (streams of the one card); bench.py's 2
+MESH_REPS = 5                  # warm-up and 5 timed reps
+ONE_LANE_WARMUP = 0            # the one-lane per-object leg's reps, cut
+ONE_LANE_REPS = 1              # from bench.py's 2 + 5 (13-26 s a map rep)
+MESH_CPU_DOCS = 64             # docs of each lane the CPU mesh replays
+HOT_OPS = 512                  # shard-b: the hot doc's ops per round, and
+HOT_ROUNDS = 40                # the most rounds it may take to move
+RES_DOCS = 140                 # shard-c: bench.py measure_residency's
+RES_BUDGET_DOCS = 8            # 140 text docs, budget of 8 docs' bytes,
+RES_ROUNDS = 32                # 32 rounds a rep, 3 timed reps, capacity
+RES_REPS = 3                   # 1,024, revisit lag 10, cold_after 6
+RES_CAP = 1024
+RES_LAG = 10
+RES_COLD_AFTER = 6
 
 
 def log(*a):
@@ -2557,6 +2582,567 @@ def sync_phase(torch, M, card: str, device=None, n_base: int = API_TEXT,
     return out
 
 
+# --- the sharded serving tier (bench.py measure_sharded and measure_residency)
+
+def _digest(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def _mesh_digests(mesh, ids) -> dict:
+    """Every doc's capture() bytes, as sha256 digests."""
+    return {d: _digest(mesh.capture(d)) for d in ids}
+
+
+def _sync_lanes(torch, mesh):
+    """The rep barrier: every lane's stream, then the device."""
+    for lane in mesh.lanes:
+        if lane.stream is not None:
+            lane.stream.synchronize()
+    if any(lane.stream is not None for lane in mesh.lanes):
+        torch.cuda.synchronize()
+
+
+def _check_lane_tables(mesh):
+    """No lane of the mesh holds a table off its own device."""
+    for lane in mesh.lanes:
+        for d, doc in lane.docs.items():
+            for t in (doc._dev or {}).values():
+                if t.device.type != lane.device.type:
+                    raise AssertionError(f"{d} on lane {lane.index} holds a "
+                                         f"table on {t.device}")
+
+
+def _mesh_leg(torch, M, device, kind: str, doc_ids, n_lanes: int,
+              capacity: int, seed, reps, n_run: int, warmup: int,
+              mid: int = None, parallel=None) -> tuple:
+    """One shard-a leg: the seed round, then reps[:n_run] (the first
+    `warmup` untimed), each rep under bench.py's gc discipline and ended
+    by a barrier on every lane's stream. `parallel` sets
+    AMTPU_PARALLEL_LANES for the leg (None: the default). Returns (record,
+    digests at the end, digests after `mid` reps or None)."""
+    import gc
+    t_leg = time.perf_counter()
+    cuda = torch.device(device or "cuda").type == "cuda"
+    prior = os.environ.get("AMTPU_PARALLEL_LANES")
+    if parallel is not None:
+        os.environ["AMTPU_PARALLEL_LANES"] = "1" if parallel else "0"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    mesh = M.shard.ShardedDocSet(
+        n_shards=n_lanes, doc_kind=kind, capacity=capacity,
+        devices=None if cuda else [torch.device("cpu")])
+    rates, mid_digests = [], None
+    gc_was = gc.isenabled()
+    try:
+        mesh.deliver_round(seed)
+        _sync_lanes(torch, mesh)
+        for i, rounds in enumerate(reps[:n_run]):
+            if mid is not None and i == mid:
+                mid_digests = _mesh_digests(mesh, doc_ids)
+            gc.collect()
+            gc.disable()
+            admitted = 0
+            t0 = time.perf_counter()
+            for chunk in rounds:
+                admitted += mesh.deliver_round(chunk)
+            _sync_lanes(torch, mesh)
+            dt = time.perf_counter() - t0
+            if gc_was:
+                gc.enable()
+            if i >= warmup:
+                rates.append(admitted / dt)
+        if mid is not None and mid == n_run:
+            mid_digests = _mesh_digests(mesh, doc_ids)
+        _check_lane_tables(mesh)
+        lane_stats = [dict(lane.stats) for lane in mesh.lanes]
+        tel = mesh.telemetry
+        agg = tel.span_aggregates().get(("mesh", "barrier_wait"))
+        rec = {
+            "lanes": n_lanes, "docs": len(doc_ids), "reps": len(rates),
+            "warmup": warmup, "ops_per_rep": admitted,
+            "ops_per_s_median": float(np.median(rates)),
+            "ops_per_s_min": min(rates), "ops_per_s_max": max(rates),
+            "rates": rates,
+            "stacked": sum(s["stacked_applies"] for s in lane_stats),
+            "per_object": sum(s["per_object_applies"] for s in lane_stats),
+            "spread": mesh.placement.spread(doc_ids),
+            "device_bytes": sum(lane.device_footprint()["device_bytes"]
+                                for lane in mesh.lanes),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if cuda else None),
+            "workers": mesh._executor is not None,
+            "barrier_wait": None if agg is None else {
+                "count": agg["count"], "total_s": agg["total_ns"] / 1e9,
+                "p50_ms": tel.quantile_ns("mesh", "barrier_wait", 0.5) / 1e6,
+                "p99_ms": tel.quantile_ns("mesh", "barrier_wait",
+                                          0.99) / 1e6}}
+        if cuda:
+            streams = {lane.stream.cuda_stream for lane in mesh.lanes}
+            if len(streams) != n_lanes:
+                raise AssertionError(f"{n_lanes} lanes on {len(streams)} "
+                                     "streams")
+        digests = _mesh_digests(mesh, doc_ids)
+        rec["leg_s"] = time.perf_counter() - t_leg
+    finally:
+        if gc_was:
+            gc.enable()
+        mesh.close()
+        if parallel is not None:
+            if prior is None:
+                os.environ.pop("AMTPU_PARALLEL_LANES", None)
+            else:
+                os.environ["AMTPU_PARALLEL_LANES"] = prior
+    return rec, digests, mid_digests
+
+
+def shard_population(torch, M, card: str, device, kind: str, n_lanes: int,
+                     per_lane: int, capacity: int, n_rounds: int,
+                     warmup: int, reps: int, single_warmup: int,
+                     single_reps: int, cpu_per_lane: int) -> dict:
+    """shard-a for one population (bench.py _sharded_ab): the n-lane mesh
+    with the lane workers, the same mesh sequential (the default for lanes
+    of one device), and one lane, on the
+    identical stream; every doc's capture equal across the legs (the one
+    lane's at the point its cut reps end) and equal to an n-lane CPU mesh
+    fed the same stream for `cpu_per_lane` docs of every lane."""
+    cuda = torch.device(device or "cuda").type == "cuda"
+    doc_ids = [f"{kind[0]}doc-{i:05d}" for i in range(n_lanes * per_lane)]
+    seed, all_reps = shard_stream(doc_ids if kind == "text" else [],
+                                  doc_ids if kind == "map" else [], 64,
+                                  n_rounds, warmup + reps)
+    n_single = single_warmup + single_reps
+    par, par_d, par_mid = _mesh_leg(
+        torch, M, device, kind, doc_ids, n_lanes, capacity, seed, all_reps,
+        warmup + reps, warmup, mid=n_single, parallel=True)
+    seq, seq_d, _ = _mesh_leg(
+        torch, M, device, kind, doc_ids, n_lanes, capacity, seed, all_reps,
+        warmup + reps, warmup, parallel=None)
+    one, one_d, _ = _mesh_leg(
+        torch, M, device, kind, doc_ids, 1, capacity, seed, all_reps,
+        n_single, single_warmup)
+    if not par["workers"] or seq["workers"]:
+        raise AssertionError(f"shard-a {kind}: the legs did not take the "
+                             "worker / sequential paths (the lanes of one "
+                             "device default to the sequential loop)")
+    for name, leg in (("workers", par), ("sequential", seq)):
+        if leg["per_object"] or not leg["stacked"]:
+            raise AssertionError(f"shard-a {kind} {name}: a mesh lane fell "
+                                 f"off the stacked path: {leg}")
+    if cuda and (one["stacked"] or not one["per_object"]):
+        raise AssertionError(f"shard-a {kind}: one lane did not degrade to "
+                             f"per-object: {one}")
+    if par_d != seq_d:
+        raise AssertionError(f"shard-a {kind}: the worker and sequential "
+                             "legs' captures differ")
+    if one_d != par_mid:
+        raise AssertionError(f"shard-a {kind}: the one-lane leg's captures "
+                             "differ from the mesh's at the same point")
+    cpu_ids = None
+    if cuda:
+        by_lane = {}
+        for d in doc_ids:
+            by_lane.setdefault(M.shard.hash_shard(d, n_lanes), []).append(d)
+        cpu_ids = sorted(d for ids in by_lane.values()
+                         for d in ids[:cpu_per_lane])
+        keep = set(cpu_ids)
+        sub = lambda chunk: {d: v for d, v in chunk.items()  # noqa: E731
+                             if d in keep}
+        _, cpu_d, _ = _mesh_leg(
+            torch, M, "cpu", kind, cpu_ids, n_lanes, capacity, sub(seed),
+            [[sub(c) for c in rounds] for rounds in all_reps],
+            warmup + reps, warmup)
+        if any(cpu_d[d] != par_d[d] for d in cpu_ids):
+            raise AssertionError(f"shard-a {kind}: captures differ from the "
+                                 "CPU mesh's")
+    out = {"kind": kind, "capacity": capacity, "rounds_per_rep": n_rounds,
+           "workers": par, "sequential": seq, "one_lane": one,
+           "scaleup_workers": par["ops_per_s_median"]
+           / one["ops_per_s_median"],
+           "scaleup_sequential": seq["ops_per_s_median"]
+           / one["ops_per_s_median"],
+           "cpu_docs": len(cpu_ids) if cpu_ids else 0,
+           "one_lane_cut": {"warmup": single_warmup, "reps": single_reps,
+                            "captures_at_rep": n_single}}
+    log(f"shard-a {kind} ({card}): {len(doc_ids)} docs on {n_lanes} lanes, "
+        f"workers median {par['ops_per_s_median']:.0f} admitted ops/s "
+        f"({par['ops_per_s_min']:.0f}-{par['ops_per_s_max']:.0f}), "
+        f"sequential {seq['ops_per_s_median']:.0f} "
+        f"({seq['ops_per_s_min']:.0f}-{seq['ops_per_s_max']:.0f}), one "
+        f"lane {one['ops_per_s_median']:.0f} "
+        f"({one['ops_per_s_min']:.0f}-{one['ops_per_s_max']:.0f}); "
+        f"scale-up {out['scaleup_workers']:.2f}x / "
+        f"{out['scaleup_sequential']:.2f}x; applies stacked "
+        f"{par['stacked']} / {seq['stacked']}, one lane per-object "
+        f"{one['per_object']}; barrier_wait {par['barrier_wait']}; "
+        f"captures equal across legs and to the CPU mesh "
+        f"({out['cpu_docs']} docs)")
+    return out
+
+
+def shard_router(torch, M, device, text_ids, capacity: int, n_lanes: int,
+                 hot_ops: int, max_hot: int, n_hot: int = None) -> tuple:
+    """shard-b on one mesh: a premature seq parks at the router and drains
+    on the missing one, a forced migration mid-stream, then the rebalancer
+    (ratio 2.0, min_ops 32) and one hot doc hammered until it moves (or,
+    given `n_hot`, for exactly that many rounds). Returns (record, texts,
+    capture digests)."""
+    cuda = torch.device(device or "cuda").type == "cuda"
+    mesh = M.shard.ShardedDocSet(
+        n_shards=n_lanes, capacity=capacity,
+        devices=None if cuda else [torch.device("cpu")])
+    park, moved, hot, rec = text_ids[0], text_ids[1], text_ids[2], {}
+    try:
+        mesh.deliver_round(stack_text_round(text_ids, 1, 1, 64))
+        r_a = stack_text_round(text_ids, 2, 33, 4)
+        r_a[park] = stack_text_round([park], 3, 35, 4)[park]
+        mesh.deliver_round(r_a)
+        rec["parked"] = mesh.quarantined(park)
+        r_b = stack_text_round(text_ids, 3, 35, 4)
+        r_b[park] = stack_text_round([park], 2, 33, 4)[park]
+        mesh.deliver_round(r_b)
+        rec["after_drain"] = mesh.quarantined(park)
+        if n_lanes > 1:
+            home = mesh.placement.shard_of(moved)
+            rec["forced_migration"] = mesh.migrate(
+                moved, (home + 3) % n_lanes)
+        mesh.deliver_round(stack_text_round(text_ids, 4, 37, 4))
+        reb = mesh.attach_rebalancer(ratio=2.0, min_ops=32)
+        home = mesh.placement.shard_of(hot)
+        base, rounds = 39, 0
+        while rounds < (n_hot if n_hot is not None else max_hot):
+            mesh.deliver_round(stack_text_round([hot], 5 + rounds, base,
+                                                hot_ops))
+            base += hot_ops // 2
+            rounds += 1
+            if n_hot is None and reb.stats["migrations"]:
+                break
+        rec.update({"hot_rounds": rounds, "hot_home": home,
+                    "hot_now": mesh.placement.shard_of(hot),
+                    "rebalancer": dict(reb.stats),
+                    "window_loads": reb.window_loads(),
+                    "mesh_stats": dict(mesh.stats),
+                    "placement": mesh.placement.table()})
+        _check_lane_tables(mesh)
+        texts = mesh.texts()
+        digests = _mesh_digests(mesh, text_ids)
+    finally:
+        mesh.close()
+    return rec, texts, digests
+
+
+def shard_residency(torch, M, device, n_docs: int, budget_docs: int,
+                    rounds_per_rep: int, reps: int, capacity: int,
+                    revisit_lag: int, cold_after: int,
+                    warmup: int = 1) -> tuple:
+    """shard-c (bench.py measure_residency): the unbounded reference mesh
+    first, then the same schedule through a 2-lane mesh with the pager
+    attached at a budget of `budget_docs` docs' bytes (the reference's
+    largest per-doc device_bytes), spilling to a temporary directory.
+    Returns (record, capture digests)."""
+    import tempfile
+    cuda = torch.device(device or "cuda").type == "cuda"
+    devices = None if cuda else [torch.device("cpu")]
+    n_hot = max(2, budget_docs // 2)
+    doc_ids = [f"rz-{i:05d}" for i in range(n_docs)]
+    hot_ids, cold_ids = doc_ids[:n_hot], doc_ids[n_hot:]
+    seqs = dict.fromkeys(doc_ids, 0)
+    ctrs = dict.fromkeys(doc_ids, 0)
+    schedule = []
+    for r in range((warmup + reps) * rounds_per_rep):
+        picks = [hot_ids[(r + k) % n_hot] for k in range(2)]
+        picks.append(cold_ids[r % len(cold_ids)])
+        if r >= revisit_lag:
+            picks.append(cold_ids[(r - revisit_lag) % len(cold_ids)])
+        chunk = {}
+        for d in dict.fromkeys(picks):
+            seqs[d] += 1
+            chunk.update(stack_text_round([d], seqs[d], ctrs[d] + 1, 8))
+            ctrs[d] += 4
+        schedule.append(chunk)
+    touched = [d for d in doc_ids if seqs[d]]
+    ref = M.shard.ShardedDocSet(n_shards=2, capacity=capacity,
+                                devices=devices)
+    for chunk in schedule:
+        ref.deliver_round(chunk)
+    ref_digests = _mesh_digests(ref, touched)
+    per_doc = max(doc.device_footprint()["device_bytes"]
+                  for lane in ref.lanes for doc in lane.docs.values())
+    ref.close()
+    del ref
+    budget = budget_docs * per_doc
+    if len(touched) * per_doc < 10 * budget:
+        raise AssertionError("shard-c: population under 10x the budget")
+    M.dt.REGISTRY.clear_session()
+    h2d0 = M.accounting.snapshot()["h2d_bytes"]
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as spill:
+        mesh = M.shard.ShardedDocSet(n_shards=2, capacity=capacity,
+                                     devices=devices)
+        res = mesh.attach_residency(budget_bytes=budget, spill_dir=spill,
+                                    cold_after=cold_after)
+        paged_table_bytes = [0]
+        page_in = res.page_in
+
+        def metered_page_in(doc_id, *a, **kw):
+            lane = page_in(doc_id, *a, **kw)
+            if lane is not None:
+                paged_table_bytes[0] += lane.docs[doc_id].device_footprint()[
+                    "table_bytes"]
+            return lane
+        res.page_in = metered_page_in
+        rates = []
+        try:
+            for i in range(warmup + reps):
+                admitted = 0
+                t0 = time.perf_counter()
+                for chunk in schedule[i * rounds_per_rep:
+                                      (i + 1) * rounds_per_rep]:
+                    admitted += mesh.deliver_round(chunk)
+                    peak = M.dt.REGISTRY.footprint()["peak_device_bytes"]
+                    if peak > budget:
+                        raise AssertionError(f"shard-c: peak {peak} > "
+                                             f"budget {budget}")
+                _sync_lanes(torch, mesh)
+                if i >= warmup:
+                    rates.append(admitted / (time.perf_counter() - t0))
+            h2d = M.accounting.snapshot()["h2d_bytes"] - h2d0
+            m = res.metrics()
+            if m["budget_overruns"] or not (
+                    m["page_ins"] and m["page_outs"] and m["cold_ages"]
+                    and m["cold_loads"]):
+                raise AssertionError(f"shard-c: paging incomplete: {m}")
+            acct = res.accounting()
+            if sorted(acct["hot"] + acct["warm"] + acct["cold"]) != \
+                    sorted(touched):
+                raise AssertionError("shard-c: the tier ledger lost docs")
+            _check_lane_tables(mesh)
+            digests = _mesh_digests(mesh, touched)
+            if digests != ref_digests:
+                raise AssertionError("shard-c: captures differ from the "
+                                     "unbounded reference")
+            peak = M.dt.REGISTRY.footprint()["peak_device_bytes"]
+            if peak > budget:
+                raise AssertionError(f"shard-c: peak {peak} > {budget}")
+            rec = {
+                "docs": n_docs, "touched": len(touched),
+                "budget_docs": budget_docs, "per_doc_bytes": per_doc,
+                "budget_bytes": budget, "peak_resident_bytes": peak,
+                "rounds": len(schedule), "reps": len(rates),
+                "ops_per_s_median": float(np.median(rates)),
+                "ops_per_s_min": min(rates), "ops_per_s_max": max(rates),
+                "page_in_p99_ms": res.page_in_p99_ms(),
+                "hit_rate": res.hit_rate(),
+                "warm_bytes": acct["warm_bytes"],
+                "cold_bytes": acct["cold_bytes"],
+                "h2d_bytes": h2d, "paged_table_bytes": paged_table_bytes[0],
+                "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                         if cuda else None),
+                "stats": {k: v for k, v in m.items()
+                          if k not in ("page_in_p99_ms", "hit_rate")}}
+        finally:
+            mesh.close()
+    return rec, digests
+
+
+def shard_phase(torch, M, card: str, device=None, n_lanes: int = MESH_LANES,
+                map_per_lane: int = SHARD_MAP_DOCS,
+                text_per_lane: int = SHARD_TEXT_DOCS,
+                capacity: int = SHARD_CAP, n_rounds: int = SHARD_ROUNDS,
+                warmup: int = MESH_WARMUP, reps: int = MESH_REPS,
+                single_warmup: int = ONE_LANE_WARMUP,
+                single_reps: int = ONE_LANE_REPS,
+                cpu_per_lane: int = MESH_CPU_DOCS, hot_ops: int = HOT_OPS,
+                max_hot: int = HOT_ROUNDS, res_docs: int = RES_DOCS,
+                res_budget_docs: int = RES_BUDGET_DOCS,
+                res_rounds: int = RES_ROUNDS, res_reps: int = RES_REPS,
+                res_cap: int = RES_CAP, res_lag: int = RES_LAG,
+                res_cold_after: int = RES_COLD_AFTER) -> dict:
+    """The sharded serving tier on `device`: shard-a cfg12's map and text
+    populations on an n-lane mesh (lanes are streams of the card) with
+    the workers, sequentially and on one lane; shard-b the router's
+    park/drain, a forced migration and one rebalancer migration, against
+    a one-lane run and the CPU; shard-c cfg18 through the pager against
+    the unbounded reference and the CPU. The kernel counts are set to 0
+    before the card's parts and read after them. Raises on any failed
+    check."""
+    cuda = torch.device(device or "cuda").type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    M.S.reset_launches()
+    a = {kind: shard_population(
+        torch, M, card, device, kind, n_lanes, per, capacity, n_rounds,
+        warmup, reps, single_warmup, single_reps, cpu_per_lane)
+        for kind, per in (("map", map_per_lane), ("text", text_per_lane))}
+    t_b = time.perf_counter()
+    text_ids = [f"tdoc-{i:05d}" for i in range(n_lanes * text_per_lane)]
+    b, b_texts, b_dig = shard_router(torch, M, device, text_ids, capacity,
+                                     n_lanes, hot_ops, max_hot)
+    if (b["parked"], b["after_drain"]) != (1, 0) or \
+            not b.get("forced_migration") or \
+            b["rebalancer"]["migrations"] != 1 or \
+            b["mesh_stats"]["migrations"] != 2 or \
+            b["hot_now"] == b["hot_home"]:
+        raise AssertionError(f"shard-b: {b}")
+    _, one_texts, one_dig = shard_router(torch, M, device, text_ids,
+                                         capacity, 1, hot_ops, max_hot,
+                                         n_hot=b["hot_rounds"])
+    if (one_texts, one_dig) != (b_texts, b_dig):
+        raise AssertionError("shard-b: texts or captures differ from the "
+                             "one-lane run")
+    b["part_s"] = time.perf_counter() - t_b
+    t_c = time.perf_counter()
+    c, c_dig = shard_residency(torch, M, device, res_docs, res_budget_docs,
+                               res_rounds, res_reps, res_cap, res_lag,
+                               res_cold_after)
+    c["part_s"] = time.perf_counter() - t_c
+    if cuda:
+        torch.cuda.synchronize()
+    launches = dict(M.S.launches)
+    shapes = {k: dict(v) for k, v in M.S.launch_shapes.items()}
+    card_s = time.perf_counter() - t_phase
+    if cuda:
+        _, cpu_texts, cpu_dig = shard_router(
+            torch, M, "cpu", text_ids, capacity, n_lanes, hot_ops, max_hot,
+            n_hot=b["hot_rounds"])
+        if (cpu_texts, cpu_dig) != (b_texts, b_dig):
+            raise AssertionError("shard-b: texts or captures differ from the "
+                                 "CPU run")
+        c_cpu, c_cpu_dig = shard_residency(
+            torch, M, "cpu", res_docs, res_budget_docs, res_rounds, res_reps,
+            res_cap, res_lag, res_cold_after)
+        if c_cpu_dig != c_dig:
+            raise AssertionError("shard-c: captures differ from the CPU run")
+        if c_cpu["stats"] != c["stats"]:
+            raise AssertionError(f"shard-c: the pager's counters differ "
+                                 f"from the CPU run's: {c['stats']} != "
+                                 f"{c_cpu['stats']}")
+        c["cpu_per_doc_bytes"] = c_cpu["per_doc_bytes"]
+        if not launches["multi_scan"]:
+            raise AssertionError(f"shard: multi_scan missed the path: "
+                                 f"{launches}")
+    out = {"a": a, "b": b, "c": c, "launches": launches, "shapes": shapes,
+           "card_s": card_s, "wall_s": time.perf_counter() - t_phase}
+    log(f"shard-b ({card}): parked {b['parked']} then {b['after_drain']}, "
+        f"forced migration {b['forced_migration']}, rebalancer "
+        f"{b['rebalancer']} after {b['hot_rounds']} hot rounds (lane "
+        f"{b['hot_home']} -> {b['hot_now']}); texts and captures equal to "
+        "the one-lane run and the CPU")
+    log(f"shard-c ({card}): {c['ops_per_s_median']:.0f} ops/s through the "
+        f"pager ({c['ops_per_s_min']:.0f}-{c['ops_per_s_max']:.0f}), "
+        f"page-in p99 {c['page_in_p99_ms']} ms, hit rate {c['hit_rate']}, "
+        f"peak {c['peak_resident_bytes']} <= budget {c['budget_bytes']} "
+        f"({c['budget_docs']} x {c['per_doc_bytes']} B), warm "
+        f"{c['warm_bytes']} B, cold {c['cold_bytes']} B, h2d "
+        f"{c['h2d_bytes']} B ({c['paged_table_bytes']} B of paged-in "
+        f"tables), max_memory_allocated {c['max_memory_allocated']}; "
+        f"stats {c['stats']}")
+    log(f"shard phase launches: {launches}; card parts {card_s:.2f} s, "
+        f"with the CPU runs {out['wall_s']:.2f} s")
+    log("shard record: " + json.dumps(dict(out, shapes={
+        k: {"x".join(map(str, sh)): n for sh, n in v.items()}
+        for k, v in shapes.items()}), default=str))
+    return out
+
+
+def lane_probe(torch, M, card: str, device=None, n_lanes: int = MESH_LANES,
+               per_lane: int = SHARD_MAP_DOCS, pairs: int = 3) -> dict:
+    """Where a lane's round goes with the lane workers on and off:
+    shard-a's map population (its 640 docs a lane at capacity 2,048,
+    seeded with the 64-key space) on `n_lanes` lanes of the card, served
+    rounds of 2 ops a doc alternately with the workers
+    (AMTPU_PARALLEL_LANES=1) and sequentially (=0) on the same mesh,
+    `pairs` times, two rounds each. Every `ShardLane.ingest` is timed on
+    the thread that runs it, in wall time and in that thread's CPU time
+    (`time.thread_time`), and every round in wall time and in the
+    process's CPU time over all threads (`time.process_time`): a lane
+    waiting for the interpreter lock shows wall far above its CPU time,
+    and host waits that spin on the card show CPU time close to wall time
+    on every thread that waits."""
+    import threading
+    ids = [f"mdoc-{i:05d}" for i in range(n_lanes * per_lane)]
+    cuda = torch.device(device or "cuda").type == "cuda"
+    mesh = M.shard.ShardedDocSet(
+        n_shards=n_lanes, doc_kind="map", capacity=SHARD_CAP,
+        devices=None if cuda else [torch.device("cpu")])
+    samples = {"1": [], "0": []}
+    lock = threading.Lock()
+    mode = {"flag": "0"}
+    for lane in mesh.lanes:
+        def timed(deliveries, stats=None, _ingest=lane.ingest):
+            w0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return _ingest(deliveries, stats=stats)
+            finally:
+                w, c = time.perf_counter() - w0, time.thread_time() - c0
+                with lock:
+                    samples[mode["flag"]].append((w, c))
+        lane.ingest = timed
+    prior = os.environ.get("AMTPU_PARALLEL_LANES")
+    rounds = {"1": [], "0": []}
+    seq = 2
+    try:
+        mesh.deliver_round(stack_map_round(ids, 1, 64, 64))
+        _sync_lanes(torch, mesh)
+        samples["0"].clear()           # the seed round's ingests
+        for _ in range(pairs):
+            for flag in ("1", "0"):
+                os.environ["AMTPU_PARALLEL_LANES"] = flag
+                mode["flag"] = flag
+                for _r in range(2):
+                    chunk = stack_map_round(ids, seq, 64, 2)
+                    t0, c0 = time.perf_counter(), time.process_time()
+                    mesh.deliver_round(chunk)
+                    _sync_lanes(torch, mesh)
+                    rounds[flag].append((time.perf_counter() - t0,
+                                         time.process_time() - c0))
+                    seq += 1
+    finally:
+        mesh.close()
+        if prior is None:
+            os.environ.pop("AMTPU_PARALLEL_LANES", None)
+        else:
+            os.environ["AMTPU_PARALLEL_LANES"] = prior
+    out = {"lanes": n_lanes, "docs": len(ids), "card": card}
+    for flag, name in (("1", "workers"), ("0", "sequential")):
+        w, c = zip(*samples[flag])
+        rw, rc = zip(*rounds[flag])
+        out[name] = {"round_s": list(rw), "round_cpu_s": list(rc),
+                     "round_s_median": float(np.median(rw)),
+                     "round_cpu_s_median": float(np.median(rc)),
+                     "lane_ingest_wall_s_median": float(np.median(w)),
+                     "lane_ingest_cpu_s_median": float(np.median(c)),
+                     "lane_ingests": len(w)}
+        log(f"lane probe {name} ({card}): round "
+            f"{out[name]['round_s_median']:.3f} s wall, "
+            f"{out[name]['round_cpu_s_median']:.3f} s process CPU; lane "
+            f"ingest {out[name]['lane_ingest_wall_s_median']:.3f} s wall, "
+            f"{out[name]['lane_ingest_cpu_s_median']:.3f} s thread CPU")
+    return out
+
+
+def blocking_sync() -> int:
+    """Make every host wait on card 0 block instead of spin: the
+    primary context's scheduling flag set to CU_CTX_SCHED_BLOCKING_SYNC
+    through the driver, before the context is made. Returns the flags
+    the primary context then holds."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    dev, flags, active = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
+    for rc in (cu.cuInit(0), cu.cuDeviceGet(ctypes.byref(dev), 0),
+               cu.cuDevicePrimaryCtxSetFlags_v2(dev, 0x04),
+               cu.cuDevicePrimaryCtxGetState(dev, ctypes.byref(flags),
+                                             ctypes.byref(active))):
+        if rc != 0:
+            raise RuntimeError(f"CUDA driver call failed: {rc}")
+    if flags.value & 0x07 != 0x04:
+        raise RuntimeError(f"primary context flags {flags.value:#x}")
+    return flags.value
+
+
 def _profiled(torch, cuda: bool, fn):
     """fn() under torch.profiler: (wall s, device kernel µs, device
     operations, the device events, the profiler)."""
@@ -2730,7 +3316,8 @@ def port_modules():
     from types import SimpleNamespace
 
     import automerge_tpu_torch as am
-    from automerge_tpu_torch import _common, _uuid, checkpoint, native, obs
+    from automerge_tpu_torch import (_common, _uuid, checkpoint, native, obs,
+                                     residency, shard)
     from automerge_tpu_torch.backend import device as device_backend
     from automerge_tpu_torch.engine import (DeviceMapDoc, DeviceTextDocSet,
                                             MapChangeBatch,
@@ -2749,7 +3336,7 @@ def port_modules():
         accounting=accounting, runs=runs, TB=TextChangeBatch,
         DeviceTextDoc=DeviceTextDoc, DeviceTextDocSet=DeviceTextDocSet,
         stacked=stacked, S=scan_kernels, bucket=bucket, am=am,
-        device_backend=device_backend)
+        device_backend=device_backend, shard=shard, residency=residency)
 
 
 def main() -> int:
@@ -2758,11 +3345,18 @@ def main() -> int:
                     help="also profile the headline commit of both "
                          "materialization paths and the multi-document "
                          "tier; traces go to DIR")
+    ap.add_argument("--lane-probe", action="store_true",
+                    help="run only the lane-worker probe (lane_probe) "
+                         "and print its record as the last line")
+    ap.add_argument("--blocking-sync", action="store_true",
+                    help="host waits on the card block instead of spin "
+                         "(set before the CUDA context is made)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    ctx_flags = blocking_sync() if args.blocking_sync else None
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
@@ -2783,10 +3377,18 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     log(f"card: {card}")
+    if args.lane_probe:
+        with ThreadPoolExecutor(2) as ex:
+            native_build = ex.submit(M.native.load)
+            S.build()
+            native_build.result()
+        rec = dict(lane_probe(torch, M, card), context_flags=ctx_flags)
+        print(card, flush=True)
+        print(json.dumps(rec), flush=True)
+        return 0
 
     # 2. build: the CUDA kernels (nvcc) and the host codec (g++), started
     # together
-    from concurrent.futures import ThreadPoolExecutor
 
     def timed(fn):
         t = time.perf_counter()
@@ -2947,13 +3549,20 @@ def main() -> int:
     # replicas under cross-region WAN chaos
     sync = sync_phase(torch, M, card)
 
+    # 14. the sharded serving tier (before phase 7 too): shard-a cfg12's
+    # 5,120 map and 512 text docs on 8 lanes (streams) of the card, with
+    # the workers, sequentially and on one lane; shard-b the router's
+    # park/drain, a forced and a rebalancer migration; shard-c cfg18
+    # through the pager
+    shard_rec = shard_phase(torch, M, card)
+
     # 7. kernel times at every shape the driven paths launched with, then
     # one kernel per call (a profiler session slows later host launches)
     shapes_by_path = {"main": main_shapes, "self_contained": sc_shapes,
                       "residual": res_shapes, "pipeline": ring["shapes"],
                       "stacked": stacked_shapes, "docset": dset["shapes"],
                       "api": api["shapes"], "checkpoint": ckpt["shapes"],
-                      "sync": sync["shapes"]}
+                      "sync": sync["shapes"], "shard": shard_rec["shapes"]}
     log(f"launches by shape on the driven paths: {shapes_by_path}")
     shapes = {k: set().union(*(p[k] for p in shapes_by_path.values()))
               for k in S.launches}
@@ -2981,7 +3590,7 @@ def main() -> int:
                "residual": res_launches, "pipeline": ring["launches"],
                "stacked": stacked_launches, "docset": dset["launches"],
                "api": api["launches"], "checkpoint": ckpt["launches"],
-               "sync": sync["launches"]}
+               "sync": sync["launches"], "shard": shard_rec["launches"]}
     kernels = []
     for name, replaces, path in (
             ("multi_scan", "automerge_tpu/ops/scan_pallas.py:204", "main"),

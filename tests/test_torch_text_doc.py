@@ -250,7 +250,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             or m.startswith('jax.') or m == 'automerge_tpu'\n"
         "             or m.startswith('automerge_tpu.'))\n"
         "for m in ('engine.pipeline', 'engine.map_doc', 'native',\n"
-        "          'engine.stacked', 'engine.cross_doc', 'engine.doc_set'):\n"
+        "          'engine.stacked', 'engine.cross_doc', 'engine.doc_set',\n"
+        "          'shard.set', 'shard.parallel', 'residency.manager'):\n"
         "    assert 'automerge_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules\n"
         "           if m.startswith('automerge_tpu_torch')]))\n"
