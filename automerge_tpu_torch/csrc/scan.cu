@@ -1,10 +1,14 @@
 // Prefix-scan kernels for the text engine (sm_90a), bound through ctypes.
 //
-// Replaces the two Pallas TPU kernels of automerge_tpu/ops/scan_pallas.py:
+// Replaces the Pallas TPU kernels of automerge_tpu/ops/scan_pallas.py:
 //   multi_scan           (_multi_scan_kernel, scan_pallas.py:170-215,
 //                         pallas_call at :204)
 //   fused_segment_scans  (_fused_kernel, scan_pallas.py:76-167,
 //                         pallas_call at :142)
+//   sharded_fused_scans  (scan_pallas.py:218-266: per-shard
+//                         fused_segment_scans + an all_gather of the
+//                         shards' totals under shard_map) as the pair
+//                         fs_totals + fs_scan with a carry-in, below
 //
 // What bounds them on an H100: both move bytes and do one add or max per
 // element, so the floor is HBM traffic. multi_scan reads and writes 4 bytes
@@ -68,6 +72,21 @@
 // beat plain ones in both kernels (0.129 vs 0.133 ms, 0.038 vs 0.039 ms).
 // TMA bulk copies were not taken: the plain 16-byte loads already pass
 // half the bound.
+//
+// The sharded form (an element column cut into shards, each scanned at its
+// own global base) is reduce, exchange, then scan. fs_totals reduces one
+// shard's live slots to (segment starts, last segment-start slot or 0,
+// visible count) per row: 2 bytes read a slot, integer atomics into an
+// int32 (rows, 3) output zeroed first (sums and a max: the result does not
+// depend on their order). The caller gathers every shard's totals onto
+// each shard's device, (n_shards, rows, 3), without a host sync; fs_scan
+// then takes them as a carry-in: the tile 0 of each row folds the earlier
+// shards' totals (rank and vis summed, heads maxed, 0 for none, as
+// scan_pallas.py:251-258 does) into the inclusive prefix it publishes, so
+// the decoupled look-back carries them to every later tile. The pair reads
+// the two bool columns twice and writes the three int32 columns once: 16
+// bytes a slot against the 14 of one pass (0.0263 ms at C = 6,291,456 on
+// an H100 at 3.35 TB/s), plus 12 bytes a row and shard of totals.
 //
 // The scratch is one 64-bit ticket word plus the status words; the entry
 // point zeroes it on the caller's stream (cudaMemsetAsync) before the
@@ -315,12 +334,14 @@ __device__ __forceinline__ bool load_tri(const u64* w, Tri* out) {
 }
 
 // Look-back over (rank, head, vis); per tile, words 0-2 hold the aggregate
-// (flag A) and words 3-5 the inclusive prefix (flag P).
-__device__ Tri lookback_tri(u64* st, int idx, Tri agg, int lane) {
+// (flag A) and words 3-5 the inclusive prefix (flag P). Tile 0 starts from
+// `cin`, the carry-in of the shards before this one ({0, 0, 0} unsharded).
+__device__ Tri lookback_tri(u64* st, int idx, Tri agg, Tri cin, int lane) {
   u64* me = st + static_cast<size_t>(kFsWords) * idx;
   if (idx == 0) {
-    if (lane < 3) st_status(me + 3 + lane, kFlagP | tri_get(agg, lane));
-    return {0, 0, 0};
+    if (lane < 3)
+      st_status(me + 3 + lane, kFlagP | tri_get(combine(cin, agg), lane));
+    return cin;
   }
   if (lane < 3) st_status(me + lane, kFlagA | tri_get(agg, lane));
   Tri excl = {0, 0, 0};
@@ -399,14 +420,56 @@ __device__ __forceinline__ void store_column(int4* sh_v, int* out, int s0,
   __syncthreads();
 }
 
+// One thread's 32 slots from i0 on, of a row of length n whose first slot
+// is global slot `base`: the segment-start and visible bits (sm, vm) of
+// its live slots (global slot in [1, ne], i < n).
+__device__ __forceinline__ void slot_masks(
+    const unsigned char* __restrict__ chain,
+    const unsigned char* __restrict__ has, int n, int i0, long long f0,
+    long long ne, int vec_in, unsigned* sm, unsigned* vm) {
+  unsigned cm = 0, hm = 0;                       // chain / has_value bits
+  if (vec_in && i0 + kFsItems <= n) {
+    const uint4* c4 = reinterpret_cast<const uint4*>(chain + i0);
+    const uint4* h4 = reinterpret_cast<const uint4*>(has + i0);
+    const uint4 c_lo = __ldg(c4), c_hi = __ldg(c4 + 1);
+    const uint4 h_lo = __ldg(h4), h_hi = __ldg(h4 + 1);
+    cm = mask32(c_lo, c_hi);
+    hm = mask32(h_lo, h_hi);
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < kFsItems; ++k) {
+      if (i0 + k < n) {
+        cm |= static_cast<unsigned>(chain[i0 + k] != 0) << k;
+        hm |= static_cast<unsigned>(has[i0 + k] != 0) << k;
+      }
+    }
+  }
+  const long long lo = max(1ll - f0, 0ll);
+  const long long hi = min(min(ne - f0, 31ll),
+                           static_cast<long long>(n) - 1 - i0);
+  const unsigned em = bit_range(lo, hi);
+  *sm = em & ~cm;                                // segment starts
+  *vm = em & hm;                                 // visible elements
+}
+
+__device__ __forceinline__ Tri thread_tri(unsigned sm, unsigned vm,
+                                          long long f0) {
+  return {static_cast<unsigned>(__popc(sm)),
+          sm ? static_cast<unsigned>(f0 + 31 - __clz(sm)) : 0u,
+          static_cast<unsigned>(__popc(vm))};
+}
+
 // Rows of length n, each scanned on its own: tiles take tickets row after
 // row (tpr tiles per row), and the look-back stays inside the row. Row r
 // reads its element count from n_elems_p[r * ne_stride] (stride 0: one
-// count for every row).
+// count for every row). With `carry` (the int32 (n_shards, rows, 3) totals
+// of every shard of the column, this one at index `shard`), row r starts
+// from the combined totals of shards 0 .. shard - 1.
 __global__ void __launch_bounds__(kFsThreads)
 fs_scan(const unsigned char* __restrict__ chain,
-        const unsigned char* __restrict__ has, int n, int tpr,
+        const unsigned char* __restrict__ has, int n, int tpr, int rows,
         const int* __restrict__ n_elems_p, int ne_stride, int base,
+        const int* __restrict__ carry, int shard,
         int vec_in, int vec_out, unsigned* ticket, u64* status,
         int* __restrict__ rank_out, int* __restrict__ head_out,
         int* __restrict__ vis_out) {
@@ -429,36 +492,11 @@ fs_scan(const unsigned char* __restrict__ chain,
   const int s0 = ct * kFsTile;                   // first slot of the tile
   const int i0 = s0 + t * kFsItems;              // first slot of the thread
 
-  unsigned cm = 0, hm = 0;                       // chain / has_value bits
-  if (vec_in && i0 + kFsItems <= n) {
-    const uint4* c4 = reinterpret_cast<const uint4*>(chain + i0);
-    const uint4* h4 = reinterpret_cast<const uint4*>(has + i0);
-    const uint4 c_lo = __ldg(c4), c_hi = __ldg(c4 + 1);
-    const uint4 h_lo = __ldg(h4), h_hi = __ldg(h4 + 1);
-    cm = mask32(c_lo, c_hi);
-    hm = mask32(h_lo, h_hi);
-  } else {
-#pragma unroll 4
-    for (int k = 0; k < kFsItems; ++k) {
-      if (i0 + k < n) {
-        cm |= static_cast<unsigned>(chain[i0 + k] != 0) << k;
-        hm |= static_cast<unsigned>(has[i0 + k] != 0) << k;
-      }
-    }
-  }
-  // live elements: global slot base + i in [1, n_elems], and i < n
   const long long f0 = static_cast<long long>(base) + i0;
-  const long long lo = max(1ll - f0, 0ll);
   const long long ne = n_elems_p[static_cast<size_t>(row) * ne_stride];
-  const long long hi = min(min(ne - f0, 31ll),
-                           static_cast<long long>(n) - 1 - i0);
-  const unsigned em = bit_range(lo, hi);
-  const unsigned sm = em & ~cm;                  // segment starts
-  const unsigned vm = em & hm;                   // visible elements
-
-  const Tri mine = {static_cast<unsigned>(__popc(sm)),
-                    sm ? static_cast<unsigned>(f0 + 31 - __clz(sm)) : 0u,
-                    static_cast<unsigned>(__popc(vm))};
+  unsigned sm, vm;
+  slot_masks(chain, has, n, i0, f0, ne, vec_in, &sm, &vm);
+  const Tri mine = thread_tri(sm, vm, f0);
   // exclusive scan across the block
   Tri incl = {warp_incl_sum(mine.rank, lane), warp_incl_max(mine.head, lane),
               warp_incl_sum(mine.vis, lane)};
@@ -480,8 +518,18 @@ fs_scan(const unsigned char* __restrict__ chain,
     agg = combine(agg, s);
   }
   if (wid == 0) {
+    Tri cin = {0, 0, 0};
+    if (carry != nullptr && ct == 0) {
+      for (int s = 0; s < shard; ++s) {
+        const int* c = carry + (static_cast<size_t>(s) * rows + row) * 3;
+        cin = combine(cin, {static_cast<unsigned>(c[0]),
+                            static_cast<unsigned>(c[1]),
+                            static_cast<unsigned>(c[2])});
+      }
+    }
     const Tri pre = lookback_tri(
-        status + static_cast<size_t>(row) * tpr * kFsWords, ct, agg, lane);
+        status + static_cast<size_t>(row) * tpr * kFsWords, ct, agg, cin,
+        lane);
     if (lane == 0) sh_prefix = pre;
   }
   __syncthreads();
@@ -497,6 +545,46 @@ fs_scan(const unsigned char* __restrict__ chain,
   store_column(sh_v, vis_out, s0, n, vec_out, [&](int k) {
     return start.vis + __popc(vm & ((2u << k) - 1u));
   });
+}
+
+// Per row, the totals of its live slots: (segment starts, the latest
+// segment-start slot or 0, visible count), added (and maxed) into the
+// int32 (rows, 3) `out`, which the entry point zeroes first. One tile a
+// block, as fs_scan cuts them; no ticket, no look-back.
+__global__ void __launch_bounds__(kFsThreads)
+fs_totals(const unsigned char* __restrict__ chain,
+          const unsigned char* __restrict__ has, int n, int tpr,
+          const int* __restrict__ n_elems_p, int ne_stride, int base,
+          int vec_in, int* __restrict__ out) {
+  constexpr int kWarps = kFsThreads / 32;
+  __shared__ unsigned sh_w[3][kWarps];
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+  const int row = blockIdx.x / tpr;
+  const int ct = blockIdx.x - row * tpr;
+  const size_t roff = static_cast<size_t>(row) * n;
+  const int i0 = ct * kFsTile + t * kFsItems;
+  const long long f0 = static_cast<long long>(base) + i0;
+  const long long ne = n_elems_p[static_cast<size_t>(row) * ne_stride];
+  unsigned sm = 0, vm = 0;
+  if (i0 < n) slot_masks(chain + roff, has + roff, n, i0, f0, ne, vec_in,
+                         &sm, &vm);
+  const Tri w = warp_reduce(thread_tri(sm, vm, f0));
+  if (lane == 0) {
+    sh_w[0][wid] = w.rank;
+    sh_w[1][wid] = w.head;
+    sh_w[2][wid] = w.vis;
+  }
+  __syncthreads();
+  if (t == 0) {
+    Tri agg = {0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k)
+      agg = combine(agg, {sh_w[0][k], sh_w[1][k], sh_w[2][k]});
+    unsigned* o = reinterpret_cast<unsigned*>(out) + static_cast<size_t>(row) * 3;
+    if (agg.rank) atomicAdd(o, agg.rank);
+    if (agg.head) atomicMax(o + 1, agg.head);
+    if (agg.vis) atomicAdd(o + 2, agg.vis);
+  }
 }
 
 inline int num_tiles(int n, int tile) { return (n + tile - 1) / tile; }
@@ -539,11 +627,15 @@ int amt_multi_scan(const void* x, void* y, void* scratch,
 // (rank_incl, seg_head, cumvis) of `rows` rows of bool chain/has_value
 // columns, each row n long and scanned on its own; row r reads its
 // element count n_elems[r * ne_stride] on the device (ne_stride 0: one
-// count for all rows). scratch: at least 8 * (1 + 6 * rows * ceil(n /
-// tile)) bytes, 8-byte aligned.
+// count for all rows). `carry` (may be null): the int32 (n_shards, rows,
+// 3) totals of every shard of a sharded column (amt_fs_totals), this
+// shard at index `shard`; row r then starts from shards 0 .. shard - 1.
+// scratch: at least 8 * (1 + 6 * rows * ceil(n / tile)) bytes, 8-byte
+// aligned.
 int amt_fused_segment_scans(const void* chain, const void* has, int rows,
                             int n, const void* n_elems, int ne_stride,
-                            int base, void* scratch, long long scratch_bytes,
+                            int base, const void* carry, int shard,
+                            void* scratch, long long scratch_bytes,
                             void* rank, void* head, void* cumvis,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -563,10 +655,35 @@ int amt_fused_segment_scans(const void* chain, const void* has, int rows,
                       aligned16(cumvis) && (rows == 1 || n % 4 == 0);
   fs_scan<<<static_cast<unsigned>(tiles), kFsThreads, 0, s>>>(
       static_cast<const unsigned char*>(chain),
-      static_cast<const unsigned char*>(has), n, tpr,
-      static_cast<const int*>(n_elems), ne_stride, base, vec_in, vec_out,
+      static_cast<const unsigned char*>(has), n, tpr, rows,
+      static_cast<const int*>(n_elems), ne_stride, base,
+      static_cast<const int*>(carry), shard, vec_in, vec_out,
       reinterpret_cast<unsigned*>(words), words + 1, static_cast<int*>(rank),
       static_cast<int*>(head), static_cast<int*>(cumvis));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int32 (rows, 3) totals (segment starts, latest segment-start slot
+// or 0, visible count) of the live slots of `rows` rows of bool
+// chain/has_value columns, each n long with first global slot `base`;
+// element counts as amt_fused_segment_scans reads them. `out` is zeroed
+// on the stream first.
+int amt_fs_totals(const void* chain, const void* has, int rows, int n,
+                  const void* n_elems, int ne_stride, int base, void* out,
+                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tpr = num_tiles(n, kFsTile);
+  const long long tiles = static_cast<long long>(rows) * tpr;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaMemsetAsync(out, 0, 12ll * rows, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int vec_in = aligned16(chain) && aligned16(has) &&
+                     (rows == 1 || n % 16 == 0);
+  fs_totals<<<static_cast<unsigned>(tiles), kFsThreads, 0, s>>>(
+      static_cast<const unsigned char*>(chain),
+      static_cast<const unsigned char*>(has), n, tpr,
+      static_cast<const int*>(n_elems), ne_stride, base, vec_in,
+      static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,6 +24,17 @@ host segment mirror (the planned program), or, for a call where a mirror
 is missing or diverged from the chain bits, through the self-contained
 program whose segment scans are ONE row-form `fused_segment_scans`
 launch over (D, C).
+
+With a mesh (parallel/mesh.py: axes "doc", "elem"; the JAX package's
+`mesh=`), the tables are held as (doc, elem) blocks on the mesh's
+devices. The fast-tier round runs per doc group, on the group's rows
+gathered onto its first device (one `multi_scan` launch a group), and
+scatters them back; `texts()` scans the blocks in place through the row
+form of `sharded_fused_scans` and materializes planned rows
+element-sharded (`sharded_planned_materialize_r`), self-contained rows
+on each group's first device. A graduated document lives on its group's
+first device, and graduated documents apply one by one (the JAX package
+keeps its per-document loop for mesh sets too).
 """
 
 from __future__ import annotations
@@ -61,18 +72,36 @@ class _DocMeta:
 class DeviceTextDocSet:
     """A set of text documents merged as one stacked device program, on a
     CUDA card (``device=None``) or, when asked with ``device="cpu"``, on
-    the CPU."""
+    the CPU; or, given a `parallel.Mesh`, sharded over its devices
+    (documents along "doc", each document's elements along "elem")."""
 
-    def __init__(self, obj_ids, capacity: int = 1024, device=None):
+    def __init__(self, obj_ids, capacity: int = 1024, device=None,
+                 mesh=None):
         from ..ops.ingest import bucket
+        if mesh is not None and device is not None:
+            raise ValueError("DeviceTextDocSet takes a device or a mesh, "
+                             "not both")
         self.obj_ids = list(obj_ids)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # a mesh set's own device is its first shard's
+        self.device = (mesh.device((0, 0)) if mesh is not None
+                       else resolve_device(device))
         self._idx = {o: i for i, o in enumerate(self.obj_ids)}
         self._meta = [_DocMeta() for _ in self.obj_ids]
         self._cap = bucket(max(capacity, 16))
         self._dev = None                      # stacked (D, cap) tables
         self._overlay: dict = {}              # doc idx -> DeviceTextDoc
         self._codes_cache = None
+        if mesh is not None:
+            if self.n_docs % mesh.shape["doc"]:
+                raise ValueError(
+                    f"the mesh's doc axis ({mesh.shape['doc']}) must divide "
+                    f"n_docs ({self.n_docs})")
+            if self._cap % mesh.shape["elem"]:
+                raise ValueError(
+                    f"the mesh's elem axis ({mesh.shape['elem']}) must "
+                    f"divide the bucketed capacity ({self._cap}); pick a "
+                    f"power-of-two elem axis")
 
     @property
     def n_docs(self) -> int:
@@ -89,13 +118,35 @@ class DeviceTextDocSet:
 
     def _ensure_dev(self):
         if self._dev is None:
+            from ..parallel.mesh import ShardedArray
             shape = (self.n_docs, self._cap)
             self._dev = {}
             for k, fill in zip(self._TABLE_KEYS, TEXT_TABLE_FILLS):
                 dtype = torch.bool if isinstance(fill, bool) else torch.int32
-                self._dev[k] = torch.full(shape, fill, dtype=dtype,
-                                          device=self.device)
+                self._dev[k] = (
+                    torch.full(shape, fill, dtype=dtype, device=self.device)
+                    if self.mesh is None else
+                    ShardedArray.full(self.mesh, shape, ("doc", "elem"),
+                                      fill, dtype))
         return self._dev
+
+    def _group(self, d: int) -> tuple:
+        """A mesh set's doc d: (its group's first coordinate, its row in
+        the group's blocks)."""
+        per = self.n_docs // self.mesh.shape["doc"]
+        return (d // per, 0), d % per
+
+    def _rows(self, d: int) -> dict:
+        """Doc d's table rows, as tensors on the device it graduates to
+        (a mesh set gathers the row's element blocks onto its group's
+        first device)."""
+        dev = self._ensure_dev()
+        if self.mesh is None:
+            return {k: dev[k][d].clone() for k in self._TABLE_KEYS}
+        from ..parallel import mesh as pm
+        lead, row = self._group(d)
+        return {k: pm.gather(dev[k], "elem", lines=[lead],
+                             index=[row])[lead][0] for k in self._TABLE_KEYS}
 
     # ------------------------------------------------------------------
 
@@ -106,10 +157,10 @@ class DeviceTextDocSet:
         if d in self._overlay:
             return self._overlay[d]
         meta = self._meta[d]
+        rows = self._rows(d)
         doc = DeviceTextDoc(self.obj_ids[d], capacity=self._cap,
-                            device=self.device)
-        dev = self._ensure_dev()
-        doc._dev = {k: dev[k][d].clone() for k in self._TABLE_KEYS}
+                            device=rows["parent"].device)
+        doc._dev = rows
         doc._cap = self._cap
         doc.n_elems = meta.n_elems
         doc.index = meta.index
@@ -138,8 +189,7 @@ class DeviceTextDocSet:
                                   DESC_HAS_VALUE, DESC_META,
                                   DESC_PARENT_SLOT, DESC_WIN_ACTOR,
                                   DESC_WIN_SEQ, META_BASE_SLOT,
-                                  META_N_ELEMS, break_chains_r, bucket,
-                                  expand_runs_dense_r)
+                                  META_N_ELEMS, bucket)
 
         self._codes_cache = None
         fast: list = []
@@ -180,6 +230,12 @@ class DeviceTextDocSet:
         # (inactive docs write only past their live region)
         need = max(m.n_elems for m in self._meta) + 1 + N
         out_cap = max(bucket(need), self._cap)
+        if self.mesh is not None:
+            # bucket() can yield 3*2^(k-1) sizes that a power-of-two elem
+            # axis doesn't divide; keep the constructor's sharding invariant
+            # by rounding up to a multiple of the elem axis
+            e = self.mesh.shape["elem"]
+            out_cap = -(-out_cap // e) * e
         D = self.n_docs
 
         # one (D, 9, R) descriptor upload in the run-descriptor layout
@@ -201,20 +257,8 @@ class DeviceTextDocSet:
             desc[d, DESC_META, META_N_ELEMS] = p["n_pairs"]
             blob[d, : p["n_pairs"]] = p["blob"]
 
-        dev = self._ensure_dev()
-        tables = tuple(dev[k] for k in self._TABLE_KEYS)
-        desc_t, blob_t = self._put(desc), self._put(blob)
-        expanded = expand_runs_dense_r(
-            *tables, *(desc_t[:, r] for r in (
-                DESC_PARENT_SLOT, DESC_CTR0, DESC_ACTOR, DESC_WIN_ACTOR,
-                DESC_WIN_SEQ, DESC_ELEM_BASE)),
-            desc_t[:, DESC_HAS_VALUE].bool(), blob_t,
-            desc_t[:, DESC_META, META_N_ELEMS],
-            desc_t[:, DESC_META, META_BASE_SLOT], out_cap=out_cap)
-        self._dev = dict(zip(self._TABLE_KEYS, expanded))
-        self._cap = out_cap
-
         # chain breaks for touched parents (stacked, one scatter)
+        touch = None
         touches = [(p["d"], p["parent_slot"], p["ctr0"], p["actor"])
                    for p in fast if p["n_breaks"]]
         if touches:
@@ -225,11 +269,13 @@ class DeviceTextDocSet:
                 touch[d, 0, : len(ps)] = ps
                 touch[d, 1, : len(ps)] = cs
                 touch[d, 2, : len(ps)] = as_
-            touch_t = self._put(touch)
-            self._dev["chain"] = break_chains_r(
-                self._dev["chain"], self._dev["parent"], self._dev["ctr"],
-                self._dev["actor"], touch_t[:, 0], touch_t[:, 1],
-                touch_t[:, 2])
+        if self.mesh is None:
+            self._dev = self._expand_rows(
+                self._ensure_dev(), self._put(desc), self._put(blob),
+                None if touch is None else self._put(touch), out_cap)
+        else:
+            self._expand_on_mesh(desc, blob, touch, out_cap)
+        self._cap = out_cap
 
         for p in fast:
             meta = self._meta[p["d"]]
@@ -240,12 +286,61 @@ class DeviceTextDocSet:
                 meta.seg_bound += 3 * p["n_runs"] + 2
         return self
 
+    def _expand_rows(self, dev: dict, desc_t, blob_t, touch_t,
+                     out_cap: int) -> dict:
+        """The fast tier's round on (D', cap) table rows and their
+        (D', 9, R) descriptors, (D', N) blobs and (D', 3, T) touches (or
+        None): the dense run expansion, ONE `multi_scan` launch on
+        (D' * 5, N), then the chain breaks. Returns the new tables."""
+        from ..ops.ingest import (DESC_ACTOR, DESC_CTR0, DESC_ELEM_BASE,
+                                  DESC_HAS_VALUE, DESC_META,
+                                  DESC_PARENT_SLOT, DESC_WIN_ACTOR,
+                                  DESC_WIN_SEQ, META_BASE_SLOT,
+                                  META_N_ELEMS, break_chains_r,
+                                  expand_runs_dense_r)
+        expanded = expand_runs_dense_r(
+            *(dev[k] for k in self._TABLE_KEYS), *(desc_t[:, r] for r in (
+                DESC_PARENT_SLOT, DESC_CTR0, DESC_ACTOR, DESC_WIN_ACTOR,
+                DESC_WIN_SEQ, DESC_ELEM_BASE)),
+            desc_t[:, DESC_HAS_VALUE].bool(), blob_t,
+            desc_t[:, DESC_META, META_N_ELEMS],
+            desc_t[:, DESC_META, META_BASE_SLOT], out_cap=out_cap)
+        tables = dict(zip(self._TABLE_KEYS, expanded))
+        if touch_t is not None:
+            tables["chain"] = break_chains_r(
+                tables["chain"], tables["parent"], tables["ctr"],
+                tables["actor"], touch_t[:, 0], touch_t[:, 1], touch_t[:, 2])
+        return tables
+
+    def _expand_on_mesh(self, desc, blob, touch, out_cap: int):
+        """`_expand_rows` per doc group of a mesh set: the group's rows
+        gather onto its first device, expand there, and scatter back as
+        (doc, elem) blocks of `out_cap` columns."""
+        from ..parallel import mesh as pm
+        rows = {k: pm.gather(v, "elem") for k, v in self._ensure_dev().items()}
+        per = self.n_docs // self.mesh.shape["doc"]
+        out = {k: {} for k in self._TABLE_KEYS}
+        for lead in rows["parent"]:
+            dev = self.mesh.device(lead)
+            sl = slice(lead[0] * per, (lead[0] + 1) * per)
+
+            def put(a):
+                return torch.from_numpy(np.ascontiguousarray(a[sl])).to(dev)
+            new = self._expand_rows(
+                {k: rows[k][lead] for k in self._TABLE_KEYS}, put(desc),
+                put(blob), None if touch is None else put(touch), out_cap)
+            for k, t in new.items():
+                out[k][lead] = t
+        self._dev = {k: pm.scatter(self.mesh, out[k], "elem", ("doc", "elem"))
+                     for k in self._TABLE_KEYS}
+
     def _apply_general(self, general: list):
         """Apply the graduated group: one stacked multi-object apply per
         call (engine/stacked.apply_stacked consumes the already-decoded
         batches), per-doc `apply_batch` when the stacked tier declines the
-        population (single doc / tiny payload / skewed caps)."""
-        if len(general) >= 2:
+        population (single doc / tiny payload / skewed caps) or the set
+        is on a mesh (its graduated docs live on their groups' devices)."""
+        if self.mesh is None and len(general) >= 2:
             from . import stacked as _stacked
             if _stacked.apply_stacked(general):
                 return
@@ -376,11 +471,11 @@ class DeviceTextDocSet:
     def _rebuild_row_mirror(self, d: int):
         """Heal path: reconstruct row d's segment mirror from its fetched
         chain/parent rows (None if that fails too)."""
-        dev = self._ensure_dev()
+        rows = self._rows(d)
         meta = self._meta[d]
         try:
             meta.mirror = SegmentMirror.rebuild(
-                dev["chain"][d].cpu().numpy(), dev["parent"][d].cpu().numpy(),
+                rows["chain"].cpu().numpy(), rows["parent"].cpu().numpy(),
                 meta.n_elems, meta.index.slot_to_key)
         except Exception:
             logger.warning("mirror rebuild failed for doc-set row %d", d,
@@ -410,8 +505,12 @@ class DeviceTextDocSet:
                                                "value", "has_value",
                                                "chain"))
                 all_ascii = all(self._meta[d].all_ascii for d in stacked_idx)
-                n_el = self._put(np.asarray([m.n_elems for m in self._meta],
-                                            np.int32))
+                n_el = np.asarray([m.n_elems for m in self._meta], np.int32)
+                if self.mesh is None:
+                    n_el = self._put(n_el)
+                else:
+                    from ..parallel import mesh as pm
+                    n_el = pm.shard(self.mesh, n_el, ("doc",))
                 for d in stacked_idx:
                     # a row whose plan-time mirror update failed rebuilds
                     # here from its chain bits, so one bad round degrades
@@ -430,10 +529,16 @@ class DeviceTextDocSet:
                         self._meta[d].mirror.plan(S, self._meta[d].n_elems)
                         if d in stacked else empty.plan(S, 0)
                         for d in range(self.n_docs)])
+                    if self.mesh is not None:
+                        return self._mesh_planned(cols, n_el, plans, S,
+                                                  all_ascii)
                     return materialize_codes_planned_r(
                         *cols, n_el, self._put(plans), S=S, as_u8=all_ascii)
 
                 def run(S):
+                    if self.mesh is not None:
+                        return self._mesh_self_contained(cols, n_el, S,
+                                                         all_ascii)
                     return materialize_codes_r(*cols, n_el, S=S,
                                                as_u8=all_ascii)
 
@@ -484,3 +589,31 @@ class DeviceTextDocSet:
         for d, doc in self._overlay.items():
             out[self.obj_ids[d]] = doc.text()
         return out
+
+    def _mesh_planned(self, cols, n_el, plans, S: int, as_u8: bool):
+        """The planned materialization of a mesh set's rows, element-
+        sharded (`sharded_planned_materialize_r`); (codes, scalars) on the
+        host."""
+        from ..parallel import mesh as pm
+        codes, scalars = pm.sharded_planned_materialize_r(
+            self.mesh, cols, n_el, pm.shard(self.mesh, plans, ("doc",)), S,
+            as_u8)
+        return pm.unshard(codes, "cpu"), pm.unshard(scalars, "cpu")
+
+    def _mesh_self_contained(self, cols, n_el, S: int, as_u8: bool):
+        """The self-contained materialization of a mesh set's rows: the
+        segment scans on the blocks in place (`sharded_fused_scans`, row
+        form), the rest on each group's rows gathered onto its first
+        device; (codes, scalars) on the host."""
+        from ..ops.ingest import _materialize_core_r
+        from ..ops.scan_kernels import sharded_fused_scans
+        from ..parallel import mesh as pm
+        rank, _head, cumvis = sharded_fused_scans(self.mesh, cols[5], cols[4],
+                                                  n_el)
+        rows = [pm.gather(x, "elem") for x in (*cols, rank, cumvis)]
+        out = [_materialize_core_r(*(x[lead] for x in rows[:6]),
+                                   n_el.blocks[lead], S, False, as_u8,
+                                   scans=(rows[6][lead], rows[7][lead]))
+               for lead in sorted(rows[0])]
+        return (torch.cat([o[0].cpu() for o in out]),
+                torch.cat([o[1].cpu() for o in out]))

@@ -612,7 +612,7 @@ def _place(value, vis, is_elem, cumvis, seg_base, starts, sidx, live_seg,
 
 
 def _materialize_core_r(parent, ctr, actor, value, has_value, chain,
-                        n_elems, S, with_pos, as_u8):
+                        n_elems, S, with_pos, as_u8, scans=None):
     """RGA positions + visible compaction of (D, C) tables from the
     maintained chain bits, each row on its own.
 
@@ -621,14 +621,20 @@ def _materialize_core_r(parent, ctr, actor, value, has_value, chain,
     position = segment start + offset. The segment ranks and the visible
     prefix sum of every row come from ONE `fused_segment_scans` launch
     (the JAX package ran a (2, C) cumsum here and kept the Pallas kernel
-    for other callers). Returns (codes, scalars (D, 2) = [n_vis, n_segs])
+    for other callers). `scans` = (rank_incl, cumvis) computed already (an
+    element-sharded caller scans its shards in place: parallel/mesh.py)
+    skips that launch. Returns (codes, scalars (D, 2) = [n_vis, n_segs])
     or, `with_pos`, (pos, codes, scalars)."""
     D, C = parent.shape
     ne = _per_row(n_elems)
     idx = torch.arange(C, dtype=I32, device=parent.device)
     is_elem = (idx >= 1) & (idx <= ne)
     vis = has_value & is_elem
-    rank_incl, _seg_head, cumvis = _segment_scans(chain, has_value, n_elems)
+    if scans is None:
+        rank_incl, _seg_head, cumvis = _segment_scans(chain, has_value,
+                                                      n_elems)
+    else:
+        rank_incl, cumvis = scans
     n_segs = rank_incl[:, -1]
     sidx = torch.arange(S, dtype=I32, device=parent.device)
     heads_raw = torch.searchsorted(rank_incl, sidx.expand(D, S).contiguous(),

@@ -16,7 +16,22 @@ Counterpart of `automerge_tpu/ops/scan_pallas.py`:
   DocSet's materialization over its stacked documents (the JAX package
   vmaps the one-column kernel there).
 
-Both kernels live in `csrc/scan.cu`. Each call is one single-pass launch
+- `sharded_fused_scans(mesh, chain, has_value, n_elems)` replaces
+  `sharded_fused_scans` (scan_pallas.py:218-266; no `pallas_call` of its
+  own: per-shard `fused_segment_scans` under `shard_map` plus one
+  `all_gather` of the shards' totals): the same three scans over a column
+  (or (D, C) rows) cut into element shards on a mesh
+  (parallel/mesh.py), as reduce, exchange, then scan. `fs_totals` (a
+  kernel of its own, one launch a shard) reduces each shard to its
+  (rank, head, vis) totals, the mesh's `all_gather` gives every shard all
+  of them, and `fused_segment_scans_carry` (the `fs_scan` kernel with a
+  carry-in, one launch a shard) scans the shard starting from the
+  earlier shards' totals. The bound is one pass over the whole column,
+  14 bytes a slot (0.0263 ms at C = 6,291,456 on an H100); the pair reads
+  the bool columns twice, 16 bytes a slot. An axis of one shard runs the
+  unsharded kernel and exchanges nothing.
+
+The kernels live in `csrc/scan.cu`. Each call is one single-pass launch
 (a chained scan with decoupled look-back over ticketed tiles, 16-byte
 loads and stores) after a memset of its scratch; the source note says what
 bounds them on an H100 (bytes: 302 MB and 88 MB at the merge shapes) and
@@ -59,10 +74,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MS_STATUS_WORDS = 1
 FS_STATUS_WORDS = 6
 
-#: launches per kernel since the last `reset_launches()`
-launches = {"multi_scan": 0, "fused_segment_scans": 0}
+#: launches per kernel since the last `reset_launches()`; the carry-in
+#: launches of `fs_scan` that the sharded form makes count under
+#: "sharded_fused_scans"
+launches = {"multi_scan": 0, "fused_segment_scans": 0, "fs_totals": 0,
+            "sharded_fused_scans": 0}
 #: launches per kernel and input shape since the last `reset_launches()`
-launch_shapes = {"multi_scan": {}, "fused_segment_scans": {}}
+launch_shapes = {k: {} for k in launches}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -151,8 +169,10 @@ def bind(path) -> ctypes.CDLL:
     lib.amt_multi_scan.argtypes = [vp, vp, vp, cll, ci, ci, vp]
     lib.amt_multi_scan.restype = ci
     lib.amt_fused_segment_scans.argtypes = [
-        vp, vp, ci, ci, vp, ci, ci, vp, cll, vp, vp, vp, vp]
+        vp, vp, ci, ci, vp, ci, ci, vp, ci, vp, cll, vp, vp, vp, vp]
     lib.amt_fused_segment_scans.restype = ci
+    lib.amt_fs_totals.argtypes = [vp, vp, ci, ci, vp, ci, ci, vp, vp]
+    lib.amt_fs_totals.restype = ci
     return lib
 
 
@@ -274,6 +294,69 @@ def _row_counts(n_elems, chain: torch.Tensor) -> torch.Tensor:
     return n_elems
 
 
+def _fs_operands(name: str, chain: torch.Tensor, has_value: torch.Tensor,
+                 n_elems):
+    """Check the CUDA operands of the segment-scan kernels; returns the
+    element counts as a contiguous int32 tensor on the card."""
+    rows = chain.dim() == 2
+    _check_cuda(f"{name} chain", chain, torch.bool, 2 if rows else 1)
+    _check_cuda(f"{name} has_value", has_value, torch.bool,
+                2 if rows else 1)
+    if has_value.shape != chain.shape:
+        raise ValueError(f"{name}: chain and has_value differ "
+                         f"in shape ({tuple(chain.shape)} vs "
+                         f"{tuple(has_value.shape)})")
+    if rows:
+        n_elems = _row_counts(n_elems, chain)
+    else:
+        if not torch.is_tensor(n_elems):
+            # a fill on the device: a pageable h2d copy would sync the
+            # stream
+            n_elems = torch.full((), int(n_elems), dtype=torch.int32,
+                                 device=chain.device)
+        if (n_elems.device != chain.device or n_elems.dtype != torch.int32
+                or n_elems.numel() != 1):
+            raise ValueError(f"{name}: n_elems must be one int32 on "
+                             f"{chain.device}")
+    return n_elems.contiguous()
+
+
+def _fs_launch(name: str, chain, has_value, n_elems, base: int, carry,
+               shard: int):
+    """One `fs_scan` launch (with a carry-in when `carry` is given),
+    counted under `name`."""
+    n_elems = _fs_operands(name, chain, has_value, n_elems)
+    rows = chain.dim() == 2
+    D, C = (chain.shape if rows else (1, chain.shape[0]))
+    if carry is not None:
+        _check_cuda(f"{name} carry", carry, torch.int32, carry.dim())
+        if carry.device != chain.device or carry.numel() < 3 * D * shard:
+            raise ValueError(f"{name}: carry must hold the int32 totals "
+                             f"of {shard} earlier shards of {D} rows on "
+                             f"{chain.device}")
+    rank = torch.empty(chain.shape, dtype=torch.int32, device=chain.device)
+    head = torch.empty_like(rank)
+    cumvis = torch.empty_like(rank)
+    if rank.numel() == 0:
+        return rank, head, cumvis
+    lib = load()
+    with torch.cuda.device(chain.device):
+        scratch = _scratch(D * n_tiles(C, lib.amt_fused_scan_tile()),
+                           FS_STATUS_WORDS, chain.device)
+        rc = lib.amt_fused_segment_scans(
+            chain.data_ptr(), has_value.data_ptr(), D, C,
+            n_elems.data_ptr(), 1 if rows else 0, int(base),
+            None if carry is None else carry.data_ptr(), int(shard),
+            scratch.data_ptr(), scratch.numel() * 8,
+            rank.data_ptr(), head.data_ptr(), cumvis.data_ptr(),
+            torch.cuda.current_stream(chain.device).cuda_stream)
+    _raise_on(rc, name)
+    _count_launch(name, tuple(chain.shape))
+    if _dt.ENABLED:
+        _DT[name, "cuda"].note(*_fs_cost(chain))
+    return rank, head, cumvis
+
+
 def fused_segment_scans(chain: torch.Tensor, has_value: torch.Tensor,
                         n_elems, base: int = 0):
     """-> (rank_incl, seg_head, cumvis), int32, shaped like `chain`.
@@ -288,46 +371,176 @@ def fused_segment_scans(chain: torch.Tensor, has_value: torch.Tensor,
         if _dt.ENABLED:
             _DT["fused_segment_scans", "plain"].note(*_fs_cost(chain))
         return fused_segment_scans_plain(chain, has_value, n_elems, base)
-    rows = chain.dim() == 2
-    _check_cuda("fused_segment_scans chain", chain, torch.bool,
-                2 if rows else 1)
-    _check_cuda("fused_segment_scans has_value", has_value, torch.bool,
-                2 if rows else 1)
-    if has_value.shape != chain.shape:
-        raise ValueError("fused_segment_scans: chain and has_value differ "
-                         f"in shape ({tuple(chain.shape)} vs "
-                         f"{tuple(has_value.shape)})")
-    if rows:
-        n_elems = _row_counts(n_elems, chain)
+    return _fs_launch("fused_segment_scans", chain, has_value, n_elems,
+                      base, None, 0)
+
+
+# ------------------------------------------------------- sharded form
+
+def _carry_in(carry: torch.Tensor, shard: int, rows: bool):
+    """(rank, head, vis) offsets of the shards before `shard` from the
+    (n_shards, [D,] 3) gathered totals: sums and a max, 0 for none."""
+    if shard == 0:
+        rank = head = vis = carry.new_zeros(carry.shape[1:-1])
     else:
-        if not torch.is_tensor(n_elems):
-            # a fill on the device: a pageable h2d copy would sync the
-            # stream
-            n_elems = torch.full((), int(n_elems), dtype=torch.int32,
-                                 device=chain.device)
-        if (n_elems.device != chain.device or n_elems.dtype != torch.int32
-                or n_elems.numel() != 1):
-            raise ValueError("fused_segment_scans: n_elems must be one "
-                             f"int32 on {chain.device}")
-    n_elems = n_elems.contiguous()
+        pre = carry[:shard]
+        rank = pre[..., 0].sum(0, dtype=torch.int32)
+        head = pre[..., 1].amax(0)
+        vis = pre[..., 2].sum(0, dtype=torch.int32)
+    if rows:
+        return rank[:, None], head[:, None], vis[:, None]
+    return rank, head, vis
+
+
+def fs_totals_plain(chain: torch.Tensor, has_value: torch.Tensor, n_elems,
+                    base: int = 0) -> torch.Tensor:
+    """The plain version of `fs_totals`: int32 (3,) for a column, (D, 3)
+    for rows = (segment starts, latest segment-start slot or 0, visible
+    count) over the live slots (global slot base + i in [1, n_elems])."""
+    C = chain.shape[-1]
+    flat = torch.arange(C, dtype=torch.int32, device=chain.device) + base
+    if chain.dim() == 2:
+        n_elems = _row_counts(n_elems, chain)[:, None]
+    is_elem = (flat >= 1) & (flat <= n_elems)
+    seg_start = is_elem & ~chain
+    cand = torch.where(seg_start, flat, 0)
+    return torch.stack([
+        seg_start.sum(-1, dtype=torch.int32),
+        cand.amax(-1) if C else cand.sum(-1, dtype=torch.int32),
+        (is_elem & has_value).sum(-1, dtype=torch.int32)], -1)
+
+
+def fs_totals(chain: torch.Tensor, has_value: torch.Tensor, n_elems,
+              base: int = 0) -> torch.Tensor:
+    """One shard's totals for the carry exchange of the sharded segment
+    scans: int32 (3,) for a column, (D, 3) for rows; counts as for
+    `fused_segment_scans`. One `fs_totals` launch (after a memset of the
+    output) on a CUDA tensor."""
+    if chain.device.type == "cpu":
+        if _dt.ENABLED:
+            _DT["fs_totals", "plain"].note(*_totals_cost(chain))
+        return fs_totals_plain(chain, has_value, n_elems, base)
+    n_elems = _fs_operands("fs_totals", chain, has_value, n_elems)
+    rows = chain.dim() == 2
     D, C = (chain.shape if rows else (1, chain.shape[0]))
-    rank = torch.empty(chain.shape, dtype=torch.int32, device=chain.device)
-    head = torch.empty_like(rank)
-    cumvis = torch.empty_like(rank)
-    if rank.numel() == 0:
-        return rank, head, cumvis
+    out = torch.empty((D, 3) if rows else (3,), dtype=torch.int32,
+                      device=chain.device)
+    if C == 0 or D == 0:
+        return out.zero_()
     lib = load()
     with torch.cuda.device(chain.device):
-        scratch = _scratch(D * n_tiles(C, lib.amt_fused_scan_tile()),
-                           FS_STATUS_WORDS, chain.device)
-        rc = lib.amt_fused_segment_scans(
+        rc = lib.amt_fs_totals(
             chain.data_ptr(), has_value.data_ptr(), D, C,
-            n_elems.data_ptr(), 1 if rows else 0, int(base),
-            scratch.data_ptr(), scratch.numel() * 8,
-            rank.data_ptr(), head.data_ptr(), cumvis.data_ptr(),
+            n_elems.data_ptr(), 1 if rows else 0, int(base), out.data_ptr(),
             torch.cuda.current_stream(chain.device).cuda_stream)
-    _raise_on(rc, "fused_segment_scans")
-    _count_launch("fused_segment_scans", tuple(chain.shape))
+    _raise_on(rc, "fs_totals")
+    _count_launch("fs_totals", tuple(chain.shape))
     if _dt.ENABLED:
-        _DT["fused_segment_scans", "cuda"].note(*_fs_cost(chain))
-    return rank, head, cumvis
+        _DT["fs_totals", "cuda"].note(*_totals_cost(chain))
+    return out
+
+
+def _totals_cost(chain: torch.Tensor) -> tuple:
+    # reads chain + has (1 B each) and a count per row, writes 3 int32 a
+    # row; two adds and a max a slot
+    rows = chain.shape[0] if chain.dim() == 2 else 1
+    return 2 * chain.numel() + 16 * rows, 3 * chain.numel()
+
+
+def fused_segment_scans_carry_plain(chain, has_value, n_elems, base: int,
+                                    carry: torch.Tensor, shard: int):
+    """The plain version of `fused_segment_scans_carry`: the shard's own
+    scans, then the earlier shards' rank and vis sums added and their
+    heads maxed in (scan_pallas.py:251-258)."""
+    rank, head, cumvis = fused_segment_scans_plain(chain, has_value,
+                                                   n_elems, base)
+    r0, h0, v0 = _carry_in(carry, shard, chain.dim() == 2)
+    return rank + r0, torch.maximum(head, h0), cumvis + v0
+
+
+def fused_segment_scans_carry(chain: torch.Tensor, has_value: torch.Tensor,
+                              n_elems, base: int, carry: torch.Tensor,
+                              shard: int):
+    """Shard `shard` of a sharded column's segment scans: the scans of its
+    slots (global slots from `base`) starting from the combined totals of
+    shards 0 .. shard - 1 in `carry`, the (n_shards, [D,] 3) int32 output
+    of `fs_totals` gathered from every shard. One `fs_scan` launch with a
+    carry-in on a CUDA tensor, counted under "sharded_fused_scans"."""
+    if chain.device.type == "cpu":
+        if _dt.ENABLED:
+            _DT["sharded_fused_scans", "plain"].note(*_fs_cost(chain))
+        return fused_segment_scans_carry_plain(chain, has_value, n_elems,
+                                               base, carry, shard)
+    return _fs_launch("sharded_fused_scans", chain, has_value, n_elems,
+                      base, carry.contiguous(), shard)
+
+
+def sharded_fused_scans_plain(chain: torch.Tensor, has_value: torch.Tensor,
+                              n_elems, n_shards: int):
+    """The plain version of `sharded_fused_scans` on whole tensors: each
+    of `n_shards` element shards scanned by `fused_segment_scans_plain` at
+    its base idx * C // n_shards, then every shard's totals shared and
+    its offsets applied in torch ops. Returns the whole (rank, head,
+    cumvis), shaped like `chain`."""
+    C = chain.shape[-1]
+    if C % n_shards:
+        raise ValueError(f"capacity {C} must divide over {n_shards} shards")
+    w = C // n_shards
+    parts = [fused_segment_scans_plain(chain[..., i * w:(i + 1) * w],
+                                       has_value[..., i * w:(i + 1) * w],
+                                       n_elems, i * w)
+             for i in range(n_shards)]
+    totals = torch.stack([torch.stack([r[..., -1], h[..., -1], v[..., -1]],
+                                      -1) for r, h, v in parts])
+    out = []
+    for i, (r, h, v) in enumerate(parts):
+        r0, h0, v0 = _carry_in(totals, i, chain.dim() == 2)
+        out.append((r + r0, torch.maximum(h, h0), v + v0))
+    return tuple(torch.cat([o[k] for o in out], -1) for k in range(3))
+
+
+def sharded_fused_scans(mesh, chain, has_value, n_elems, *,
+                        axis: str = "elem"):
+    """`fused_segment_scans` over an element-sharded table
+    (scan_pallas.py:218-266) -> a (rank_incl, seg_head, cumvis) triple of
+    `ShardedArray`s laid out as `chain`.
+
+    `chain` / `has_value` are whole tensors (a column, sharded over
+    `axis`; (D, C) rows, sharded over ("doc", axis)) or `ShardedArray`s
+    already on the mesh. `n_elems` is an int or int32 scalar tensor for a
+    column, an int32 (D,) tensor or ("doc",) `ShardedArray` for rows.
+    Each line of shards along `axis` runs one `fs_totals` launch a shard,
+    ONE `all_gather` of the (n_shards, [D,] 3) totals, and one carry-in
+    `fs_scan` launch a shard; no host sync."""
+    from ..parallel import mesh as pm
+    if not isinstance(chain, pm.ShardedArray):
+        spec = (axis,) if chain.dim() == 1 else ("doc", axis)
+        chain = pm.shard(mesh, chain, spec)
+        has_value = pm.shard(mesh, has_value, spec)
+    rows = chain.ndim == 2
+    if torch.is_tensor(n_elems):
+        n_elems = pm.shard(mesh, n_elems, (chain.spec[0],) if rows else ())
+    n = mesh.shape[axis]
+    C = chain.shape[-1]
+    if C % n:
+        raise ValueError(f"capacity {C} must divide over {n} shards")
+    w = C // n
+    a = mesh.axis_names.index(axis)
+
+    def count(coord):
+        if isinstance(n_elems, pm.ShardedArray):
+            return n_elems.blocks[coord]
+        return n_elems
+
+    if n == 1:
+        return pm.map_shards(
+            lambda coord, c, h: fused_segment_scans(c, h, count(coord)),
+            chain, has_value, out=chain.spec)
+    totals = pm.map_shards(
+        lambda coord, c, h: fs_totals(c, h, count(coord), coord[a] * w),
+        chain, has_value, out=chain.spec)
+    carry = pm.all_gather(totals, axis)
+    return pm.map_shards(
+        lambda coord, c, h, t: fused_segment_scans_carry(
+            c, h, count(coord), coord[a] * w, t, coord[a]),
+        chain, has_value, carry, out=chain.spec)

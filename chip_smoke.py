@@ -33,7 +33,12 @@ the CPU backend's run of the same stream), and the sharded serving tier
 (phase 14: bench.py measure_sharded's cfg12 populations on 8 lanes,
 streams of the card, with the lane workers, sequentially and on one lane;
 the router's park/drain and migrations; cfg18 through the pager; each
-against a CPU run); times
+against a CPU run), and the mesh path (phase 15: the sharded segment
+scans' kernel pair over 2, 4 and 8 virtual shards of the card, bit-exact
+against its plain version and the unsharded kernel; the headline
+document materialized with its columns elem-sharded over 8 shards; the
+cfg3 DocSet on a (2, 4) mesh of virtual shards and on the machine's
+cards; the multi-shard dry run and the commit-path exchange audit); times
 each kernel at every shape those paths launched
 it with (device time over CUDA-graph replays, inputs rotated through
 copies so each call reads them from HBM; one eager call at the merge
@@ -130,6 +135,10 @@ RES_REPS = 3                   # 1,024, revisit lag 10, cold_after 6
 RES_CAP = 1024
 RES_LAG = 10
 RES_COLD_AFTER = 6
+MESH_SHARDS = (2, 4, 8)        # 15a: virtual shards of the card the kernel
+MESH_RAGGED = 8 * 100_003      # pair runs over; a shard of no whole tile
+MESH_DOCSET = (2, 4)           # 15c: the cfg3 DocSet's (doc, elem) mesh
+DMESH_REPS = 3                 # 15c: timed fresh runs after one warm-up
 
 
 def log(*a):
@@ -423,18 +432,26 @@ def check_kernels(torch, S):
 
 def check_kernels_per_call(torch, S):
     """Each wrapper call runs one device kernel (its memset aside). Runs
-    after the driven paths: a profiler session left behind slows the
-    host's later launches."""
+    after the driven paths, since a profiler session left behind slows
+    the host's later launches, and before phase 7's CUDA graphs: after
+    their replays a profiler session has shown no device activity at all
+    for an `fs_totals` call that ran."""
     dev = torch.device("cuda")
     x = torch.zeros((6, N_MERGE), dtype=torch.int32, device=dev)
     c = torch.zeros(N_MERGE, dtype=torch.bool, device=dev)
     ne = torch.tensor(6_000_000, dtype=torch.int32, device=dev)
+    carry = torch.zeros((2, 3), dtype=torch.int32, device=dev)
     per_call = {
         "multi_scan": kernels_per_call(torch, lambda: S.multi_scan(x)),
         "fused_segment_scans": kernels_per_call(
-            torch, lambda: S.fused_segment_scans(c, c, ne))}
+            torch, lambda: S.fused_segment_scans(c, c, ne)),
+        "fs_totals": kernels_per_call(
+            torch, lambda: S.fs_totals(c, c, ne)),
+        "sharded_fused_scans": kernels_per_call(
+            torch, lambda: S.fused_segment_scans_carry(c, c, ne, 0, carry,
+                                                       1))}
     log(f"device kernels per wrapper call (memsets aside): {per_call}")
-    if per_call != {"multi_scan": 1, "fused_segment_scans": 1}:
+    if set(per_call.values()) != {1}:
         raise AssertionError(f"expected one kernel per call: {per_call}")
     return per_call
 
@@ -3310,6 +3327,391 @@ def profile_multi_doc(torch, M, out_dir: str, device=None):
     host_profile(build)
 
 
+# --- the mesh path (parallel/, sharded_fused_scans, DeviceTextDocSet(mesh=),
+# shard/audit.py) ------------------------------------------------------------
+
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _virtual(M, dev, n: int, doc_axis: int = 1):
+    """A mesh of n virtual shards of one device."""
+    return M.pmesh.make_mesh(n, doc_axis, devices=[dev] * n)
+
+
+def _moved(M) -> dict:
+    return {k: (M.pmesh.calls[k], M.pmesh.moved_bytes[k])
+            for k in M.pmesh.calls}
+
+
+def _moved_since(M, before: dict) -> dict:
+    """Exchange calls and bytes since `before` (`_moved`), zeros dropped."""
+    now = _moved(M)
+    return {k: {"calls": now[k][0] - before[k][0],
+                "bytes": now[k][1] - before[k][1]}
+            for k in now if now[k] != before[k]}
+
+
+def mesh_kernel_checks(torch, M, dev, sizes=(N_MERGE, 1_048_576),
+                       shards=MESH_SHARDS, ragged=MESH_RAGGED,
+                       rows=(DOCSET_DOCS, 768), row_shards=4) -> list:
+    """15(a): the kernel pair (`fs_totals` + carry-in `fs_scan`) over
+    2, 4 and 8 virtual shards of `dev` at each size, over 8 at a ragged
+    size (a shard that is no whole number of tiles), and the row form
+    over `row_shards` elem shards: every output bit-exact against
+    `sharded_fused_scans_plain` and the unsharded `fused_segment_scans`
+    (kernel on a card). Returns the checked cases."""
+    rng = np.random.default_rng(15)
+    S = M.S
+    cases = []
+    for C in tuple(sizes) + (ragged,):
+        chain, has = _fs_inputs(torch, rng, C, dev)
+        ne = C - C // 20
+        whole = S.fused_segment_scans(chain, has, ne)
+        for n in (shards if C != ragged else (max(shards),)):
+            got = S.sharded_fused_scans(_virtual(M, dev, n), chain, has, ne)
+            plain = S.sharded_fused_scans_plain(chain, has, ne, n)
+            _sync(torch, dev)
+            for g, p, w in zip(got, plain, whole):
+                if g.n_shards != n or not torch.equal(g.gather(dev), p) \
+                        or not torch.equal(p, w):
+                    raise AssertionError(f"sharded_fused_scans differs at "
+                                         f"C={C} over {n} shards")
+            cases.append([C, n])
+    D, C = rows
+    chain = torch.from_numpy(rng.random((D, C)) < 0.9).to(dev)
+    has = torch.from_numpy(rng.random((D, C)) < 0.95).to(dev)
+    n = rng.integers(0, C + 1, D).astype(np.int32)
+    n[0], n[-1] = 0, C
+    ne = torch.from_numpy(n).to(dev)
+    got = S.sharded_fused_scans(_virtual(M, dev, row_shards), chain, has, ne)
+    plain = S.sharded_fused_scans_plain(chain, has, ne, row_shards)
+    whole = S.fused_segment_scans(chain, has, ne)
+    _sync(torch, dev)
+    for g, p, w in zip(got, plain, whole):
+        if not torch.equal(g.gather(dev), p) or not torch.equal(p, w):
+            raise AssertionError(f"sharded_fused_scans rows differ at "
+                                 f"({D}, {C}) over {row_shards} shards")
+    cases.append([[D, C], row_shards])
+    log(f"15a sharded_fused_scans bit-exact vs plain and the unsharded "
+        f"scans: {cases}")
+    return cases
+
+
+def _check_read(doc, mirror, want_sha, n_shards, codes, scalars):
+    """15b's checks of one sharded read: the text's sha, the shards, the
+    plan scalars against the mirror. Returns the scalars."""
+    scal = np.asarray(scalars)
+    fetched = np.asarray(codes)
+    n_vis = int(scal[0])
+    text = (fetched[:n_vis].tobytes().decode("ascii") if doc.all_ascii
+            else "".join(chr(v) for v in fetched[:n_vis]))
+    if sha(text) != want_sha or codes.n_shards != n_shards:
+        raise AssertionError("15b: the sharded text differs from the "
+                             "unsharded document's")
+    if not (int(scal[1]) == int(scal[2]) == mirror.n_segs
+            and int(scal[3]) == mirror.head_checksum()
+            and int(scal[4]) == mirror.aux_checksum()):
+        raise AssertionError(f"15b: plan scalars {scal} disagree with the "
+                             "mirror")
+    return scal
+
+
+def mesh_materialize(torch, M, doc, dev, want_sha: str,
+                     n_shards: int = 8) -> dict:
+    """15(b): the headline document's codes-only materialization with
+    its columns elem-sharded over n virtual shards and the segment plan
+    replicated (`sharded_planned_materialize`); its text's sha must equal
+    the unsharded document's."""
+    mirror = doc.seg_mirror
+    if mirror is None:
+        raise AssertionError("15b: the headline document has no mirror")
+    S_ = M.bucket(mirror.n_segs + 2, 64)
+    segplan = mirror.plan(S_, doc.n_elems)
+    tabs = doc._ensure_dev()
+    cols = [tabs[k] for k in ("parent", "ctr", "actor", "value",
+                              "has_value", "chain")]
+    mesh = _virtual(M, dev, n_shards)
+    secs = []
+    for _ in range(2):                 # a cold read, then a warm one
+        before = _moved(M)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        codes, scalars = M.pmesh.sharded_planned_materialize(
+            mesh, *cols, doc.n_elems, segplan, S=S_, as_u8=doc.all_ascii)
+        _sync(torch, dev)
+        secs.append(time.perf_counter() - t0)
+        moved = _moved_since(M, before)
+        scal = _check_read(doc, mirror, want_sha, n_shards, codes, scalars)
+    rec = {"capacity": int(cols[0].shape[0]), "n_shards": n_shards, "S": S_,
+           "n_vis": int(scal[0]), "n_segs": int(scal[1]), "cold_s": secs[0],
+           "warm_s": secs[1], "exchange": moved}
+    log(f"15b sharded_planned_materialize of the {rec['n_vis']}-char "
+        f"document over {n_shards} shards: cold {secs[0]:.4f} s, warm "
+        f"{secs[1]:.4f} s, text sha256 {want_sha[:16]} as unsharded; "
+        f"exchange of the warm read {moved}")
+    return rec
+
+
+def mesh_docset(torch, M, dev, n_docs: int = DOCSET_DOCS,
+                n_actors: int = DOCSET_ACTORS, chars: int = DOCSET_CHARS,
+                reps: int = DMESH_REPS, grid=MESH_DOCSET) -> dict:
+    """15(c): run_all.py config3_docset through DeviceTextDocSet(mesh=)
+    on a (doc, elem) mesh of virtual shards and on the machine's cards:
+    build + planned texts() over fresh runs, then one corrupted-mirror
+    call (the self-contained rows over the sharded scans); every texts()
+    equal to the unsharded DocSet's."""
+    ids = [f"d{d}" for d in range(n_docs)]
+    batches = {f"d{d}": docset_batch(M.TB, M.C, f"d{d}", d, n_actors, chars)
+               for d in range(n_docs)}
+    cap = n_actors * chars + 64
+    plain = M.DeviceTextDocSet(ids, capacity=cap, device=dev)
+    plain.apply_batches(batches)
+    want = plain.texts()
+    cards = (M.pmesh.make_mesh() if torch.device(dev).type == "cuda"
+             else M.pmesh.make_mesh(devices=[dev]))
+    meshes = {f"{grid[0]}x{grid[1]} virtual":
+              _virtual(M, dev, grid[0] * grid[1], grid[0]),
+              f"{cards.shape['doc']}x{cards.shape['elem']} cards": cards}
+    out = {}
+    for label, mesh in meshes.items():
+        runs = []
+        for r in range(1 + reps):
+            before = _moved(M)
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            ds = M.DeviceTextDocSet(ids, capacity=cap, mesh=mesh)
+            ds.apply_batches(batches)
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            texts = ds.texts()
+            t2 = time.perf_counter()
+            if texts != want:
+                raise AssertionError(f"15c {label} run {r}: texts differ "
+                                     "from the unsharded DocSet's")
+            if r:
+                runs.append({"build_s": t1 - t0, "texts_s": t2 - t1,
+                             "exchange": _moved_since(M, before)})
+        m = ds._meta[1].mirror
+        ds._meta[1].mirror = type(m)(np.append(m.heads, 3),
+                                     np.append(m.par, 2),
+                                     np.append(m.hctr, 99),
+                                     np.append(m.hactor, 0))
+        ds._meta[1].mirror.heads.sort()
+        ds._codes_cache = None
+        heals = heal_watch(logging)
+        before = _moved(M)
+        if ds.texts() != want or not any("diverged" in msg
+                                         for msg in heals.records):
+            raise AssertionError(f"15c {label}: the heal failed")
+        logging.getLogger("automerge_tpu_torch.engine").removeHandler(heals)
+        out[label] = {
+            "mesh": dict(mesh.shape), "runs": runs,
+            "build_s_median": float(np.median([x["build_s"] for x in runs])),
+            "texts_s_median": float(np.median([x["texts_s"] for x in runs])),
+            "heal_exchange": _moved_since(M, before),
+            "n_shards": ds._dev["chain"].n_shards}
+        log(f"15c DocSet(mesh={label}) cfg3 {n_docs} docs: build median "
+            f"{out[label]['build_s_median']:.4f} s, texts() median "
+            f"{out[label]['texts_s_median']:.4f} s over {reps} runs; "
+            f"exchange a run {runs[-1]['exchange']}; heal exchange "
+            f"{out[label]['heal_exchange']}; texts equal to the unsharded "
+            "DocSet's")
+    return out
+
+
+def mesh_phase(torch, M, card: str, doc, want_sha: str, device=None,
+               check_sizes=(N_MERGE, 1_048_576), ragged: int = MESH_RAGGED,
+               docset: dict = None) -> dict:
+    """Phase 15, the mesh path on `device`: (a) the kernel pair's checks
+    (not counted), then with every count set to 0: (b) the headline
+    document's elem-sharded planned materialization, (c) the cfg3
+    DocSet on a mesh of virtual shards and on the machine's cards, (d)
+    the dry run over 8 virtual shards and the commit-path audit over a
+    doc-only mesh of the cards and of 8 virtual shards. Returns the
+    record with the path's launches. Raises on any failed check."""
+    dev = torch.device(device or "cuda")
+    t_phase = time.perf_counter()
+    checked = mesh_kernel_checks(torch, M, dev, check_sizes, ragged=ragged)
+    _sync(torch, dev)
+    M.S.reset_launches()
+    M.pmesh.reset_counts()
+    t_path = time.perf_counter()
+    b = mesh_materialize(torch, M, doc, dev, want_sha)
+    c = mesh_docset(torch, M, dev, **(docset or {}))
+    t_d = time.perf_counter()
+    M.dryrun.run(8, dev)
+    cards = None if dev.type == "cuda" else M.audit.doc_mesh(
+        devices=[dev])
+    audits = {"cards": M.audit.commit_path_collectives(cards),
+              "8 virtual": M.audit.commit_path_collectives(
+                  M.audit.doc_mesh(8, devices=[dev] * 8))}
+    for a in audits.values():
+        M.audit.assert_zero_collectives(a)
+    _sync(torch, dev)
+    launches = dict(M.S.launches)
+    shapes = {k: dict(v) for k, v in M.S.launch_shapes.items()}
+    exchange = {k: {"calls": M.pmesh.calls[k],
+                    "bytes": M.pmesh.moved_bytes[k]} for k in M.pmesh.calls}
+    out = {"checked": checked, "materialize": b, "docset": c,
+           "audit": audits, "dryrun_s": time.perf_counter() - t_d,
+           "launches": launches, "shapes": shapes, "exchange": exchange,
+           "path_s": time.perf_counter() - t_path,
+           "wall_s": time.perf_counter() - t_phase}
+    if dev.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"mesh path: a kernel never launched: "
+                             f"{launches}")
+    log(f"mesh phase launches: {launches}; exchange {exchange}; audit "
+        f"{audits}; dry run + audit {out['dryrun_s']:.2f} s; path "
+        f"{out['path_s']:.2f} s, phase {out['wall_s']:.2f} s ({card})")
+    log("mesh record: " + json.dumps(dict(out, shapes={
+        k: {"x".join(map(str, sh)): n for sh, n in v.items()}
+        for k, v in shapes.items()})))
+    return out
+
+
+def _sharded_library(torch, chain, has, ne, n: int):
+    """One PyTorch program's form of the sharded scans: per shard the
+    library scans (`torch.cumsum` x 2, `torch.cummax`) on its precomputed
+    starts, candidates and visibility, then the earlier shards' totals
+    added (and maxed) in."""
+    C = chain.shape[-1]
+    w = C // n
+    flat = torch.arange(C, dtype=torch.int32, device=chain.device)
+    lim = ne[:, None] if torch.is_tensor(ne) and ne.dim() == 1 else ne
+    is_elem = (flat >= 1) & (flat <= lim)
+    ss = (is_elem & ~chain).to(torch.int32)
+    cand = torch.where(ss > 0, flat, 0)
+    vis = (is_elem & has).to(torch.int32)
+    parts = [(ss[..., i * w:(i + 1) * w], cand[..., i * w:(i + 1) * w],
+              vis[..., i * w:(i + 1) * w]) for i in range(n)]
+
+    def library():
+        carry = None
+        for s, c, v in parts:
+            r = torch.cumsum(s, -1, dtype=torch.int32)
+            h = torch.cummax(c, -1).values
+            cv = torch.cumsum(v, -1, dtype=torch.int32)
+            if carry is not None:
+                r, h, cv = (r + carry[0], torch.maximum(h, carry[1]),
+                            cv + carry[2])
+            carry = (r[..., -1:], h[..., -1:], cv[..., -1:])
+    return library
+
+
+def _totals_library(torch, chain, has, ne, n: int):
+    """One PyTorch program's form of the per-shard totals: sums and a max
+    of each shard's precomputed starts, candidates and visibility."""
+    C = chain.shape[-1]
+    w = C // n
+    flat = torch.arange(C, dtype=torch.int32, device=chain.device)
+    lim = ne[:, None] if torch.is_tensor(ne) and ne.dim() == 1 else ne
+    is_elem = (flat >= 1) & (flat <= lim)
+    ss = (is_elem & ~chain).to(torch.int32)
+    cand = torch.where(ss > 0, flat, 0)
+    vis = (is_elem & has).to(torch.int32)
+
+    def library():
+        for i in range(n):
+            sl = slice(i * w, (i + 1) * w)
+            torch.stack([ss[..., sl].sum(-1, dtype=torch.int32),
+                         cand[..., sl].amax(-1),
+                         vis[..., sl].sum(-1, dtype=torch.int32)], -1)
+    return library
+
+
+def time_sharded(torch, M, configs) -> dict:
+    """Phase 7 for the kernel pair: at each (shape, (doc, elem) mesh) the
+    mesh path ran or 15(a) checked, the device time of the whole sharded
+    form (`fs_totals` a shard, the all_gather, a carry-in `fs_scan` a
+    shard), of `fs_totals` alone over the shards, of the unsharded
+    kernel on the same column, of the plain versions and of the library
+    compositions, with the bounds. Returns {kernel name: [records]}."""
+    S, pm = M.S, M.pmesh
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(77)
+    out = {"sharded_fused_scans": [], "fs_totals": []}
+    for shape, grid in configs:
+        n_rows = shape[0] if len(shape) == 2 else 1
+        C = shape[-1]
+        mesh = _virtual(M, dev, grid[0] * grid[1], grid[0])
+        n = grid[1]
+        w = C // n
+        pairs = fs_copies(torch, rng, shape, dev)
+        if len(shape) == 2:
+            ne = torch.from_numpy(rng.integers(
+                C // 2, C + 1, n_rows).astype(np.int32)).to(dev)
+            ne_s = pm.shard(mesh, ne, ("doc",))
+        else:
+            ne = ne_s = C - C // 20
+        spec = ("doc", "elem") if len(shape) == 2 else ("elem",)
+        sharded = [(pm.shard(mesh, c, spec), pm.shard(mesh, h, spec))
+                   for c, h in pairs]
+        kern = [lambda c=c, h=h: S.sharded_fused_scans(mesh, c, h, ne_s)
+                for c, h in sharded]
+        whole = [lambda c=c, h=h: S.fused_segment_scans(c, h, ne)
+                 for c, h in pairs]
+        c0, h0 = pairs[0]
+        plain = lambda: S.sharded_fused_scans_plain(c0, h0, ne, n)  # noqa
+        got = [x.gather(dev) for x in kern[0]()]
+        want = S.sharded_fused_scans_plain(c0, h0, ne, n)
+        err = max(int((g - x).abs().max()) for g, x in zip(got, want))
+
+        def totals(c, h):
+            return lambda: [S.fs_totals(c.blocks[k], h.blocks[k],
+                                        ne_s.blocks[k] if len(shape) == 2
+                                        else ne, k[1] * w)
+                            for k in mesh.coords()]
+
+        def totals_plain():
+            return [S.fs_totals_plain(c0[..., i * w:(i + 1) * w],
+                                      h0[..., i * w:(i + 1) * w], ne, i * w)
+                    for i in range(n)]
+        t_err = max(int((S.fs_totals(c0[..., i * w:(i + 1) * w].contiguous(),
+                                     h0[..., i * w:(i + 1) * w].contiguous(),
+                                     ne, i * w) - t).abs().max())
+                    for i, t in enumerate(totals_plain()))
+        slots = int(np.prod(shape))
+        b_ms, b_by = _fs_bound(shape)
+        ex_bytes = 12 * n_rows * n * (n - 1)
+        rec = {"shape": list(shape), "mesh": list(grid), "copies": len(pairs),
+               "max_abs_err": err,
+               "ms": time_ms(torch, kern),
+               "unsharded_ms": time_ms(torch, whole),
+               "plain_ms": time_ms(torch, [plain], reps=5),
+               "library_ms": time_ms(torch, [_sharded_library(
+                   torch, c0, h0, ne, n)], reps=5),
+               "bound_ms": b_ms + ex_bytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": b_by, "exchange_bytes": ex_bytes,
+               "read_write_bytes": 16 * slots + 12 * n_rows * n * n}
+        out["sharded_fused_scans"].append(rec)
+        tb_ms, tb_by = bound(2 * slots + 16 * n_rows * n, 3 * slots)
+        out["fs_totals"].append({
+            "shape": list(shape), "mesh": list(grid), "copies": len(pairs),
+            "max_abs_err": t_err,
+            "ms": time_ms(torch, [totals(c, h) for c, h in sharded]),
+            "plain_ms": time_ms(torch, [totals_plain], reps=5),
+            "library_ms": time_ms(torch, [_totals_library(
+                torch, c0, h0, ne, n)], reps=5),
+            "bound_ms": tb_ms, "bound_by": tb_by})
+        del pairs, sharded, kern, whole
+    for name, recs in out.items():
+        for r in recs:
+            if r["max_abs_err"] != 0:
+                raise AssertionError(f"{name} {r['shape']} over {r['mesh']} "
+                                     f"differs from plain")
+            r["bound_frac"] = r["bound_ms"] / r["ms"]
+            log(f"{name} {r['shape']} over mesh {r['mesh']}: kernel "
+                f"{r['ms']:.4f} ms ({100 * r['bound_frac']:.1f}% of bound"
+                + (f", unsharded kernel {r['unsharded_ms']:.4f} ms"
+                   if "unsharded_ms" in r else "")
+                + f"), plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']})")
+    return out
+
+
 def port_modules():
     """The port's modules the phases drive (ImportError when the package
     is not beside this script)."""
@@ -3328,6 +3730,9 @@ def port_modules():
     from automerge_tpu_torch.obs import device_truth, export, lineage, prom
     from automerge_tpu_torch.ops import scan_kernels
     from automerge_tpu_torch.ops.ingest import bucket
+    from automerge_tpu_torch.parallel import _dryrun
+    from automerge_tpu_torch.parallel import mesh as pmesh
+    from automerge_tpu_torch.shard import audit
     return SimpleNamespace(
         C=_common, native=native, obs=obs, ckpt=checkpoint, uuid=_uuid,
         dt=device_truth, export=export, lineage=lineage, prom=prom,
@@ -3336,7 +3741,8 @@ def port_modules():
         accounting=accounting, runs=runs, TB=TextChangeBatch,
         DeviceTextDoc=DeviceTextDoc, DeviceTextDocSet=DeviceTextDocSet,
         stacked=stacked, S=scan_kernels, bucket=bucket, am=am,
-        device_backend=device_backend, shard=shard, residency=residency)
+        device_backend=device_backend, shard=shard, residency=residency,
+        pmesh=pmesh, dryrun=_dryrun, audit=audit)
 
 
 def main() -> int:
@@ -3464,7 +3870,6 @@ def main() -> int:
     if r2["text"] != r["text"]:
         raise AssertionError("self-contained text differs")
     log(f"self-contained ({card}): commit+sync_s {r2['commit_s']:.4f}")
-    del doc2
 
     # 6. residual rounds + incremental pull
     before = dict(accounting.LABELS["dispatch"].get("fused_mixed_round",
@@ -3556,13 +3961,23 @@ def main() -> int:
     # through the pager
     shard_rec = shard_phase(torch, M, card)
 
-    # 7. kernel times at every shape the driven paths launched with, then
-    # one kernel per call (a profiler session slows later host launches)
+    # 15. the mesh path (before phase 7 too): 15a the kernel pair checked
+    # over virtual shards of the card, 15b the headline document (phase
+    # 5's) materialized elem-sharded over 8 shards, 15c the cfg3 DocSet
+    # on a (2, 4) mesh and on the cards, 15d the dry run and the audit
+    mesh_rec = mesh_phase(torch, M, card, doc2, sha(r["text"]))
+    del doc2
+
+    # 7. one kernel per call (a profiler session slows later host
+    # launches, and after CUDA graph replays has missed device work), then
+    # kernel times at every shape the driven paths launched with
+    per_call = check_kernels_per_call(torch, S)
     shapes_by_path = {"main": main_shapes, "self_contained": sc_shapes,
                       "residual": res_shapes, "pipeline": ring["shapes"],
                       "stacked": stacked_shapes, "docset": dset["shapes"],
                       "api": api["shapes"], "checkpoint": ckpt["shapes"],
-                      "sync": sync["shapes"], "shard": shard_rec["shapes"]}
+                      "sync": sync["shapes"], "shard": shard_rec["shapes"],
+                      "mesh": mesh_rec["shapes"]}
     log(f"launches by shape on the driven paths: {shapes_by_path}")
     shapes = {k: set().union(*(p[k] for p in shapes_by_path.values()))
               for k in S.launches}
@@ -3572,7 +3987,12 @@ def main() -> int:
         lambda sh: (n_elems_of.get(sh[0], sh[0] - sh[0] // 16)
                     if len(sh) == 1 else
                     [min(sh[1] - 1, DOCSET_ACTORS * DOCSET_CHARS)] * sh[0]))
-    per_call = check_kernels_per_call(torch, S)
+    merge_cap = mesh_rec["materialize"]["capacity"]
+    sharded_times = time_sharded(torch, M, [
+        ((merge_cap,), (1, 8)), ((merge_cap,), (1, 4)),
+        ((merge_cap,), (1, 2)), ((N_MERGE,), (1, 8)), ((1_048_576,), (1, 8)),
+        ((DOCSET_DOCS, M.bucket(DOCSET_ACTORS * DOCSET_CHARS + 64)),
+         MESH_DOCSET), ((4, 384), (2, 4))])        # the last: the dry run
 
     # 10. optional profiles: the headline commit, the multi-document
     # tier, one api-a merge
@@ -3590,7 +4010,8 @@ def main() -> int:
                "residual": res_launches, "pipeline": ring["launches"],
                "stacked": stacked_launches, "docset": dset["launches"],
                "api": api["launches"], "checkpoint": ckpt["launches"],
-               "sync": sync["launches"], "shard": shard_rec["launches"]}
+               "sync": sync["launches"], "shard": shard_rec["launches"],
+               "mesh": mesh_rec["launches"]}
     kernels = []
     for name, replaces, path in (
             ("multi_scan", "automerge_tpu/ops/scan_pallas.py:204", "main"),
@@ -3602,7 +4023,8 @@ def main() -> int:
             "source": "automerge_tpu_torch/csrc/scan.cu",
             "replaces": replaces, "launches": by_path[path][name],
             "path": path,
-            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in by_path.items()},
             "shape": rec["shape"], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -3614,6 +4036,26 @@ def main() -> int:
             "shapes": times[name],
             "launches_by_shape": {
                 p: {"x".join(map(str, sh)): n for sh, n in d[name].items()}
+                for p, d in shapes_by_path.items()}})
+    for name in ("sharded_fused_scans", "fs_totals"):
+        rec = sharded_times[name][0]           # the merge shape, 8 shards
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "automerge_tpu_torch/csrc/scan.cu",
+            "replaces": "automerge_tpu/ops/scan_pallas.py:218",
+            "launches": by_path["mesh"][name], "path": "mesh",
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in by_path.items()},
+            "shape": rec["shape"], "mesh": rec["mesh"],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "bound_frac": rec["bound_frac"],
+            "kernels_per_call": per_call[name],
+            "shapes": sharded_times[name],
+            "launches_by_shape": {
+                p: {"x".join(map(str, sh)): n
+                    for sh, n in d.get(name, {}).items()}
                 for p, d in shapes_by_path.items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -136,7 +136,11 @@ def test_cpu_tensors_take_the_plain_version_and_do_not_count():
     assert torch.equal(S.multi_scan(x), S.multi_scan_plain(x))
     chain, has = _columns(100, seed=2)
     S.fused_segment_scans(torch.from_numpy(chain), torch.from_numpy(has), 50)
-    assert S.launches == {"multi_scan": 0, "fused_segment_scans": 0}
+    tot = S.fs_totals(torch.from_numpy(chain), torch.from_numpy(has), 50)
+    S.fused_segment_scans_carry(torch.from_numpy(chain),
+                                torch.from_numpy(has), 50, 100, tot[None], 1)
+    assert S.launches == {"multi_scan": 0, "fused_segment_scans": 0,
+                          "fs_totals": 0, "sharded_fused_scans": 0}
 
 
 def test_other_devices_raise():
@@ -210,7 +214,8 @@ def test_scratch_words(tiles, words):
 def test_cpu_tensors_record_no_launch_shapes():
     S.reset_launches()
     S.multi_scan(torch.zeros((2, 8), dtype=torch.int32))
-    assert S.launch_shapes == {"multi_scan": {}, "fused_segment_scans": {}}
+    assert S.launch_shapes == {"multi_scan": {}, "fused_segment_scans": {},
+                               "fs_totals": {}, "sharded_fused_scans": {}}
 
 
 @pytest.mark.cuda
