@@ -14,16 +14,19 @@
 // element, so the floor is HBM traffic. multi_scan reads and writes 4 bytes
 // per element per row: 302 MB at the merge shape (6, 6,291,456), 0.090 ms at
 // 3.35 TB/s. The segment scans read 2 bytes (two bool columns) and write 12
-// (three int32 columns) per slot: 88 MB at C = 6,291,456, 0.026 ms.
+// (three int32 columns) per slot: 88 MB at C = 6,291,456, 0.026 ms. Short
+// rows are bound by neither: a launch of (500, 192) moves 1.3 MB, 0.4 us
+// at 3.35 TB/s, against a few microseconds to launch and drain a grid, so
+// there the design counts device operations per call and idle lanes.
 //
-// Design: one single-pass launch per call, a chained scan with decoupled
-// look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan with
-// Decoupled Look-back", NVIDIA 2016). The TPU kernels carry their running
-// totals across a grid that runs in order; Hopper blocks run in no order,
-// so each block here
-//   1. takes its tile from a ticket (atomicAdd on a counter in the
-//      scratch), so every tile before it has already started and the
-//      look-back below never waits on a block that was never scheduled;
+// multi_scan, and the segment scans' look-back form: one single-pass
+// launch, a chained scan with decoupled look-back (Merrill & Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA
+// 2016). The TPU kernels carry their running totals across a grid that
+// runs in order; Hopper blocks run in no order, so each block here
+//   1. takes its tile from a ticket (an atomic counter in the scratch), so
+//      every tile before it has already started and the look-back below
+//      never waits on a block that was never scheduled;
 //   2. loads its tile once with 16-byte loads (multi_scan: int4 loads in
 //      striped order, moved through shared memory to BLOCKED order, kItems
 //      consecutive values per thread; segment scans: two uint4 of 16 bools
@@ -32,32 +35,92 @@
 //      segment scans, popcounts and a count-leading-zeros on the masks), a
 //      warp-shuffle scan of the thread totals, one cross-warp step in
 //      shared memory;
-//   4. publishes its aggregate (flag A), lets warp 0 fold the status words
-//      of its predecessors 32 at a time until the first inclusive prefix
-//      (flag P), then publishes its own inclusive prefix;
-//   5. adds its exclusive prefix and moves the results back through
-//      shared memory to striped order, so each warp stores whole
-//      contiguous int4 vectors.
+//   4. publishes its aggregate, lets warp 0 fold the status words of its
+//      predecessors 32 at a time until the first inclusive prefix, then
+//      publishes its own inclusive prefix;
+//   5. adds its exclusive prefix and moves the results to striped order
+//      (multi_scan through shared memory; the segment scans by shuffles
+//      inside each warp, each lane fetching the masks and prefix of the
+//      lane whose slots it stores), so each warp stores whole contiguous
+//      int4 vectors.
 // A status word is one 64-bit {flag, value}, written and read whole with
-// ld/st.relaxed.gpu, so a reader never sees a flag without its value. The
-// segment scans keep six per tile: the (rank, head, vis) aggregate and the
-// (rank, head, vis) inclusive prefix, each value in its own word; a reader
-// takes a triple only when all three of its words carry their flag.
-// Sums run in unsigned arithmetic (wrap-around defined, equal to
+// ld/st.relaxed.gpu, so a reader never sees a flag without its value. Sums
+// run in unsigned arithmetic (wrap-around defined, equal to
 // torch.cumsum(..., dtype=torch.int32)); the max of the segment heads has
 // identity 0 because its candidates are global slot numbers >= 1, or 0.
+// multi_scan's scratch is per call, zeroed by a memset before its launch.
 //
-// The segment scans also take (rows, n) matrices, every row scanned on its
-// own with its own element count (the DocSet's per-document
-// materialization): a tile's ticket names its row and its place in the
-// row, tickets run row after row, and the look-back reads only status
-// words of its own row, as multi_scan does for its K rows.
+// The segment scans take one column or (rows, n) matrices, every row
+// scanned on its own with its own element count (the DocSet's per-document
+// materialization, a shard's block of rows). The host picks one of three
+// forms from the row length n (ops/scan_kernels.py fs_geometry; the entry
+// points refuse another):
+//   warp form,     n <= kFsWarpRow (1,024 = 32 lanes x one 32-slot mask):
+//                  one warp a row, kFsWarps (8) rows a 256-thread block; a
+//                  warp scan, then the shuffle transpose of step 5. No
+//                  ticket, no look-back, no shared memory, no scratch.
+//   block form,    n <= kFsTile (8,192): one block a row, the tile steps
+//                  2-5 above without the ticket and the look-back. No
+//                  scratch.
+//   look-back form, longer rows: tpr = ceil(n / kFsTile) tiles a row, the
+//                  ticket running row after row, the look-back inside the
+//                  row. The scratch below.
+// Before, every row took at least one 8,192-slot tile with a ticket and a
+// look-back: 97.7% of each block's slots were padding at the per-shard
+// (500, 192) of the mesh DocSet. A small launch is bound by its latency:
+// each form issues its count, carry-in and column loads together before
+// it uses any of them.
+//
+// The sharded form (an element column cut into shards, each scanned at its
+// own global base) is reduce, exchange, then scan. fs_totals reduces one
+// shard's live slots to (segment starts, last segment-start slot or 0,
+// visible count) per row, written with plain stores: a warp or a block
+// reduces a row of the warp or block form; a row longer than a tile has
+// each block write its partial to the scratch and count itself in on the
+// row's counter, and the row's last block folds the partials (sums and a
+// max: the result does not depend on their order). The caller gathers
+// every shard's totals onto each shard's device, (n_shards, rows, 3),
+// without a host sync; fs_scan then takes them as a carry-in, folded by a
+// warp into each row's start (warp and block forms) or into the inclusive
+// prefix tile 0 publishes (look-back form, so the look-back carries it to
+// every later tile), rank and vis summed and heads maxed as
+// scan_pallas.py:251-258 does. The pair reads the two bool columns twice
+// and writes the three int32 columns once: 16 bytes a slot against the 14
+// of one pass, plus 12 bytes a row and shard of totals.
+//
+// The segment scans' scratch persists across launches: one buffer per
+// (device, stream), owned by ops/scan_kernels.py, zeroed once when it is
+// allocated, laid out as int64 words [header: ticket, arrivals, epoch]
+// [one u32 counter a row] [status words]. Every launch is one kernel and
+// nothing else (no memset, no fill), and all state from one launch to the
+// next lives on the device, so a replayed CUDA graph stays right:
+//   - the ticket and every counter reset themselves: atomicInc(c, k - 1)
+//     wraps to 0 on the k-th increment, and a launch takes exactly k;
+//   - a status word carries the launch's tag (epoch + 1) in its upper
+//     half. Blocks read the epoch when they take their ticket; the last
+//     block of the launch to arrive (a second self-resetting counter,
+//     counted after each block's look-back) advances it. A word left by an
+//     earlier launch carries an older tag and never reads as published.
+//     The tag runs 1 .. 2^32 - 1; when the next tag would wrap to 0 the
+//     last block first clears every status word of the buffer, so a stale
+//     word can never carry a live tag: wrap-around is excluded, not made
+//     unlikely;
+//   - fs_totals' partials keep upper halves of 0, which no tag equals.
+// Launches on one stream run one after another, so they share its scratch
+// safely; two streams never share one. A graph replays its kernels with
+// the scratch of the stream that captured it, so it must not run while
+// other work on that stream does. The buffer grows (a new zeroed one) when
+// a launch needs more, outside any capture; the old one is kept, since a
+// captured graph may still replay its pointer (were it freed, the caching
+// allocator would reuse it only on its own stream, so growing stays
+// stream-ordered either way).
 //
 // Inputs the 16-byte path cannot take (multi_scan with N % 4 != 0, so that
 // a row does not start on 16 bytes; any pointer off 16-byte alignment,
-// such as a bool view t[1:]) take a scalar path inside the same kernel,
-// chosen by the entry point from the pointers and lengths. The ragged edge
-// of the last tile is masked on either path.
+// such as a bool view t[1:]; bool rows of a length off a multiple of 16)
+// take a scalar path inside the same kernel, chosen by the entry point
+// from the pointers and lengths. The ragged edge of a row is masked on
+// either path, in every form.
 //
 // Sizes, from one run of scripts/sweep_scan_tiles.py at the merge shapes
 // on an H100 80GB HBM3 at 700 W, each call reading its input from HBM
@@ -67,30 +130,15 @@
 // 0.138 ms, 256 x 16 0.145 ms and 256 x 8 0.173 ms, because fewer bytes
 // in flight per SM leave HBM latency uncovered. Segment scans: 256
 // threads x 32 slots (one 32-bit mask per column per thread, 8,192 slots
-// per tile, 80 registers, 3 blocks per SM) took 0.038 ms, 128 threads
-// 0.039 ms and 64 threads 0.044 ms. Evict-first 16-byte stores (__stcs)
-// beat plain ones in both kernels (0.129 vs 0.133 ms, 0.038 vs 0.039 ms).
-// TMA bulk copies were not taken: the plain 16-byte loads already pass
-// half the bound.
+// per tile; at the time with a shared-memory transpose, 80 registers, 3
+// blocks per SM) took 0.038 ms, 128 threads 0.039 ms and 64 threads
+// 0.044 ms. With the shuffle transpose the look-back form takes 48
+// registers and 116 bytes of shared memory (5 blocks per SM), the other
+// forms 40 (ptxas -v); chip_smoke.py's phase 7 reads it at 0.0384 ms on
+// the same card. Evict-first 16-byte stores (__stcs) beat plain ones in
+// both kernels (0.129 vs 0.133 ms, 0.038 vs 0.039 ms). TMA bulk copies
+// were not taken: the plain 16-byte loads already pass half the bound.
 //
-// The sharded form (an element column cut into shards, each scanned at its
-// own global base) is reduce, exchange, then scan. fs_totals reduces one
-// shard's live slots to (segment starts, last segment-start slot or 0,
-// visible count) per row: 2 bytes read a slot, integer atomics into an
-// int32 (rows, 3) output zeroed first (sums and a max: the result does not
-// depend on their order). The caller gathers every shard's totals onto
-// each shard's device, (n_shards, rows, 3), without a host sync; fs_scan
-// then takes them as a carry-in: the tile 0 of each row folds the earlier
-// shards' totals (rank and vis summed, heads maxed, 0 for none, as
-// scan_pallas.py:251-258 does) into the inclusive prefix it publishes, so
-// the decoupled look-back carries them to every later tile. The pair reads
-// the two bool columns twice and writes the three int32 columns once: 16
-// bytes a slot against the 14 of one pass (0.0263 ms at C = 6,291,456 on
-// an H100 at 3.35 TB/s), plus 12 bytes a row and shard of totals.
-//
-// The scratch is one 64-bit ticket word plus the status words; the entry
-// point zeroes it on the caller's stream (cudaMemsetAsync) before the
-// launch, so a reused allocation never shows the flags of an earlier call.
 // Each entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().
 
@@ -108,6 +156,11 @@ constexpr int kFsThreads = 256;
 constexpr int kFsItems = 32;                      // slots per thread: one mask
 constexpr int kFsTile = kFsThreads * kFsItems;    // slots per tile
 constexpr int kFsWords = 6;                       // status words per tile
+constexpr int kFsWarps = kFsThreads / 32;
+constexpr int kFsWarpRow = 32 * kFsItems;         // slots of a warp-form row
+constexpr int kFsHeaderWords = 2;                 // ticket, arrivals, epoch
+constexpr int kWarpForm = 0, kBlockForm = 1, kLookbackForm = 2;
+constexpr unsigned kEpochWrap = 0xffffffffu;      // an epoch never stored
 constexpr unsigned kFull = 0xffffffffu;
 constexpr u64 kFlagA = 1ull << 32;                // aggregate published
 constexpr u64 kFlagP = 2ull << 32;                // inclusive prefix published
@@ -118,6 +171,8 @@ static_assert(kMsThreads % 32 == 0 && kFsThreads % 32 == 0,
               "whole warps");
 static_assert(kMsThreads / 32 <= 32 && kFsThreads / 32 <= 32,
               "one warp scans the warp totals");
+static_assert(kFsItems == 32, "one 32-bit mask per column per thread");
+static_assert(kFsWarpRow <= kFsTile, "a warp-form row fits a tile");
 
 // ------------------------------------------------------------------ helpers
 
@@ -320,30 +375,107 @@ __device__ __forceinline__ Tri warp_reduce(Tri v) {
   return {warp_sum(v.rank), warp_max(v.head), warp_sum(v.vis)};
 }
 
+__device__ __forceinline__ Tri warp_incl(Tri v, int lane) {
+  return {warp_incl_sum(v.rank, lane), warp_incl_max(v.head, lane),
+          warp_incl_sum(v.vis, lane)};
+}
+
+// The lane before this one's inclusive value: an exclusive scan.
+__device__ __forceinline__ Tri shfl_up1(Tri v, int lane) {
+  const Tri e = {__shfl_up_sync(kFull, v.rank, 1),
+                 __shfl_up_sync(kFull, v.head, 1),
+                 __shfl_up_sync(kFull, v.vis, 1)};
+  return lane == 0 ? Tri{0, 0, 0} : e;
+}
+
 __device__ __forceinline__ unsigned tri_get(Tri v, int c) {
   return c == 0 ? v.rank : (c == 1 ? v.head : v.vis);
 }
 
-// Reads a triple: its three words must all carry their flag.
-__device__ __forceinline__ bool load_tri(const u64* w, Tri* out) {
+__device__ __forceinline__ unsigned ld_u32(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_u32(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Everything one segment-scan launch reads: the columns, the counts, the
+// carry-in, the persistent scratch and the outputs.
+struct FsArgs {
+  const unsigned char* chain;
+  const unsigned char* has;
+  int n, tpr, rows;            // row length, tiles per row, rows
+  const int* n_elems;          // row r's count at n_elems[r * ne_stride],
+  int ne_stride;               // or ne_imm for every row when ne_stride < 0
+  long long ne_imm;
+  int base;                    // global slot of each row's slot 0
+  const int* carry;            // (n_shards, rows, 3) totals, or null
+  int shard;
+  int vec_in, vec_out;         // 16-byte loads / stores allowed
+  unsigned* hdr;               // scratch: ticket, arrivals, epoch
+  unsigned* row_done;          // scratch: one arrival counter per row
+  u64* words;                  // scratch: status words or partials
+  long long word_cap;
+  int* rank;                   // fs_scan's outputs
+  int* head;
+  int* vis;
+  int* totals;                 // fs_totals' (rows, 3) output
+};
+
+__device__ __forceinline__ long long row_count(const FsArgs& a, int row) {
+  return a.ne_stride < 0 ? a.ne_imm
+                         : a.n_elems[static_cast<size_t>(row) * a.ne_stride];
+}
+
+// This lane's part of the carry-in of `row`: the totals of shards lane,
+// lane + 32, ... before this one (sums and a max, 0 for none). Loaded
+// before the columns, so both reads are in flight together; warp_reduce
+// folds the parts of a whole warp.
+__device__ __forceinline__ Tri carry_part(const FsArgs& a, int row,
+                                          int lane) {
+  Tri c = {0, 0, 0};
+  if (a.carry != nullptr) {
+    for (int s = lane; s < a.shard; s += 32) {
+      const int* p = a.carry + (static_cast<size_t>(s) * a.rows + row) * 3;
+      c = combine(c, {static_cast<unsigned>(p[0]), static_cast<unsigned>(p[1]),
+                      static_cast<unsigned>(p[2])});
+    }
+  }
+  return c;
+}
+
+// Reads a triple of this launch: its three words must all carry `tag`.
+__device__ __forceinline__ bool load_tri(const u64* w, unsigned tag,
+                                         Tri* out) {
   const u64 r = ld_status(w), h = ld_status(w + 1), v = ld_status(w + 2);
-  if ((r >> 32) == 0 || (h >> 32) == 0 || (v >> 32) == 0) return false;
+  if (static_cast<unsigned>(r >> 32) != tag ||
+      static_cast<unsigned>(h >> 32) != tag ||
+      static_cast<unsigned>(v >> 32) != tag)
+    return false;
   *out = {static_cast<unsigned>(r), static_cast<unsigned>(h),
           static_cast<unsigned>(v)};
   return true;
 }
 
 // Look-back over (rank, head, vis); per tile, words 0-2 hold the aggregate
-// (flag A) and words 3-5 the inclusive prefix (flag P). Tile 0 starts from
-// `cin`, the carry-in of the shards before this one ({0, 0, 0} unsharded).
-__device__ Tri lookback_tri(u64* st, int idx, Tri agg, Tri cin, int lane) {
+// and words 3-5 the inclusive prefix, each tagged with this launch's epoch
+// tag in its upper half. Tile 0 starts from `cin`, the carry-in of the
+// shards before this one ({0, 0, 0} unsharded).
+__device__ Tri lookback_tri(u64* st, int idx, Tri agg, Tri cin, int lane,
+                            unsigned tag) {
+  const u64 flag = static_cast<u64>(tag) << 32;
   u64* me = st + static_cast<size_t>(kFsWords) * idx;
   if (idx == 0) {
-    if (lane < 3)
-      st_status(me + 3 + lane, kFlagP | tri_get(combine(cin, agg), lane));
+    if (lane < 3) st_status(me + 3 + lane, flag | tri_get(combine(cin, agg),
+                                                          lane));
     return cin;
   }
-  if (lane < 3) st_status(me + lane, kFlagA | tri_get(agg, lane));
+  if (lane < 3) st_status(me + lane, flag | tri_get(agg, lane));
   Tri excl = {0, 0, 0};
   for (int p = idx - 1 - lane;; p -= 32) {
     Tri s = {0, 0, 0};
@@ -351,8 +483,8 @@ __device__ Tri lookback_tri(u64* st, int idx, Tri agg, Tri cin, int lane) {
     if (p >= 0) {
       const u64* w = st + static_cast<size_t>(kFsWords) * p;
       while (true) {
-        if (load_tri(w + 3, &s)) break;
-        if (load_tri(w, &s)) {
+        if (load_tri(w + 3, tag, &s)) break;
+        if (load_tri(w, tag, &s)) {
           is_p = false;
           break;
         }
@@ -365,8 +497,25 @@ __device__ Tri lookback_tri(u64* st, int idx, Tri agg, Tri cin, int lane) {
     if (pm) break;
   }
   if (lane < 3)
-    st_status(me + 3 + lane, kFlagP | tri_get(combine(excl, agg), lane));
+    st_status(me + 3 + lane, flag | tri_get(combine(excl, agg), lane));
   return excl;
+}
+
+// One block of a look-back launch is done with the status words. The last
+// block to arrive (the counter wraps to 0 behind it) advances the epoch, so
+// the next launch on this scratch tags its words anew; when the next tag
+// would wrap to 0 it first clears every status word, so a stale word never
+// carries a live tag. Run by one thread, after the block's look-back.
+__device__ void arrive(const FsArgs& a) {
+  __threadfence();
+  if (atomicInc(a.hdr + 1, gridDim.x - 1) != gridDim.x - 1) return;
+  __threadfence();
+  unsigned next = ld_u32(a.hdr + 2) + 1u;
+  if (next == kEpochWrap) {
+    for (long long k = 0; k < a.word_cap; ++k) st_status(a.words + k, 0ull);
+    next = 0;
+  }
+  st_u32(a.hdr + 2, next);
 }
 
 // 4 bools (bytes) of one word -> 4 bits, byte 0 to bit 0.
@@ -387,42 +536,67 @@ __device__ __forceinline__ unsigned bit_range(long long lo, long long hi) {
   return upto & ~((1u << static_cast<int>(lo)) - 1u);
 }
 
-// One output column: value k of this thread's 32 goes through shared
-// memory (blocked -> striped) and out as int4 stores.
-template <class F>
-__device__ __forceinline__ void store_column(int4* sh_v, int* out, int s0,
-                                             int n, int vec_out, F value) {
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int m = 0; m < kFsItems / 4; ++m) {
-    int4 w;
-    w.x = static_cast<int>(value(4 * m));
-    w.y = static_cast<int>(value(4 * m + 1));
-    w.z = static_cast<int>(value(4 * m + 2));
-    w.w = static_cast<int>(value(4 * m + 3));
-    sh_v[swz(t * (kFsItems / 4) + m)] = w;
+// One output value of slot k (0-31) of a thread with segment-start and
+// visible masks (sm, vm), first global slot f0 and prefix `start`. The
+// head is a max, not a choice: a carry-in head may lie past the slots.
+__device__ __forceinline__ void scan_values(unsigned sm, unsigned vm,
+                                            long long f0, Tri start, int k,
+                                            int* r, int* h, int* v) {
+  const unsigned upto = sm & ((2u << k) - 1u);
+  *r = static_cast<int>(start.rank + __popc(upto));
+  *h = static_cast<int>(max(
+      upto ? static_cast<unsigned>(f0 + 31 - __clz(upto)) : 0u, start.head));
+  *v = static_cast<int>(start.vis + __popc(vm & ((2u << k) - 1u)));
+}
+
+__device__ __forceinline__ void store_int4(int* out, int e, int n,
+                                           int vec_out, int4 w) {
+  if (vec_out && e + 4 <= n) {
+    store4(out + e, w);
+  } else {
+    if (e < n) out[e] = w.x;
+    if (e + 1 < n) out[e + 1] = w.y;
+    if (e + 2 < n) out[e + 2] = w.z;
+    if (e + 3 < n) out[e + 3] = w.w;
   }
-  __syncthreads();
+}
+
+// The three output columns of one warp's 32 x 32 slots from w0 on (lane l
+// owns the 32 from w0 + 32 l: masks sm, vm and prefix `start`), of a row
+// of length n, in striped order: in round j, lane L writes slots 4 q ..
+// 4 q + 3 (q = 32 j + L) of lane q / 8, whose masks and prefix it fetches
+// by shuffles, so each store instruction of the warp covers 512
+// contiguous bytes. No shared memory, no barrier.
+__device__ __forceinline__ void store_scans(const FsArgs& a, size_t roff,
+                                            int w0, int lane, unsigned sm,
+                                            unsigned vm, Tri start) {
 #pragma unroll
   for (int j = 0; j < kFsItems / 4; ++j) {
-    const int q = j * kFsThreads + t;
-    const int e = s0 + 4 * q;
-    const int4 w = sh_v[swz(q)];
-    if (vec_out && e + 4 <= n) {
-      store4(out + e, w);
-    } else {
-      if (e < n) out[e] = w.x;
-      if (e + 1 < n) out[e + 1] = w.y;
-      if (e + 2 < n) out[e + 2] = w.z;
-      if (e + 3 < n) out[e + 3] = w.w;
-    }
+    const int q = 32 * j + lane;
+    const int src = q >> 3;
+    const unsigned s_sm = __shfl_sync(kFull, sm, src);
+    const unsigned s_vm = __shfl_sync(kFull, vm, src);
+    const Tri s_start = {__shfl_sync(kFull, start.rank, src),
+                         __shfl_sync(kFull, start.head, src),
+                         __shfl_sync(kFull, start.vis, src)};
+    const long long f0 = static_cast<long long>(a.base) + w0 + 32 * src;
+    const int k0 = 4 * (q & 7);
+    int4 r, h, v;
+    scan_values(s_sm, s_vm, f0, s_start, k0, &r.x, &h.x, &v.x);
+    scan_values(s_sm, s_vm, f0, s_start, k0 + 1, &r.y, &h.y, &v.y);
+    scan_values(s_sm, s_vm, f0, s_start, k0 + 2, &r.z, &h.z, &v.z);
+    scan_values(s_sm, s_vm, f0, s_start, k0 + 3, &r.w, &h.w, &v.w);
+    const int e = w0 + 4 * q;
+    store_int4(a.rank + roff, e, a.n, a.vec_out, r);
+    store_int4(a.head + roff, e, a.n, a.vec_out, h);
+    store_int4(a.vis + roff, e, a.n, a.vec_out, v);
   }
-  __syncthreads();
 }
 
 // One thread's 32 slots from i0 on, of a row of length n whose first slot
 // is global slot `base`: the segment-start and visible bits (sm, vm) of
-// its live slots (global slot in [1, ne], i < n).
+// its live slots (global slot in [1, ne], i < n). Slots at or past n read
+// nothing and give no bits.
 __device__ __forceinline__ void slot_masks(
     const unsigned char* __restrict__ chain,
     const unsigned char* __restrict__ has, int n, int i0, long long f0,
@@ -459,131 +633,180 @@ __device__ __forceinline__ Tri thread_tri(unsigned sm, unsigned vm,
           static_cast<unsigned>(__popc(vm))};
 }
 
-// Rows of length n, each scanned on its own: tiles take tickets row after
-// row (tpr tiles per row), and the look-back stays inside the row. Row r
-// reads its element count from n_elems_p[r * ne_stride] (stride 0: one
-// count for every row). With `carry` (the int32 (n_shards, rows, 3) totals
-// of every shard of the column, this one at index `shard`), row r starts
-// from the combined totals of shards 0 .. shard - 1.
-__global__ void __launch_bounds__(kFsThreads)
-fs_scan(const unsigned char* __restrict__ chain,
-        const unsigned char* __restrict__ has, int n, int tpr, int rows,
-        const int* __restrict__ n_elems_p, int ne_stride, int base,
-        const int* __restrict__ carry, int shard,
-        int vec_in, int vec_out, unsigned* ticket, u64* status,
-        int* __restrict__ rank_out, int* __restrict__ head_out,
-        int* __restrict__ vis_out) {
-  constexpr int kWarps = kFsThreads / 32;
-  __shared__ int4 sh_v[kFsTile / 4];
-  __shared__ unsigned sh_w[3][kWarps];
-  __shared__ int sh_tile;
-  __shared__ Tri sh_prefix;
-  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
-
-  const int tile = take_ticket(ticket, &sh_tile);
-  const int row = tile / tpr;
-  const int ct = tile - row * tpr;               // tile index in the row
-  const size_t roff = static_cast<size_t>(row) * n;
-  chain += roff;
-  has += roff;
-  rank_out += roff;
-  head_out += roff;
-  vis_out += roff;
-  const int s0 = ct * kFsTile;                   // first slot of the tile
-  const int i0 = s0 + t * kFsItems;              // first slot of the thread
-
-  const long long f0 = static_cast<long long>(base) + i0;
-  const long long ne = n_elems_p[static_cast<size_t>(row) * ne_stride];
-  unsigned sm, vm;
-  slot_masks(chain, has, n, i0, f0, ne, vec_in, &sm, &vm);
-  const Tri mine = thread_tri(sm, vm, f0);
-  // exclusive scan across the block
-  Tri incl = {warp_incl_sum(mine.rank, lane), warp_incl_max(mine.head, lane),
-              warp_incl_sum(mine.vis, lane)};
-  if (lane == 31) {
-    sh_w[0][wid] = incl.rank;
-    sh_w[1][wid] = incl.head;
-    sh_w[2][wid] = incl.vis;
-  }
-  Tri ex_lane = {__shfl_up_sync(kFull, incl.rank, 1),
-                 __shfl_up_sync(kFull, incl.head, 1),
-                 __shfl_up_sync(kFull, incl.vis, 1)};
-  if (lane == 0) ex_lane = {0, 0, 0};
-  __syncthreads();
-  Tri woff = {0, 0, 0}, agg = {0, 0, 0};
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const Tri s = {sh_w[0][w], sh_w[1][w], sh_w[2][w]};
-    if (w < wid) woff = combine(woff, s);
-    agg = combine(agg, s);
-  }
-  if (wid == 0) {
-    Tri cin = {0, 0, 0};
-    if (carry != nullptr && ct == 0) {
-      for (int s = 0; s < shard; ++s) {
-        const int* c = carry + (static_cast<size_t>(s) * rows + row) * 3;
-        cin = combine(cin, {static_cast<unsigned>(c[0]),
-                            static_cast<unsigned>(c[1]),
-                            static_cast<unsigned>(c[2])});
-      }
-    }
-    const Tri pre = lookback_tri(
-        status + static_cast<size_t>(row) * tpr * kFsWords, ct, agg, cin,
-        lane);
-    if (lane == 0) sh_prefix = pre;
-  }
-  __syncthreads();
-  const Tri start = combine(combine(sh_prefix, woff), ex_lane);
-
-  store_column(sh_v, rank_out, s0, n, vec_out, [&](int k) {
-    return start.rank + __popc(sm & ((2u << k) - 1u));
-  });
-  store_column(sh_v, head_out, s0, n, vec_out, [&](int k) {
-    const unsigned upto = sm & ((2u << k) - 1u);
-    return upto ? static_cast<unsigned>(f0 + 31 - __clz(upto)) : start.head;
-  });
-  store_column(sh_v, vis_out, s0, n, vec_out, [&](int k) {
-    return start.vis + __popc(vm & ((2u << k) - 1u));
-  });
-}
-
-// Per row, the totals of its live slots: (segment starts, the latest
-// segment-start slot or 0, visible count), added (and maxed) into the
-// int32 (rows, 3) `out`, which the entry point zeroes first. One tile a
-// block, as fs_scan cuts them; no ticket, no look-back.
-__global__ void __launch_bounds__(kFsThreads)
-fs_totals(const unsigned char* __restrict__ chain,
-          const unsigned char* __restrict__ has, int n, int tpr,
-          const int* __restrict__ n_elems_p, int ne_stride, int base,
-          int vec_in, int* __restrict__ out) {
-  constexpr int kWarps = kFsThreads / 32;
-  __shared__ unsigned sh_w[3][kWarps];
-  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
-  const int row = blockIdx.x / tpr;
-  const int ct = blockIdx.x - row * tpr;
-  const size_t roff = static_cast<size_t>(row) * n;
-  const int i0 = ct * kFsTile + t * kFsItems;
-  const long long f0 = static_cast<long long>(base) + i0;
-  const long long ne = n_elems_p[static_cast<size_t>(row) * ne_stride];
-  unsigned sm = 0, vm = 0;
-  if (i0 < n) slot_masks(chain + roff, has + roff, n, i0, f0, ne, vec_in,
-                         &sm, &vm);
-  const Tri w = warp_reduce(thread_tri(sm, vm, f0));
+// The block's aggregate of the threads' triples, in every thread. The
+// caller separates two uses of sh_w with a __syncthreads.
+__device__ __forceinline__ Tri block_reduce(Tri v, int lane, int wid,
+                                            unsigned (*sh_w)[kFsWarps]) {
+  const Tri w = warp_reduce(v);
   if (lane == 0) {
     sh_w[0][wid] = w.rank;
     sh_w[1][wid] = w.head;
     sh_w[2][wid] = w.vis;
   }
   __syncthreads();
-  if (t == 0) {
-    Tri agg = {0, 0, 0};
+  Tri agg = {0, 0, 0};
 #pragma unroll
-    for (int k = 0; k < kWarps; ++k)
-      agg = combine(agg, {sh_w[0][k], sh_w[1][k], sh_w[2][k]});
-    unsigned* o = reinterpret_cast<unsigned*>(out) + static_cast<size_t>(row) * 3;
-    if (agg.rank) atomicAdd(o, agg.rank);
-    if (agg.head) atomicMax(o + 1, agg.head);
-    if (agg.vis) atomicAdd(o + 2, agg.vis);
+  for (int k = 0; k < kFsWarps; ++k)
+    agg = combine(agg, {sh_w[0][k], sh_w[1][k], sh_w[2][k]});
+  return agg;
+}
+
+// Exclusive scan of the threads' triples across the block: *ex gets this
+// thread's prefix inside the block; returns the block's aggregate.
+__device__ __forceinline__ Tri block_scan(Tri mine, int lane, int wid,
+                                          unsigned (*sh_w)[kFsWarps],
+                                          Tri* ex) {
+  const Tri incl = warp_incl(mine, lane);
+  if (lane == 31) {
+    sh_w[0][wid] = incl.rank;
+    sh_w[1][wid] = incl.head;
+    sh_w[2][wid] = incl.vis;
+  }
+  const Tri ex_lane = shfl_up1(incl, lane);
+  __syncthreads();
+  Tri woff = {0, 0, 0}, agg = {0, 0, 0};
+#pragma unroll
+  for (int w = 0; w < kFsWarps; ++w) {
+    const Tri s = {sh_w[0][w], sh_w[1][w], sh_w[2][w]};
+    if (w < wid) woff = combine(woff, s);
+    agg = combine(agg, s);
+  }
+  *ex = combine(woff, ex_lane);
+  return agg;
+}
+
+// The segment scans of `rows` rows of length n, each on its own, starting
+// from the carry-in of the earlier shards when `carry` is set. kWarpForm:
+// one warp a row (n <= kFsWarpRow), kFsWarps rows a block. kBlockForm: one
+// block a row (n <= kFsTile). kLookbackForm: tpr tiles a row, taken from
+// the self-resetting ticket row after row; the look-back stays inside the
+// row and tile 0 folds the carry-in into the prefix it publishes.
+template <int kForm>
+__global__ void __launch_bounds__(kFsThreads) fs_scan(FsArgs a) {
+  __shared__ unsigned sh_w[3][kFsWarps];
+  __shared__ int sh_tile;
+  __shared__ unsigned sh_tag;
+  __shared__ Tri sh_prefix;
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+
+  if constexpr (kForm == kWarpForm) {
+    const int row = blockIdx.x * kFsWarps + wid;
+    if (row >= a.rows) return;                   // the whole warp leaves
+    const size_t roff = static_cast<size_t>(row) * a.n;
+    const int i0 = lane * kFsItems;
+    const long long f0 = static_cast<long long>(a.base) + i0;
+    const long long ne = row_count(a, row);
+    const Tri cpart = carry_part(a, row, lane);
+    unsigned sm, vm;
+    slot_masks(a.chain + roff, a.has + roff, a.n, i0, f0, ne, a.vec_in, &sm,
+               &vm);
+    const Tri ex = shfl_up1(warp_incl(thread_tri(sm, vm, f0), lane), lane);
+    store_scans(a, roff, 0, lane, sm, vm, combine(warp_reduce(cpart), ex));
+  } else {
+    int row = blockIdx.x, ct = 0;
+    unsigned tag = 0;
+    if constexpr (kForm == kLookbackForm) {
+      if (t == 0) {
+        sh_tile = static_cast<int>(atomicInc(a.hdr, gridDim.x - 1));
+        sh_tag = ld_u32(a.hdr + 2) + 1u;
+      }
+      __syncthreads();
+      row = sh_tile / a.tpr;
+      ct = sh_tile - row * a.tpr;
+      tag = sh_tag;
+    }
+    const size_t roff = static_cast<size_t>(row) * a.n;
+    const int s0 = ct * kFsTile;                 // first slot of the tile
+    const int i0 = s0 + t * kFsItems;            // first slot of the thread
+    const long long f0 = static_cast<long long>(a.base) + i0;
+    const long long ne = row_count(a, row);
+    const Tri cpart = wid == 0 && ct == 0 ? carry_part(a, row, lane)
+                                          : Tri{0, 0, 0};
+    unsigned sm, vm;
+    slot_masks(a.chain + roff, a.has + roff, a.n, i0, f0, ne, a.vec_in, &sm,
+               &vm);
+    Tri ex;
+    const Tri agg = block_scan(thread_tri(sm, vm, f0), lane, wid, sh_w, &ex);
+    if (wid == 0) {
+      const Tri cin = warp_reduce(cpart);
+      Tri pre = cin;
+      if constexpr (kForm == kLookbackForm)
+        pre = lookback_tri(
+            a.words + static_cast<size_t>(row) * a.tpr * kFsWords, ct, agg,
+            cin, lane, tag);
+      if (lane == 0) sh_prefix = pre;
+    }
+    __syncthreads();
+    if constexpr (kForm == kLookbackForm) {
+      if (t == 0) arrive(a);
+    }
+    store_scans(a, roff, s0 + wid * 32 * kFsItems, lane, sm, vm,
+                combine(sh_prefix, ex));
+  }
+}
+
+// Per row, the totals of its live slots: (segment starts, the latest
+// segment-start slot or 0, visible count) into the int32 (rows, 3)
+// `totals`, with plain stores. kWarpForm and kBlockForm: a warp or a block
+// a row, as fs_scan cuts them. kLookbackForm (rows longer than a tile): a
+// block a tile writes its partial (three words, upper halves 0, so that no
+// fs_scan launch ever reads one as tagged) and counts itself in on the
+// row's self-resetting counter; the row's last block folds the partials.
+// No ticket, no look-back, no zeroed output.
+template <int kForm>
+__global__ void __launch_bounds__(kFsThreads) fs_totals(FsArgs a) {
+  __shared__ unsigned sh_w[3][kFsWarps];
+  __shared__ int sh_last;
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+
+  if constexpr (kForm == kWarpForm) {
+    const int row = blockIdx.x * kFsWarps + wid;
+    if (row >= a.rows) return;
+    const size_t roff = static_cast<size_t>(row) * a.n;
+    const int i0 = lane * kFsItems;
+    const long long f0 = static_cast<long long>(a.base) + i0;
+    unsigned sm, vm;
+    slot_masks(a.chain + roff, a.has + roff, a.n, i0, f0, row_count(a, row),
+               a.vec_in, &sm, &vm);
+    const Tri tot = warp_reduce(thread_tri(sm, vm, f0));
+    if (lane < 3)
+      a.totals[static_cast<size_t>(row) * 3 + lane] =
+          static_cast<int>(tri_get(tot, lane));
+  } else {
+    const int row = blockIdx.x / a.tpr;
+    const int ct = blockIdx.x - row * a.tpr;
+    const size_t roff = static_cast<size_t>(row) * a.n;
+    const int i0 = ct * kFsTile + t * kFsItems;
+    const long long f0 = static_cast<long long>(a.base) + i0;
+    unsigned sm, vm;
+    slot_masks(a.chain + roff, a.has + roff, a.n, i0, f0, row_count(a, row),
+               a.vec_in, &sm, &vm);
+    Tri agg = block_reduce(thread_tri(sm, vm, f0), lane, wid, sh_w);
+    int* out = a.totals + static_cast<size_t>(row) * 3;
+    if constexpr (kForm == kBlockForm) {
+      if (t < 3) out[t] = static_cast<int>(tri_get(agg, t));
+    } else {
+      u64* part = a.words + static_cast<size_t>(row) * a.tpr * 3;
+      if (t < 3) {
+        st_status(part + ct * 3 + t, tri_get(agg, t));
+        __threadfence();
+      }
+      __syncthreads();
+      if (t == 0)
+        sh_last = atomicInc(a.row_done + row, a.tpr - 1) == a.tpr - 1u;
+      __syncthreads();
+      if (!sh_last) return;
+      __threadfence();
+      Tri mine = {0, 0, 0};
+      for (int k = t; k < a.tpr; k += kFsThreads) {
+        const u64* w = part + k * 3;
+        mine = combine(mine, {static_cast<unsigned>(ld_status(w)),
+                              static_cast<unsigned>(ld_status(w + 1)),
+                              static_cast<unsigned>(ld_status(w + 2))});
+      }
+      agg = block_reduce(mine, lane, wid, sh_w);
+      if (t < 3) out[t] = static_cast<int>(tri_get(agg, t));
+    }
   }
 }
 
@@ -593,15 +816,63 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// The form a row of n slots takes (the host chooses the same).
+inline int fs_form_of(int n) {
+  return n <= kFsWarpRow ? kWarpForm : (n <= kFsTile ? kBlockForm
+                                                     : kLookbackForm);
+}
+
+// The launch's arguments; returns false when the scratch cannot hold what
+// the form needs (`counters` row counters, `words` 64-bit words).
+bool fs_args(FsArgs* a, const void* chain, const void* has, int rows, int n,
+             const void* n_elems, int ne_stride, long long ne_imm, int base,
+             void* scratch, int counter_cap, long long word_cap,
+             long long counters, long long words) {
+  *a = FsArgs{};
+  a->chain = static_cast<const unsigned char*>(chain);
+  a->has = static_cast<const unsigned char*>(has);
+  a->n = n;
+  a->tpr = num_tiles(n, kFsTile);
+  a->rows = rows;
+  a->n_elems = static_cast<const int*>(n_elems);
+  a->ne_stride = ne_stride;
+  a->ne_imm = ne_imm;
+  a->base = base;
+  // every row must start on 16 bytes too: bool rows of a multiple of 16
+  // slots
+  a->vec_in = aligned16(chain) && aligned16(has) &&
+              (rows == 1 || n % 16 == 0);
+  if (ne_stride >= 0 && n_elems == nullptr) return false;
+  if (counters > 0 || words > 0) {
+    if (scratch == nullptr || counter_cap < counters || word_cap < words)
+      return false;
+    a->hdr = static_cast<unsigned*>(scratch);
+    a->row_done = a->hdr + 4;
+    a->words = static_cast<u64*>(scratch) + kFsHeaderWords +
+               (counter_cap + 1) / 2;
+    a->word_cap = word_cap;
+  }
+  return true;
+}
+
+unsigned fs_blocks(int form, int rows, int tpr) {
+  if (form == kWarpForm) return (rows + kFsWarps - 1) / kFsWarps;
+  return static_cast<unsigned>(form == kBlockForm ? rows : rows * tpr);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Columns of one multi_scan tile and slots of one segment-scan tile; the
-// caller sizes the scratch from them (8 bytes for the ticket plus 8 per
-// status word: one per multi_scan tile, six per segment-scan tile).
+// caller sizes multi_scan's scratch from them (8 bytes for the ticket plus
+// 8 per tile). The segment scans' forms: rows of at most
+// amt_fs_warp_row() slots take a warp each, rows of at most a tile a block
+// each, longer rows the look-back (amt_fs_form).
 int amt_multi_scan_tile() { return kMsTile; }
 int amt_fused_scan_tile() { return kFsTile; }
+int amt_fs_warp_row() { return kFsWarpRow; }
+int amt_fs_form(int n) { return fs_form_of(n); }
 
 // y[k, :] = inclusive prefix sum of x[k, :], int32 (K, N) row-major.
 // scratch: at least 8 * (1 + K * ceil(N / tile)) bytes, 8-byte aligned.
@@ -625,65 +896,83 @@ int amt_multi_scan(const void* x, void* y, void* scratch,
 }
 
 // (rank_incl, seg_head, cumvis) of `rows` rows of bool chain/has_value
-// columns, each row n long and scanned on its own; row r reads its
-// element count n_elems[r * ne_stride] on the device (ne_stride 0: one
-// count for all rows). `carry` (may be null): the int32 (n_shards, rows,
-// 3) totals of every shard of a sharded column (amt_fs_totals), this
-// shard at index `shard`; row r then starts from shards 0 .. shard - 1.
-// scratch: at least 8 * (1 + 6 * rows * ceil(n / tile)) bytes, 8-byte
-// aligned.
+// columns, each row n long and scanned on its own, in form `form`
+// (amt_fs_form(n); anything else is refused). Row r's element count is
+// n_elems[r * ne_stride] on the device, or ne_imm for every row when
+// ne_stride < 0 (n_elems may then be null). `carry` (may be null): the
+// int32 (n_shards, rows, 3) totals of every shard of a sharded column
+// (amt_fs_totals), this shard at index `shard`; row r then starts from
+// shards 0 .. shard - 1. The look-back form needs the persistent scratch:
+// int64 words [2 header][ceil(counter_cap / 2) counters][word_cap status
+// words], zeroed once when it was allocated, with word_cap >= 6 * rows *
+// ceil(n / tile); the other forms take none (null). One launch, nothing
+// else on the stream.
 int amt_fused_segment_scans(const void* chain, const void* has, int rows,
                             int n, const void* n_elems, int ne_stride,
-                            int base, const void* carry, int shard,
-                            void* scratch, long long scratch_bytes,
-                            void* rank, void* head, void* cumvis,
-                            void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tpr = num_tiles(n, kFsTile);
-  const long long tiles = static_cast<long long>(rows) * tpr;
-  const long long need = 8 * (1 + static_cast<long long>(kFsWords) * tiles);
-  if (scratch_bytes < need || tiles > 0x7fffffffLL)
+                            long long ne_imm, int base, const void* carry,
+                            int shard, int form, void* scratch,
+                            int counter_cap, long long word_cap, void* rank,
+                            void* head, void* cumvis, void* stream) {
+  if (rows <= 0 || n <= 0 || form != fs_form_of(n) || shard < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaMemsetAsync(scratch, 0, need, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  u64* words = static_cast<u64*>(scratch);
-  // every row must start on 16 bytes too: bool rows of a multiple of 16
-  // slots, int32 rows of a multiple of 4
-  const int vec_in = aligned16(chain) && aligned16(has) &&
-                     (rows == 1 || n % 16 == 0);
-  const int vec_out = aligned16(rank) && aligned16(head) &&
-                      aligned16(cumvis) && (rows == 1 || n % 4 == 0);
-  fs_scan<<<static_cast<unsigned>(tiles), kFsThreads, 0, s>>>(
-      static_cast<const unsigned char*>(chain),
-      static_cast<const unsigned char*>(has), n, tpr, rows,
-      static_cast<const int*>(n_elems), ne_stride, base,
-      static_cast<const int*>(carry), shard, vec_in, vec_out,
-      reinterpret_cast<unsigned*>(words), words + 1, static_cast<int*>(rank),
-      static_cast<int*>(head), static_cast<int*>(cumvis));
+  const long long tiles =
+      static_cast<long long>(rows) * num_tiles(n, kFsTile);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  FsArgs a;
+  if (!fs_args(&a, chain, has, rows, n, n_elems, ne_stride, ne_imm, base,
+               scratch, counter_cap, word_cap, 0,
+               form == kLookbackForm ? kFsWords * tiles : 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.carry = static_cast<const int*>(carry);
+  a.shard = shard;
+  a.rank = static_cast<int*>(rank);
+  a.head = static_cast<int*>(head);
+  a.vis = static_cast<int*>(cumvis);
+  // int32 rows must start on 16 bytes too: a multiple of 4 slots
+  a.vec_out = aligned16(rank) && aligned16(head) && aligned16(cumvis) &&
+              (rows == 1 || n % 4 == 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = fs_blocks(form, rows, a.tpr);
+  if (form == kWarpForm)
+    fs_scan<kWarpForm><<<blocks, kFsThreads, 0, s>>>(a);
+  else if (form == kBlockForm)
+    fs_scan<kBlockForm><<<blocks, kFsThreads, 0, s>>>(a);
+  else
+    fs_scan<kLookbackForm><<<blocks, kFsThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The int32 (rows, 3) totals (segment starts, latest segment-start slot
 // or 0, visible count) of the live slots of `rows` rows of bool
 // chain/has_value columns, each n long with first global slot `base`;
-// element counts as amt_fused_segment_scans reads them. `out` is zeroed
-// on the stream first.
+// element counts and the form as amt_fused_segment_scans takes them. Rows
+// longer than a tile need the persistent scratch with counter_cap >= rows
+// and word_cap >= 3 * rows * ceil(n / tile). Every total is written with a
+// plain store: `out` needs no zeroing. One launch, nothing else.
 int amt_fs_totals(const void* chain, const void* has, int rows, int n,
-                  const void* n_elems, int ne_stride, int base, void* out,
-                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tpr = num_tiles(n, kFsTile);
-  const long long tiles = static_cast<long long>(rows) * tpr;
+                  const void* n_elems, int ne_stride, long long ne_imm,
+                  int base, int form, void* scratch, int counter_cap,
+                  long long word_cap, void* out, void* stream) {
+  if (rows <= 0 || n <= 0 || form != fs_form_of(n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles =
+      static_cast<long long>(rows) * num_tiles(n, kFsTile);
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaMemsetAsync(out, 0, 12ll * rows, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int vec_in = aligned16(chain) && aligned16(has) &&
-                     (rows == 1 || n % 16 == 0);
-  fs_totals<<<static_cast<unsigned>(tiles), kFsThreads, 0, s>>>(
-      static_cast<const unsigned char*>(chain),
-      static_cast<const unsigned char*>(has), n, tpr,
-      static_cast<const int*>(n_elems), ne_stride, base, vec_in,
-      static_cast<int*>(out));
+  const bool parts = form == kLookbackForm;
+  FsArgs a;
+  if (!fs_args(&a, chain, has, rows, n, n_elems, ne_stride, ne_imm, base,
+               scratch, counter_cap, word_cap, parts ? rows : 0,
+               parts ? 3 * tiles : 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.totals = static_cast<int*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = fs_blocks(form, rows, a.tpr);
+  if (form == kWarpForm)
+    fs_totals<kWarpForm><<<blocks, kFsThreads, 0, s>>>(a);
+  else if (form == kBlockForm)
+    fs_totals<kBlockForm><<<blocks, kFsThreads, 0, s>>>(a);
+  else
+    fs_totals<kLookbackForm><<<blocks, kFsThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

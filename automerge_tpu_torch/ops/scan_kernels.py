@@ -31,12 +31,21 @@ Counterpart of `automerge_tpu/ops/scan_pallas.py`:
   the bool columns twice, 16 bytes a slot. An axis of one shard runs the
   unsharded kernel and exchanges nothing.
 
-The kernels live in `csrc/scan.cu`. Each call is one single-pass launch
-(a chained scan with decoupled look-back over ticketed tiles, 16-byte
-loads and stores) after a memset of its scratch; the source note says what
-bounds them on an H100 (bytes: 302 MB and 88 MB at the merge shapes) and
-why the tile sizes are what they are. The library is built with `nvcc` at
-first use into `csrc/build/` and bound through ctypes.
+The kernels live in `csrc/scan.cu`; its head note says what bounds them
+on an H100 (bytes: 302 MB and 88 MB at the merge shapes; launches at
+short rows) and why the tile sizes are what they are. `multi_scan` is
+one single-pass launch (a chained scan with decoupled look-back over
+ticketed tiles, 16-byte loads and stores) after a memset of its scratch.
+The segment scans (`fused_segment_scans`, `fs_totals`, the carry-in
+scan) take one of three forms by row length, chosen here by
+`fs_geometry`: a warp a row up to 1,024 slots, a block a row up to
+8,192, the look-back beyond. Each of their calls is ONE kernel launch
+and no other device operation: an int count goes to the kernel by value,
+and the look-back form's scratch persists, one buffer per (device,
+stream) in `ScratchCache` (zeroed once when allocated; the kernels reset
+its ticket and counters and advance its epoch themselves, so CUDA graph
+replays stay right). The library is built with `nvcc` at first use into
+`csrc/build/` and bound through ctypes.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel or raises. Each wrapper adds one to
@@ -52,6 +61,7 @@ the library's build and load are its build/load events.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -59,6 +69,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -168,11 +179,20 @@ def bind(path) -> ctypes.CDLL:
         fn.restype = ci
     lib.amt_multi_scan.argtypes = [vp, vp, vp, cll, ci, ci, vp]
     lib.amt_multi_scan.restype = ci
+    lib.amt_fs_warp_row.argtypes = []
+    lib.amt_fs_warp_row.restype = ci
+    lib.amt_fs_form.argtypes = [ci]
+    lib.amt_fs_form.restype = ci
     lib.amt_fused_segment_scans.argtypes = [
-        vp, vp, ci, ci, vp, ci, ci, vp, ci, vp, cll, vp, vp, vp, vp]
+        vp, vp, ci, ci, vp, ci, cll, ci, vp, ci, ci, vp, ci, cll, vp, vp, vp,
+        vp]
     lib.amt_fused_segment_scans.restype = ci
-    lib.amt_fs_totals.argtypes = [vp, vp, ci, ci, vp, ci, ci, vp, vp]
+    lib.amt_fs_totals.argtypes = [
+        vp, vp, ci, ci, vp, ci, cll, ci, ci, vp, ci, cll, vp, vp]
     lib.amt_fs_totals.restype = ci
+    # the segment scans' form constants (fs_geometry's tile and
+    # warp_row), read once: a variant build may change them
+    lib.fs_consts = (lib.amt_fused_scan_tile(), lib.amt_fs_warp_row())
     return lib
 
 
@@ -294,62 +314,200 @@ def _row_counts(n_elems, chain: torch.Tensor) -> torch.Tensor:
     return n_elems
 
 
-def _fs_operands(name: str, chain: torch.Tensor, has_value: torch.Tensor,
-                 n_elems):
-    """Check the CUDA operands of the segment-scan kernels; returns the
-    element counts as a contiguous int32 tensor on the card."""
+#: the segment scans' forms (csrc/scan.cu), by the row length n
+FS_FORMS = ("warp", "block", "lookback")
+FS_TILE = 8192          # kFsTile: the longest block-form row, a tile
+FS_WARP_ROW = 1024      # kFsWarpRow: the longest warp-form row
+FS_HEADER_WORDS = 2     # kFsHeaderWords: ticket, arrivals, epoch
+
+
+class FsLaunch(NamedTuple):
+    """One segment-scan launch: its form (an index into FS_FORMS) and the
+    persistent scratch it needs (row counters and 64-bit words; 0 and 0
+    for none)."""
+    form: int
+    counters: int
+    words: int
+
+
+@functools.lru_cache(maxsize=4096)
+def fs_geometry(kernel: str, rows: int, n: int, tile: int = FS_TILE,
+                warp_row: int = FS_WARP_ROW) -> FsLaunch:
+    """The launch of `kernel` ("fs_scan" or "fs_totals") over `rows` rows
+    of n slots (n >= 1): a warp a row up to `warp_row` slots, a block a
+    row up to `tile`, else ceil(n / tile) tiles a row with the look-back
+    (fs_scan: 6 status words a tile) or per-tile partials folded by the
+    row's last block (fs_totals: 3 words a tile and a counter a row). The
+    entry points refuse any other form; the wrappers pass the loaded
+    library's constants."""
+    if kernel not in ("fs_scan", "fs_totals") or rows < 1 or n < 1:
+        raise ValueError(f"no segment-scan launch of {kernel} over "
+                         f"({rows}, {n})")
+    if n <= warp_row:
+        return FsLaunch(0, 0, 0)
+    if n <= tile:
+        return FsLaunch(1, 0, 0)
+    tiles = rows * n_tiles(n, tile)
+    if kernel == "fs_scan":
+        return FsLaunch(2, 0, FS_STATUS_WORDS * tiles)
+    return FsLaunch(2, rows, 3 * tiles)
+
+
+def fs_scratch_words(counters: int, words: int) -> int:
+    """int64 words of a segment-scan scratch holding `counters` u32 row
+    counters and `words` status words, after the header."""
+    return FS_HEADER_WORDS + -(-counters // 2) + words
+
+
+def _pow2(x: int) -> int:
+    return 0 if x <= 0 else 1 << (x - 1).bit_length()
+
+
+def _zeroed_words(n: int, device) -> torch.Tensor:
+    # on the device's current stream: the stream whose launches use it
+    return torch.zeros(n, dtype=torch.int64, device=device)
+
+
+class ScratchCache:
+    """The segment scans' persistent scratch: one buffer per (device,
+    stream), zeroed once when it is allocated (`alloc(n_words, device)`,
+    on that stream), grown to the next power of two of what a launch
+    needs, never shared between two streams. The kernels keep the
+    buffer's state (ticket, counters, epoch) right from one launch to the
+    next on the device, so a launch does no memset and a replayed CUDA
+    graph stays right. Growing keeps the outgrown buffer (`retired`): a
+    graph captured with it may still replay its pointer. Growing inside a
+    capture raises (its allocation and zeroing would land in the graph):
+    launch once on the capturing stream before capture."""
+
+    def __init__(self, alloc=None, capturing=None):
+        self._alloc = alloc or _zeroed_words
+        self._capturing = capturing or torch.cuda.is_current_stream_capturing
+        self._lock = threading.Lock()
+        #: (device index, stream handle) -> (buffer, counters, words, ptr)
+        self.buffers = {}
+        self.retired = []
+
+    def get(self, key, device, counters: int, words: int) -> tuple:
+        with self._lock:
+            have = self.buffers.get(key)
+            if have is not None and have[1] >= counters and have[2] >= words:
+                return have
+            if self._capturing():
+                raise RuntimeError(
+                    "segment scans: the scratch of this stream must be "
+                    "sized before a CUDA graph captures it (launch once on "
+                    "the capturing stream first)")
+            if have is not None:
+                counters = max(counters, have[1])
+                words = max(words, have[2])
+                self.retired.append(have[0])
+            counters, words = _pow2(counters), _pow2(words)
+            buf = self._alloc(fs_scratch_words(counters, words), device)
+            entry = (buf, counters, words, buf.data_ptr())
+            self.buffers[key] = entry
+            return entry
+
+
+_SCRATCH = ScratchCache()
+_NO_SCRATCH = (None, 0, 0, None)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream_handle(device) -> int:
+    """The raw handle of `device`'s current stream."""
+    if _raw_stream is not None:
+        return _raw_stream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_fs(name: str, what: str, t: torch.Tensor, ndim: int):
+    """A bool column (or rows) the kernels take; one test on the way
+    through, `_check_cuda` names what is wrong."""
+    if (not t.is_cuda or t.dtype != torch.bool or t.dim() != ndim
+            or not t.is_contiguous() or t.numel() > _I32_MAX):
+        _check_cuda(f"{name} {what}", t, torch.bool, ndim)
+
+
+def _fs_columns(name: str, chain, has_value) -> bool:
+    """Check the CUDA columns of the segment-scan kernels; True for rows."""
     rows = chain.dim() == 2
-    _check_cuda(f"{name} chain", chain, torch.bool, 2 if rows else 1)
-    _check_cuda(f"{name} has_value", has_value, torch.bool,
-                2 if rows else 1)
+    _check_fs(name, "chain", chain, 2 if rows else 1)
+    _check_fs(name, "has_value", has_value, 2 if rows else 1)
     if has_value.shape != chain.shape:
         raise ValueError(f"{name}: chain and has_value differ "
                          f"in shape ({tuple(chain.shape)} vs "
                          f"{tuple(has_value.shape)})")
+    if has_value.device != chain.device:
+        raise ValueError(f"{name}: chain and has_value lie on "
+                         f"{chain.device} and {has_value.device}")
+    return rows
+
+
+def _fs_counts(name: str, chain, n_elems, rows: bool) -> tuple:
+    """The element counts as the kernels read them: (pointer, stride,
+    immediate). An int goes by value (stride -1); a scalar tensor is read
+    on the device (stride 0), per-row counts at their own stride."""
     if rows:
         n_elems = _row_counts(n_elems, chain)
-    else:
-        if not torch.is_tensor(n_elems):
-            # a fill on the device: a pageable h2d copy would sync the
-            # stream
-            n_elems = torch.full((), int(n_elems), dtype=torch.int32,
-                                 device=chain.device)
-        if (n_elems.device != chain.device or n_elems.dtype != torch.int32
-                or n_elems.numel() != 1):
-            raise ValueError(f"{name}: n_elems must be one int32 on "
-                             f"{chain.device}")
-    return n_elems.contiguous()
+        return n_elems.data_ptr(), n_elems.stride(0), 0
+    if not torch.is_tensor(n_elems):
+        return None, -1, int(n_elems)
+    if (n_elems.device != chain.device or n_elems.dtype != torch.int32
+            or n_elems.numel() != 1):
+        raise ValueError(f"{name}: n_elems must be one int32 on "
+                         f"{chain.device}")
+    return n_elems.data_ptr(), 0, 0
+
+
+def _scratch_for(kernel: str, dev, D: int, C: int, lib):
+    """(launch geometry, scratch entry, stream handle) of one launch."""
+    geo = fs_geometry(kernel, D, C, *lib.fs_consts)
+    stream = _stream_handle(dev)
+    if geo.counters or geo.words:
+        return geo, _SCRATCH.get((dev.index, stream), dev, geo.counters,
+                                 geo.words), stream
+    return geo, _NO_SCRATCH, stream
+
+
+def _call(dev, fn, *args) -> int:
+    """fn(*args) with `dev` the current device (entered only when it is
+    not already)."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
 
 
 def _fs_launch(name: str, chain, has_value, n_elems, base: int, carry,
                shard: int):
     """One `fs_scan` launch (with a carry-in when `carry` is given),
-    counted under `name`."""
-    n_elems = _fs_operands(name, chain, has_value, n_elems)
-    rows = chain.dim() == 2
+    counted under `name`: one kernel on the stream, nothing else."""
+    rows = _fs_columns(name, chain, has_value)
     D, C = (chain.shape if rows else (1, chain.shape[0]))
+    ne_ptr, ne_stride, ne_imm = _fs_counts(name, chain, n_elems, rows)
+    dev = chain.device
+    carry_ptr = None
     if carry is not None:
         _check_cuda(f"{name} carry", carry, torch.int32, carry.dim())
-        if carry.device != chain.device or carry.numel() < 3 * D * shard:
+        if carry.device != dev or carry.numel() < 3 * D * shard:
             raise ValueError(f"{name}: carry must hold the int32 totals "
                              f"of {shard} earlier shards of {D} rows on "
-                             f"{chain.device}")
-    rank = torch.empty(chain.shape, dtype=torch.int32, device=chain.device)
+                             f"{dev}")
+        carry_ptr = carry.data_ptr()
+    rank = torch.empty(chain.shape, dtype=torch.int32, device=dev)
     head = torch.empty_like(rank)
     cumvis = torch.empty_like(rank)
-    if rank.numel() == 0:
+    if D == 0 or C == 0:
         return rank, head, cumvis
-    lib = load()
-    with torch.cuda.device(chain.device):
-        scratch = _scratch(D * n_tiles(C, lib.amt_fused_scan_tile()),
-                           FS_STATUS_WORDS, chain.device)
-        rc = lib.amt_fused_segment_scans(
-            chain.data_ptr(), has_value.data_ptr(), D, C,
-            n_elems.data_ptr(), 1 if rows else 0, int(base),
-            None if carry is None else carry.data_ptr(), int(shard),
-            scratch.data_ptr(), scratch.numel() * 8,
-            rank.data_ptr(), head.data_ptr(), cumvis.data_ptr(),
-            torch.cuda.current_stream(chain.device).cuda_stream)
+    lib = _LIB or load()
+    geo, (_, counters, words, sc), stream = _scratch_for("fs_scan", dev, D,
+                                                         C, lib)
+    rc = _call(dev, lib.amt_fused_segment_scans, chain.data_ptr(),
+               has_value.data_ptr(), D, C, ne_ptr, ne_stride, ne_imm,
+               int(base), carry_ptr, int(shard), geo.form, sc, counters,
+               words, rank.data_ptr(), head.data_ptr(), cumvis.data_ptr(),
+               stream)
     _raise_on(rc, name)
     _count_launch(name, tuple(chain.shape))
     if _dt.ENABLED:
@@ -364,9 +522,9 @@ def fused_segment_scans(chain: torch.Tensor, has_value: torch.Tensor,
     One column of C slots, or (D, C) rows each scanned on its own (the
     per-document form of the DocSet's materialization): `n_elems` is then
     one count per row, an int32 (D,) tensor on the rows' device. For one
-    column it is an int or an int32 scalar tensor on the same device. The
-    kernel reads the counts on the device, so counts computed there need
-    no host sync."""
+    column it is an int (passed to the kernel by value) or an int32 scalar
+    tensor on the same device (read there, so counts computed on the
+    device need no host sync)."""
     if chain.device.type == "cpu":
         if _dt.ENABLED:
             _DT["fused_segment_scans", "plain"].note(*_fs_cost(chain))
@@ -414,25 +572,27 @@ def fs_totals(chain: torch.Tensor, has_value: torch.Tensor, n_elems,
               base: int = 0) -> torch.Tensor:
     """One shard's totals for the carry exchange of the sharded segment
     scans: int32 (3,) for a column, (D, 3) for rows; counts as for
-    `fused_segment_scans`. One `fs_totals` launch (after a memset of the
-    output) on a CUDA tensor."""
+    `fused_segment_scans`. One `fs_totals` launch on a CUDA tensor, which
+    writes every total (no memset)."""
     if chain.device.type == "cpu":
         if _dt.ENABLED:
             _DT["fs_totals", "plain"].note(*_totals_cost(chain))
         return fs_totals_plain(chain, has_value, n_elems, base)
-    n_elems = _fs_operands("fs_totals", chain, has_value, n_elems)
-    rows = chain.dim() == 2
+    rows = _fs_columns("fs_totals", chain, has_value)
     D, C = (chain.shape if rows else (1, chain.shape[0]))
+    ne_ptr, ne_stride, ne_imm = _fs_counts("fs_totals", chain, n_elems, rows)
+    dev = chain.device
     out = torch.empty((D, 3) if rows else (3,), dtype=torch.int32,
-                      device=chain.device)
+                      device=dev)
     if C == 0 or D == 0:
         return out.zero_()
-    lib = load()
-    with torch.cuda.device(chain.device):
-        rc = lib.amt_fs_totals(
-            chain.data_ptr(), has_value.data_ptr(), D, C,
-            n_elems.data_ptr(), 1 if rows else 0, int(base), out.data_ptr(),
-            torch.cuda.current_stream(chain.device).cuda_stream)
+    lib = _LIB or load()
+    geo, (_, counters, words, sc), stream = _scratch_for("fs_totals", dev,
+                                                         D, C, lib)
+    rc = _call(dev, lib.amt_fs_totals, chain.data_ptr(),
+               has_value.data_ptr(), D, C, ne_ptr, ne_stride, ne_imm,
+               int(base), geo.form, sc, counters, words, out.data_ptr(),
+               stream)
     _raise_on(rc, "fs_totals")
     _count_launch("fs_totals", tuple(chain.shape))
     if _dt.ENABLED:

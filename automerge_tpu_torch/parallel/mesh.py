@@ -56,6 +56,17 @@ _M32 = 0xFFFFFFFF
 
 # ------------------------------------------------------------------- mesh
 
+def _concrete(d) -> torch.device:
+    """`d` as a tensor made there reports its device: a bare "cuda" names
+    the current card. (Left bare, it compares unequal to its own blocks'
+    devices, and every exchange copies blocks a coordinate already
+    holds.)"""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 class Mesh:
     """A (doc, elem) grid of devices; `shape` maps each axis name to its
     size, as `jax.sharding.Mesh.shape` does."""
@@ -63,7 +74,7 @@ class Mesh:
     axis_names = AXES
 
     def __init__(self, grid):
-        rows = [[torch.device(d) for d in row] for row in grid]
+        rows = [[_concrete(d) for d in row] for row in grid]
         if not rows or not rows[0] or len({len(r) for r in rows}) != 1:
             raise ValueError("a mesh is a non-empty rectangular device grid")
         self.devices = np.empty((len(rows), len(rows[0])), dtype=object)

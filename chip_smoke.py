@@ -84,6 +84,7 @@ INT_OPS_PER_S = 67e12          # non-tensor fp32 rate, taken for int32 adds
 REPS = 25
 REPEATS = 50                   # bit-exact launches at each merge shape
 MAX_COPIES = 64                # input copies a kernel timing rotates through
+HOST_CALLS = 200               # back-to-back calls a host-time reading takes
 N_MERGE = 6_291_456            # bucket(5,000,000 run elements, 256)
 RING_BATCHES = 6               # bench.py --pipeline's stream: 6 batches of
 RING_ACTORS = 2_000            # 2,000 actors x 1,000 ops on the base text
@@ -139,6 +140,13 @@ MESH_SHARDS = (2, 4, 8)        # 15a: virtual shards of the card the kernel
 MESH_RAGGED = 8 * 100_003      # pair runs over; a shard of no whole tile
 MESH_DOCSET = (2, 4)           # 15c: the cfg3 DocSet's (doc, elem) mesh
 DMESH_REPS = 3                 # 15c: timed fresh runs after one warm-up
+#: segment-scan row lengths on each form boundary (warp <= 1,024 < block
+#: <= 8,192 < look-back) and a row of several tiles
+FORM_EDGES = (96, 1023, 1024, 1025, 8191, 8192, 8193, 3 * 8192 + 5)
+#: 15a's row cases, (D, C) over 4 elem shards: the cfg3 DocSet's rows (a
+#: shard 192 slots: warp form), a shard row past 1,024 (block form) and
+#: one past 8,192 (look-back form)
+MESH_ROW_CASES = ((DOCSET_DOCS, 768), (64, 4 * 1025), (16, 4 * 8193))
 
 
 def log(*a):
@@ -254,7 +262,9 @@ def time_ms(torch, fns, reps: int = REPS, calls: int = 10) -> float:
     """Device time of one call: CUDA events around the replay of a CUDA
     graph of at least `calls` calls cycling through `fns` (one per input
     copy), so no host work sits between the launches; the median of `reps`
-    replays, over the calls."""
+    replays, over the calls. The graph is captured on the stream that ran
+    the warm-up calls, so the segment scans' per-stream scratch is sized
+    before the capture."""
     calls = len(fns) * -(-calls // len(fns))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -263,7 +273,7 @@ def time_ms(torch, fns, reps: int = REPS, calls: int = 10) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(calls):
             fns[i % len(fns)]()
     for _ in range(2):
@@ -321,17 +331,17 @@ def _fs_equal(torch, got, want) -> bool:
     return all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-def kernels_per_call(torch, fn) -> int:
-    """Device kernels one call of fn() runs, its memsets aside."""
+def device_ops_per_call(torch, fn) -> list:
+    """The names of the device operations (kernels, memsets, copies) one
+    call of fn() runs, after a warm-up call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "memset" not in e.name.lower())
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def check_kernels(torch, S):
@@ -414,6 +424,8 @@ def check_kernels(torch, S):
         log(f"fused_segment_scans rows ({D}, {C}), per-row n_elems: "
             "bit-exact vs plain, two calls")
 
+    check_forms(torch, S, rng, dev)
+
     # 50 launches at each merge shape, every one bit-exact
     x = torch.from_numpy(
         rng.integers(-50, 50, (6, N_MERGE), dtype=np.int32)).to(dev)
@@ -430,30 +442,99 @@ def check_kernels(torch, S):
     log(f"{REPEATS} repeats at each merge shape: all bit-exact")
 
 
+def check_forms(torch, S, rng, dev):
+    """The segment scans' three forms at their edges (a warp a row up to
+    1,024 slots, a block a row up to 8,192, the look-back beyond), as one
+    column and as 7 rows, on aligned views and on views one byte off 16
+    bytes (the scalar path; rows off a multiple of 16 take it too):
+    `fs_totals`, the carry-in scan (3 earlier shards of random totals) and
+    `fused_segment_scans` bit-exact against their plain versions, and the
+    host's form the one the library expects."""
+    lib = S.load()
+    seen = []
+    for n in FORM_EDGES:
+        form = S.fs_geometry("fs_scan", 1, n).form
+        if lib.amt_fs_form(n) != form:
+            raise AssertionError(f"form of a {n}-slot row: host "
+                                 f"{form}, library {lib.amt_fs_form(n)}")
+        for D, lead in ((None, 0), (None, 1), (7, 0), (7, 1)):
+            m = (D or 1) * n
+            chain = torch.from_numpy(rng.random(m + lead) < 0.8).to(dev)
+            has = torch.from_numpy(rng.random(m + lead) < 0.9).to(dev)
+            chain, has = chain[lead:], has[lead:]
+            lead_dims = (4,) if D is None else (4, D)
+            carry = torch.from_numpy(np.stack(
+                [rng.integers(0, n, lead_dims), rng.integers(0, 3 * n,
+                                                             lead_dims),
+                 rng.integers(0, n, lead_dims)], -1).astype(np.int32)).to(dev)
+            if D is None:
+                ne = n - n // 9
+            else:
+                chain, has = chain.view(D, n), has.view(D, n)
+                cnt = rng.integers(0, n + 1, D).astype(np.int32)
+                cnt[0], cnt[-1] = 0, n
+                ne = torch.from_numpy(cnt).to(dev)
+            base = 3 * n
+            pairs = (
+                ((S.fs_totals(chain, has, ne, base),),
+                 (S.fs_totals_plain(chain, has, ne, base),)),
+                (S.fused_segment_scans_carry(chain, has, ne, base, carry, 3),
+                 S.fused_segment_scans_carry_plain(chain, has, ne, base,
+                                                   carry, 3)),
+                (S.fused_segment_scans(chain, has, ne, base),
+                 S.fused_segment_scans_plain(chain, has, ne, base)))
+            torch.cuda.synchronize()
+            for k, (got, want) in enumerate(pairs):
+                if not _fs_equal(torch, got, want):
+                    raise AssertionError(
+                        f"{('fs_totals', 'carry-in fs_scan', 'fs_scan')[k]}"
+                        f" differs at rows {D} x {n} slots, offset {lead}")
+        seen.append(f"{n}: {S.FS_FORMS[form]}")
+    log("segment-scan forms bit-exact vs plain (fs_totals, carry-in and "
+        f"plain fs_scan; a column and 7 rows; offsets 0 and 1): "
+        f"{', '.join(seen)}")
+
+
 def check_kernels_per_call(torch, S):
-    """Each wrapper call runs one device kernel (its memset aside). Runs
-    after the driven paths, since a profiler session left behind slows
-    the host's later launches, and before phase 7's CUDA graphs: after
-    their replays a profiler session has shown no device activity at all
-    for an `fs_totals` call that ran."""
+    """Each wrapper call runs one device kernel: `multi_scan` beside the
+    memset of its scratch, the three segment-scan wrappers with nothing
+    else at all (no memset, no fill), in each of their forms. Runs after
+    the driven paths, since a profiler session left behind slows the
+    host's later launches, and before phase 7's CUDA graphs: after their
+    replays a profiler session has shown no device activity at all for an
+    `fs_totals` call that ran. Returns the kernels per call."""
     dev = torch.device("cuda")
     x = torch.zeros((6, N_MERGE), dtype=torch.int32, device=dev)
-    c = torch.zeros(N_MERGE, dtype=torch.bool, device=dev)
-    ne = torch.tensor(6_000_000, dtype=torch.int32, device=dev)
-    carry = torch.zeros((2, 3), dtype=torch.int32, device=dev)
-    per_call = {
-        "multi_scan": kernels_per_call(torch, lambda: S.multi_scan(x)),
-        "fused_segment_scans": kernels_per_call(
-            torch, lambda: S.fused_segment_scans(c, c, ne)),
-        "fs_totals": kernels_per_call(
-            torch, lambda: S.fs_totals(c, c, ne)),
-        "sharded_fused_scans": kernels_per_call(
-            torch, lambda: S.fused_segment_scans_carry(c, c, ne, 0, carry,
-                                                       1))}
-    log(f"device kernels per wrapper call (memsets aside): {per_call}")
-    if set(per_call.values()) != {1}:
-        raise AssertionError(f"expected one kernel per call: {per_call}")
-    return per_call
+    ops = {"multi_scan": device_ops_per_call(torch, lambda: S.multi_scan(x))}
+    kernels = {"multi_scan": [o for o in ops["multi_scan"]
+                              if "memset" not in o.lower()]}
+    for shape in ((N_MERGE,), (1, 5000), (DOCSET_DOCS // 2, 192)):
+        c = torch.zeros(shape, dtype=torch.bool, device=dev)
+        ne = (6_000_000 if len(shape) == 1 else torch.full(
+            shape[:1], shape[1] - 1, dtype=torch.int32, device=dev))
+        carry = torch.zeros((2,) + shape[:-1] + (3,), dtype=torch.int32,
+                            device=dev)
+        form = S.FS_FORMS[S.fs_geometry("fs_scan", *(
+            shape if len(shape) == 2 else (1,) + shape)).form]
+        for name, fn in (
+                ("fused_segment_scans",
+                 lambda: S.fused_segment_scans(c, c, ne)),
+                ("fs_totals", lambda: S.fs_totals(c, c, ne)),
+                ("sharded_fused_scans",
+                 lambda: S.fused_segment_scans_carry(c, c, ne, 0, carry,
+                                                     1))):
+            got = device_ops_per_call(torch, fn)
+            ops[f"{name} {form}"] = got
+            kernels.setdefault(name, []).extend(got)
+            if len(got) != 1 or not any(k in got[0] for k in ("fs_scan",
+                                                              "fs_totals")):
+                raise AssertionError(f"{name} at {shape} ({form} form) ran "
+                                     f"{got}, not one kernel alone")
+    log(f"device operations per wrapper call: {ops}")
+    if len(kernels["multi_scan"]) != 1:
+        raise AssertionError(f"multi_scan ran {ops['multi_scan']}")
+    return {k: len(v) // (1 if k == "multi_scan" else 3)
+            for k, v in kernels.items()}
 
 
 def _ms_bound(K, N):
@@ -506,6 +587,56 @@ def fs_calls(torch, S, chain, has, ne):
         torch.cumsum(vis, -1, dtype=torch.int32)
     return (lambda: S.fused_segment_scans(chain, has, ne),
             lambda: S.fused_segment_scans_plain(chain, has, ne), library)
+
+
+def fs_form(S, shape) -> str:
+    """The form the segment scans take at `shape` ((C,) or (D, C))."""
+    D, C = shape if len(shape) == 2 else (1, shape[0])
+    return S.FS_FORMS[S.fs_geometry("fs_scan", D, C).form]
+
+
+def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
+    """Mean host microseconds of one fn() call over `calls` calls issued
+    back to back (the card drains after the clock stops)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def wrapper_host_us(torch, S) -> dict:
+    """Host microseconds per call of the three segment-scan wrappers at
+    the mesh path's per-shard shapes (15b's 1,048,576-slot shard with an
+    int count, 15c's (500, 192) and 15d's (2, 96) with per-row counts)
+    and at the merge column, each as the mesh path calls it (the carry-in
+    scan as the last of 8 shards). Only the wrappers' public signatures
+    are used, so another checkout's package can be timed the same way
+    (`--wrapper-host`)."""
+    dev = torch.device("cuda")
+    out = {}
+    for label, shape in (("15b shard", (1_048_576,)),
+                         ("15c shard", (DOCSET_DOCS // 2, 192)),
+                         ("15d shard", (2, 96)), ("merge column", (N_MERGE,))):
+        c = torch.zeros(shape, dtype=torch.bool, device=dev)
+        ne = (shape[0] - shape[0] // 20 if len(shape) == 1 else torch.full(
+            shape[:1], shape[1] - 1, dtype=torch.int32, device=dev))
+        carry = torch.zeros((8,) + shape[:-1] + (3,), dtype=torch.int32,
+                            device=dev)
+        out[label] = {
+            "shape": list(shape),
+            "fs_totals": host_us(torch, lambda: S.fs_totals(c, c, ne, 0)),
+            "carry-in fs_scan": host_us(
+                torch, lambda: S.fused_segment_scans_carry(c, c, ne, 0,
+                                                           carry, 7)),
+            "fused_segment_scans": host_us(
+                torch, lambda: S.fused_segment_scans(c, c, ne))}
+        del c, carry
+    log("host us per wrapper call: " + json.dumps(out))
+    return out
 
 
 def time_eager_merge(torch, S):
@@ -564,7 +695,8 @@ def time_kernels(torch, S, ms_shapes, fs_shapes, n_elems_of):
         err = max(int((g - w).abs().max()) for g, w in zip(got, want))
         b_ms, b_by = _fs_bound(shape)
         out["fused_segment_scans"].append({
-            "shape": list(shape), "copies": len(pairs), "max_abs_err": err,
+            "shape": list(shape), "form": fs_form(S, shape),
+            "copies": len(pairs), "max_abs_err": err,
             "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, [plain]),
             "library_ms": time_ms(torch, [library]),
             "bound_ms": b_ms, "bound_by": b_by})
@@ -575,7 +707,9 @@ def time_kernels(torch, S, ms_shapes, fs_shapes, n_elems_of):
                 raise AssertionError(f"{name} {r['shape']} differs from "
                                      f"plain by {r['max_abs_err']}")
             r["bound_frac"] = r["bound_ms"] / r["ms"]
-            log(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms "
+            log(f"{name} {r['shape']}"
+                + (f" ({r['form']} form)" if "form" in r else "")
+                + f": kernel {r['ms']:.4f} ms "
                 f"({100 * r['bound_frac']:.1f}% of bound, {r['copies']} "
                 f"input copies), plain {r['plain_ms']:.4f} ms, library "
                 f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -3355,13 +3489,14 @@ def _moved_since(M, before: dict) -> dict:
 
 def mesh_kernel_checks(torch, M, dev, sizes=(N_MERGE, 1_048_576),
                        shards=MESH_SHARDS, ragged=MESH_RAGGED,
-                       rows=(DOCSET_DOCS, 768), row_shards=4) -> list:
+                       rows=MESH_ROW_CASES, row_shards=4) -> list:
     """15(a): the kernel pair (`fs_totals` + carry-in `fs_scan`) over
     2, 4 and 8 virtual shards of `dev` at each size, over 8 at a ragged
     size (a shard that is no whole number of tiles), and the row form
-    over `row_shards` elem shards: every output bit-exact against
-    `sharded_fused_scans_plain` and the unsharded `fused_segment_scans`
-    (kernel on a card). Returns the checked cases."""
+    over `row_shards` elem shards at each (D, C) of `rows`: every output
+    bit-exact against `sharded_fused_scans_plain` and the unsharded
+    `fused_segment_scans` (kernel on a card). Returns the checked cases,
+    each with the form its shards took."""
     rng = np.random.default_rng(15)
     S = M.S
     cases = []
@@ -3378,22 +3513,25 @@ def mesh_kernel_checks(torch, M, dev, sizes=(N_MERGE, 1_048_576),
                         or not torch.equal(p, w):
                     raise AssertionError(f"sharded_fused_scans differs at "
                                          f"C={C} over {n} shards")
-            cases.append([C, n])
-    D, C = rows
-    chain = torch.from_numpy(rng.random((D, C)) < 0.9).to(dev)
-    has = torch.from_numpy(rng.random((D, C)) < 0.95).to(dev)
-    n = rng.integers(0, C + 1, D).astype(np.int32)
-    n[0], n[-1] = 0, C
-    ne = torch.from_numpy(n).to(dev)
-    got = S.sharded_fused_scans(_virtual(M, dev, row_shards), chain, has, ne)
-    plain = S.sharded_fused_scans_plain(chain, has, ne, row_shards)
-    whole = S.fused_segment_scans(chain, has, ne)
-    _sync(torch, dev)
-    for g, p, w in zip(got, plain, whole):
-        if not torch.equal(g.gather(dev), p) or not torch.equal(p, w):
-            raise AssertionError(f"sharded_fused_scans rows differ at "
-                                 f"({D}, {C}) over {row_shards} shards")
-    cases.append([[D, C], row_shards])
+            cases.append([C, n, S.FS_FORMS[S.fs_geometry(
+                "fs_scan", 1, C // n).form]])
+    for D, C in rows:
+        chain = torch.from_numpy(rng.random((D, C)) < 0.9).to(dev)
+        has = torch.from_numpy(rng.random((D, C)) < 0.95).to(dev)
+        n = rng.integers(0, C + 1, D).astype(np.int32)
+        n[0], n[-1] = 0, C
+        ne = torch.from_numpy(n).to(dev)
+        got = S.sharded_fused_scans(_virtual(M, dev, row_shards), chain, has,
+                                    ne)
+        plain = S.sharded_fused_scans_plain(chain, has, ne, row_shards)
+        whole = S.fused_segment_scans(chain, has, ne)
+        _sync(torch, dev)
+        for g, p, w in zip(got, plain, whole):
+            if not torch.equal(g.gather(dev), p) or not torch.equal(p, w):
+                raise AssertionError(f"sharded_fused_scans rows differ at "
+                                     f"({D}, {C}) over {row_shards} shards")
+        cases.append([[D, C], row_shards, S.FS_FORMS[S.fs_geometry(
+            "fs_scan", D, C // row_shards).form]])
     log(f"15a sharded_fused_scans bit-exact vs plain and the unsharded "
         f"scans: {cases}")
     return cases
@@ -3675,8 +3813,11 @@ def time_sharded(torch, M, configs) -> dict:
         slots = int(np.prod(shape))
         b_ms, b_by = _fs_bound(shape)
         ex_bytes = 12 * n_rows * n * (n - 1)
+        shard_shape = ((shape[0] // grid[0], w) if len(shape) == 2
+                       else (w,))
         rec = {"shape": list(shape), "mesh": list(grid), "copies": len(pairs),
-               "max_abs_err": err,
+               "shard_shape": list(shard_shape),
+               "form": fs_form(S, shard_shape), "max_abs_err": err,
                "ms": time_ms(torch, kern),
                "unsharded_ms": time_ms(torch, whole),
                "plain_ms": time_ms(torch, [plain], reps=5),
@@ -3689,7 +3830,8 @@ def time_sharded(torch, M, configs) -> dict:
         tb_ms, tb_by = bound(2 * slots + 16 * n_rows * n, 3 * slots)
         out["fs_totals"].append({
             "shape": list(shape), "mesh": list(grid), "copies": len(pairs),
-            "max_abs_err": t_err,
+            "shard_shape": list(shard_shape),
+            "form": fs_form(S, shard_shape), "max_abs_err": t_err,
             "ms": time_ms(torch, [totals(c, h) for c, h in sharded]),
             "plain_ms": time_ms(torch, [totals_plain], reps=5),
             "library_ms": time_ms(torch, [_totals_library(
@@ -3702,7 +3844,8 @@ def time_sharded(torch, M, configs) -> dict:
                 raise AssertionError(f"{name} {r['shape']} over {r['mesh']} "
                                      f"differs from plain")
             r["bound_frac"] = r["bound_ms"] / r["ms"]
-            log(f"{name} {r['shape']} over mesh {r['mesh']}: kernel "
+            log(f"{name} {r['shape']} over mesh {r['mesh']} (shards "
+                f"{r['shard_shape']}, {r['form']} form): kernel "
                 f"{r['ms']:.4f} ms ({100 * r['bound_frac']:.1f}% of bound"
                 + (f", unsharded kernel {r['unsharded_ms']:.4f} ms"
                    if "unsharded_ms" in r else "")
@@ -3710,6 +3853,134 @@ def time_sharded(torch, M, configs) -> dict:
                 f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
                 f"({r['bound_by']})")
     return out
+
+
+def _device_spans(torch, prof) -> list:
+    """(name, start us, duration us) of every device event of a profile,
+    in start order."""
+    ev = [(e.name, e.time_range.start, e.time_range.end - e.time_range.start)
+          for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(ev, key=lambda x: x[1])
+
+
+def _span_summary(spans) -> dict:
+    """A call's device events: their span from the first start to the last
+    end, the summed durations (over the span: how much they overlapped),
+    and count and mean duration by kernel."""
+    if not spans:
+        return {"span_us": 0.0, "busy_us": 0.0, "by_kernel": {}}
+    t0 = spans[0][1]
+    end = max(s + d for _, s, d in spans)
+    by = {}
+    for name, _, d in spans:
+        key = (name.replace("void ", "").replace("(anonymous namespace)::", "")
+               .split("(")[0][:40])
+        n, tot = by.get(key, (0, 0.0))
+        by[key] = (n + 1, tot + d)
+    return {"span_us": end - t0, "busy_us": sum(d for _, _, d in spans),
+            "by_kernel": {k: {"n": n, "mean_us": tot / n}
+                          for k, (n, tot) in by.items()}}
+
+
+def scan_profile(torch, M, out_dir: str, calls: int = 3) -> dict:
+    """`--scan-profile DIR`: the segment scans alone. First phase 7's
+    device times of `fused_segment_scans` at the driven shapes of PERF.md
+    §6 and of the sharded pair (with `fs_totals` alone) at its shapes;
+    then the pair under torch.profiler, eager (`calls` calls after
+    warm-ups, each alone on the card) and as one replay of a captured
+    graph of `calls` calls: the device span of a call, its device
+    operations' summed time (their overlap) and each one's mean duration,
+    the unsharded kernel beside it. Writes the traces to DIR."""
+    times = time_kernels(torch, M.S, [], [
+        (256,), (131_072,), (DOCSET_DOCS, 768), (1_048_576,), (N_MERGE,)],
+        lambda sh: (sh[0] - sh[0] // 16 if len(sh) == 1
+                    else [sh[1] - 1] * sh[0]))
+    sharded = time_sharded(torch, M, [
+        ((8 * 1_048_576,), (1, 8)), ((8 * 1_048_576,), (1, 2)),
+        ((DOCSET_DOCS, 768), MESH_DOCSET), ((4, 384), (2, 4))])
+    from torch.profiler import ProfilerActivity, profile
+    S, pm = M.S, M.pmesh
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    os.makedirs(out_dir, exist_ok=True)
+    out = {}
+    for shape, grid in (((8 * 1_048_576,), (1, 8)), ((DOCSET_DOCS, 768),
+                                                      MESH_DOCSET),
+                        ((4, 384), (2, 4))):
+        mesh = _virtual(M, dev, grid[0] * grid[1], grid[0])
+        c, h = fs_copies(torch, rng, shape, dev)[0]
+        if len(shape) == 2:
+            ne = torch.full(shape[:1], shape[1] - 3, dtype=torch.int32,
+                            device=dev)
+            ne_s = pm.shard(mesh, ne, ("doc",))
+            spec = ("doc", "elem")
+        else:
+            ne = ne_s = shape[0] - shape[0] // 20
+            spec = ("elem",)
+        cs, hs = pm.shard(mesh, c, spec), pm.shard(mesh, h, spec)
+        label = "x".join(map(str, shape)) + f" over {grid}"
+        rec = {}
+        for name, fn in (
+                ("pair", lambda: S.sharded_fused_scans(mesh, cs, hs, ne_s)),
+                ("unsharded", lambda: S.fused_segment_scans(c, h, ne))):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            eager = []
+            for _ in range(calls):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                eager.append(_span_summary(_device_spans(torch, prof)))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                for _ in range(calls):
+                    fn()
+            graph.replay()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                graph.replay()
+                torch.cuda.synchronize()
+            spans = _device_spans(torch, prof)
+            prof.export_chrome_trace(os.path.join(
+                out_dir, f"scan_{name}_{label.replace(' ', '_')}.json"))
+            rec[name] = {"eager": eager, "graph": dict(
+                _span_summary(spans), calls=calls)}
+            del graph
+            log(f"scan profile {label} {name}: eager span "
+                f"{[round(e['span_us'], 2) for e in eager]} us, busy "
+                f"{[round(e['busy_us'], 2) for e in eager]} us; graph of "
+                f"{calls}: span {rec[name]['graph']['span_us']:.2f} us, busy "
+                f"{rec[name]['graph']['busy_us']:.2f} us, by kernel "
+                f"{json.dumps(rec[name]['graph']['by_kernel'])}")
+        out[label] = rec
+    return {"times": times, "sharded": sharded, "profile": out}
+
+
+def wrapper_host_main(torch, root: str) -> int:
+    """`--wrapper-host ROOT`: build ROOT's scan kernels and print the host
+    microseconds per call of its segment-scan wrappers (wrapper_host_us),
+    the card, and one JSON line."""
+    sys.path.insert(0, root)
+    try:
+        from automerge_tpu_torch.ops import scan_kernels as S
+    except ImportError as e:
+        print(f"chip_smoke: no port package under {root}: {e}",
+              file=sys.stderr)
+        return 2
+    if not S.__file__.startswith(root):
+        raise AssertionError(f"imported {S.__file__}, not {root}'s")
+    S.build()
+    rec = {"root": root, "host_us": wrapper_host_us(torch, S)}
+    print(nvidia_smi_line(), flush=True)
+    print(json.dumps(rec), flush=True)
+    return 0
 
 
 def port_modules():
@@ -3757,6 +4028,15 @@ def main() -> int:
     ap.add_argument("--blocking-sync", action="store_true",
                     help="host waits on the card block instead of spin "
                          "(set before the CUDA context is made)")
+    ap.add_argument("--scan-profile", metavar="DIR", default=None,
+                    help="only profile the sharded segment scans at phase "
+                         "7's shapes (eager and in a graph), writing the "
+                         "traces to DIR, and print the record last")
+    ap.add_argument("--wrapper-host", metavar="ROOT", default=None,
+                    help="only time the host work per call of the "
+                         "segment-scan wrappers of the package under ROOT "
+                         "(this checkout's or another's) and print it as "
+                         "the last line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3764,6 +4044,8 @@ def main() -> int:
         return 2
     ctx_flags = blocking_sync() if args.blocking_sync else None
     here = os.path.dirname(os.path.abspath(__file__))
+    if args.wrapper_host:
+        return wrapper_host_main(torch, os.path.abspath(args.wrapper_host))
     sys.path.insert(0, here)
     try:
         M = port_modules()
@@ -3783,6 +4065,12 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     log(f"card: {card}")
+    if args.scan_profile:
+        S.build()
+        rec = scan_profile(torch, M, args.scan_profile)
+        print(card, flush=True)
+        print(json.dumps(rec), flush=True)
+        return 0
     if args.lane_probe:
         with ThreadPoolExecutor(2) as ex:
             native_build = ex.submit(M.native.load)
@@ -3993,6 +4281,7 @@ def main() -> int:
         ((merge_cap,), (1, 2)), ((N_MERGE,), (1, 8)), ((1_048_576,), (1, 8)),
         ((DOCSET_DOCS, M.bucket(DOCSET_ACTORS * DOCSET_CHARS + 64)),
          MESH_DOCSET), ((4, 384), (2, 4))])        # the last: the dry run
+    host = wrapper_host_us(torch, S)
 
     # 10. optional profiles: the headline commit, the multi-document
     # tier, one api-a merge
@@ -4034,6 +4323,9 @@ def main() -> int:
             "eager_bound_frac": rec["bound_ms"] / eager[name],
             "kernels_per_call": per_call[name],
             "shapes": times[name],
+            "host_us_per_call": ({k: v["fused_segment_scans"]
+                                  for k, v in host.items()}
+                                 if name == "fused_segment_scans" else None),
             "launches_by_shape": {
                 p: {"x".join(map(str, sh)): n for sh, n in d[name].items()}
                 for p, d in shapes_by_path.items()}})
@@ -4053,6 +4345,9 @@ def main() -> int:
             "bound_frac": rec["bound_frac"],
             "kernels_per_call": per_call[name],
             "shapes": sharded_times[name],
+            "host_us_per_call": {
+                k: v["fs_totals" if name == "fs_totals"
+                     else "carry-in fs_scan"] for k, v in host.items()},
             "launches_by_shape": {
                 p: {"x".join(map(str, sh)): n
                     for sh, n in d.get(name, {}).items()}

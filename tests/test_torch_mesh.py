@@ -145,6 +145,39 @@ def test_sharded_scans_row_form(seed):
             np.testing.assert_array_equal(g[d], np.asarray(w))
 
 
+@pytest.mark.parametrize("D,C", [(4, 384), (1000, 768)])
+def test_sharded_scans_rows_over_a_2x4_mesh(D, C):
+    """The mesh path's row shapes over a (2, 4) mesh (per-shard (D / 2,
+    C / 4): the dry run's (2, 96) and the mesh DocSet's (500, 192)), random
+    per-row counts with a row of 0 and a full row: every row equal to the
+    unsharded scans, and rows equal to the JAX package's sharded scan of
+    that row over 4 elem shards (every row of (4, 384); three of
+    (1000, 768), the empty and the full one among them)."""
+    rng = np.random.default_rng(D + C)
+    chain, has = _columns((D, C), D)
+    n = rng.integers(0, C + 1, D).astype(np.int32)
+    n[0], n[-1] = 0, C
+    mesh = cpu_mesh(8)
+    assert dict(mesh.shape) == {"doc": 2, "elem": 4}
+    got = S.sharded_fused_scans(mesh, torch.from_numpy(chain),
+                                torch.from_numpy(has), torch.from_numpy(n))
+    assert all(g.n_shards == 8 for g in got)
+    got = _gathered(got)
+    whole = S.fused_segment_scans_plain(torch.from_numpy(chain),
+                                        torch.from_numpy(has),
+                                        torch.from_numpy(n))
+    for g, w in zip(got, whole):
+        np.testing.assert_array_equal(g, w.numpy())
+    jmesh = jax_mesh(4, doc_axis=1)
+    for d in (range(D) if D <= 4 else (0, int(rng.integers(1, D - 1)),
+                                        D - 1)):
+        want = P.sharded_fused_scans(jmesh, jnp.asarray(chain[d]),
+                                     jnp.asarray(has[d]), int(n[d]),
+                                     interpret=True)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[d], np.asarray(w))
+
+
 @pytest.mark.parametrize("n_shards", [1, 2, 8])
 def test_fs_totals_and_carry_plain(n_shards):
     """The pair's plain versions: a shard's totals are its scans' last
@@ -525,9 +558,13 @@ def test_kernel_pair_matches_plain(cuda_device, C, n_shards):
 
 
 @pytest.mark.cuda
-def test_kernel_pair_row_form_matches_plain(cuda_device):
+@pytest.mark.parametrize("D,C", [(1000, 768), (4, 384), (64, 4 * 1025),
+                                 (8, 4 * 8193)])
+def test_kernel_pair_row_form_matches_plain(cuda_device, D, C):
+    """The pair's row forms over 4 elem shards: the mesh DocSet's and the
+    dry run's shapes (warp form a shard), a shard row past 1,024 slots
+    (block form) and one past 8,192 (look-back form)."""
     rng = np.random.default_rng(5)
-    D, C = 1000, 768
     chain, has = (torch.from_numpy(a).to(cuda_device)
                   for a in _columns((D, C), 11, 0.9, 0.95))
     ne = torch.from_numpy(rng.integers(0, C + 1, D).astype(np.int32)).to(
@@ -535,5 +572,39 @@ def test_kernel_pair_row_form_matches_plain(cuda_device):
     mesh = TM.make_mesh(4, doc_axis=1, devices=[cuda_device] * 4)
     got = S.sharded_fused_scans(mesh, chain, has, ne)
     want = S.fused_segment_scans(chain, has, ne)
-    for g, w in zip(got, want):
+    plain = S.sharded_fused_scans_plain(chain, has, ne, 4)
+    torch.cuda.synchronize()
+    for g, w, p in zip(got, want, plain):
         assert torch.equal(g.gather(cuda_device), w)
+        assert torch.equal(w, p)
+
+
+def test_mesh_devices_are_what_their_blocks_report():
+    """A mesh holds each device as a tensor made there reports it, so an
+    exchange never copies a block its coordinate already holds."""
+    mesh = TM.make_mesh(4, devices=["cpu"] * 4)
+    assert all(mesh.device(c) == torch.zeros(1).device
+               for c in mesh.coords())
+
+
+@pytest.mark.cuda
+def test_bare_cuda_mesh_exchanges_without_copies(cuda_device):
+    """A mesh of virtual shards named by a bare "cuda" holds the card's
+    index: `all_gather` of blocks already on the card stacks them (one
+    operation a coordinate) and copies none."""
+    from torch.profiler import ProfilerActivity, profile
+    mesh = TM.make_mesh(8, doc_axis=1, devices=[torch.device("cuda")] * 8)
+    assert mesh.device((0, 3)) == torch.zeros(1, device="cuda").device
+    x = TM.shard(mesh, torch.arange(24, dtype=torch.int32,
+                                    device="cuda").view(8, 3), ("elem",))
+    TM.all_gather(x, "elem")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = TM.all_gather(x, "elem")
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not any("memcpy" in o.lower() for o in ops), ops
+    assert len(ops) == 8, ops
+    assert torch.equal(got.blocks[(0, 5)].view(-1).cpu(),
+                       torch.arange(24, dtype=torch.int32))

@@ -13,7 +13,9 @@ import torch
 import jax.numpy as jnp
 
 from automerge_tpu.ops import scan_pallas as P
+from automerge_tpu.parallel import mesh as JM
 from automerge_tpu_torch.ops import scan_kernels as S
+from automerge_tpu_torch.parallel import mesh as TM
 
 
 @pytest.fixture
@@ -317,7 +319,9 @@ def test_kernels_repeat_bit_exact(cuda_device):
 
 @pytest.mark.cuda
 def test_one_kernel_launch_per_call(cuda_device):
-    """Each wrapper runs one kernel per call (its scratch memset aside)."""
+    """Each wrapper runs one kernel per call (multi_scan's scratch memset
+    aside; the segment scans run nothing else at all, as
+    test_each_call_is_one_kernel_and_no_memset checks)."""
     from torch.profiler import ProfilerActivity, profile
     x = torch.zeros((6, 10_000), dtype=torch.int32, device=cuda_device)
     c = torch.zeros(10_000, dtype=torch.bool, device=cuda_device)
@@ -384,3 +388,349 @@ def test_multi_scan_kernel_short_rows(cuda_device, D, N):
     torch.cuda.synchronize()
     assert S.launches["multi_scan"] == 1
     assert torch.equal(got, S.multi_scan_plain(x))
+
+
+# ------------------------------------------- the segment scans' three forms
+
+#: per-row lengths on each form boundary (warp <= 1,024 < block <= 8,192
+#: < look-back), and a row of several tiles
+FORM_EDGES = [96, 1023, 1024, 1025, 8191, 8192, 8193, 3 * 8192 + 5]
+
+
+@pytest.mark.parametrize("n,form", [
+    (1, "warp"), (96, "warp"), (1023, "warp"), (1024, "warp"),
+    (1025, "block"), (8191, "block"), (8192, "block"),
+    (8193, "lookback"), (3 * 8192 + 5, "lookback")])
+@pytest.mark.parametrize("rows", [1, 7, 500])
+def test_fs_geometry_at_the_form_boundaries(n, form, rows):
+    """The host's form choice: a warp a row up to 1,024 slots, a block a
+    row up to 8,192, then the look-back over tiles, and only the
+    look-back form takes scratch (fs_scan: 6 status words a tile;
+    fs_totals: 3 partial words a tile and a counter a row)."""
+    tiles = rows * -(-n // S.FS_TILE)
+    for kernel in ("fs_scan", "fs_totals"):
+        g = S.fs_geometry(kernel, rows, n)
+        assert S.FS_FORMS[g.form] == form
+        if form != "lookback":
+            assert (g.counters, g.words) == (0, 0)
+        elif kernel == "fs_scan":
+            assert (g.counters, g.words) == (0, 6 * tiles)
+        else:
+            assert (g.counters, g.words) == (rows, 3 * tiles)
+
+
+def test_fs_geometry_follows_the_library_constants():
+    """A variant build (scripts/sweep_scan_tiles.py) with another tile
+    moves the boundaries with it; an empty launch or an unknown kernel
+    raises."""
+    assert S.FS_FORMS[S.fs_geometry("fs_scan", 2, 3000, 2048,
+                                    1024).form] == "lookback"
+    assert S.FS_FORMS[S.fs_geometry("fs_scan", 2, 2000, 2048,
+                                    1024).form] == "block"
+    for bad in (("fs_scan", 0, 10), ("fs_scan", 3, 0), ("scan", 1, 10)):
+        with pytest.raises(ValueError):
+            S.fs_geometry(*bad)
+
+
+@pytest.mark.parametrize("counters,words,total", [
+    (0, 0, 2), (1, 0, 3), (2, 6, 9), (5, 36, 41)])
+def test_fs_scratch_words(counters, words, total):
+    """Header (ticket, arrivals, epoch), u32 row counters two a word, then
+    the status words."""
+    assert S.fs_scratch_words(counters, words) == total
+
+
+class _FakeAlloc:
+    """Stands in for the zeroed allocation of a card: records each call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, n_words, device):
+        self.calls.append((n_words, device))
+        return torch.zeros(n_words, dtype=torch.int64)
+
+
+def test_scratch_cache_one_buffer_per_stream():
+    alloc = _FakeAlloc()
+    cache = S.ScratchCache(alloc, capturing=lambda: False)
+    a = cache.get((0, 111), "cuda:0", 0, 36)
+    b = cache.get((0, 222), "cuda:0", 0, 36)
+    assert a[0] is not b[0] and a[0].data_ptr() != b[0].data_ptr()
+    assert cache.get((0, 111), "cuda:0", 0, 20) is a      # fits: reused
+    assert cache.get((1, 111), "cuda:1", 0, 20) is not a  # another device
+    assert [c[1] for c in alloc.calls] == ["cuda:0", "cuda:0", "cuda:1"]
+    # powers of two of what was asked, after the header
+    assert a[1:3] == (0, 64) and alloc.calls[0][0] == S.fs_scratch_words(
+        0, 64)
+    assert a[3] == a[0].data_ptr()
+
+
+def test_scratch_cache_growth_keeps_streams_apart():
+    alloc = _FakeAlloc()
+    cache = S.ScratchCache(alloc, capturing=lambda: False)
+    a = cache.get((0, 1), "cuda:0", 0, 6)
+    b = cache.get((0, 2), "cuda:0", 0, 6)
+    a2 = cache.get((0, 1), "cuda:0", 3, 100)     # stream 1 grows
+    assert a2[0] is not a[0] and a2[1:3] == (4, 128)
+    assert cache.buffers[(0, 2)] is b            # stream 2 untouched
+    assert cache.retired == [a[0]]               # a graph may replay a
+    a3 = cache.get((0, 1), "cuda:0", 0, 120)     # smaller: the grown one
+    assert a3 is a2
+    a4 = cache.get((0, 1), "cuda:0", 9, 0)       # more counters only
+    assert a4[1:3] == (16, 128)
+    assert len({id(e[0]) for e in cache.buffers.values()}) == 2
+
+
+def test_scratch_cache_refuses_to_grow_inside_a_capture():
+    alloc = _FakeAlloc()
+    capturing = [False]
+    cache = S.ScratchCache(alloc, capturing=lambda: capturing[0])
+    a = cache.get((0, 1), "cuda:0", 0, 64)
+    capturing[0] = True
+    assert cache.get((0, 1), "cuda:0", 0, 64) is a   # sized before: fine
+    with pytest.raises(RuntimeError, match="before a CUDA graph"):
+        cache.get((0, 1), "cuda:0", 0, 65)
+    with pytest.raises(RuntimeError, match="before a CUDA graph"):
+        cache.get((0, 9), "cuda:0", 0, 6)
+    assert len(alloc.calls) == 1
+
+
+def test_int_counts_go_by_value():
+    """An int count needs no device tensor: the kernels take it by value
+    (stride -1); a scalar tensor is read on the device (stride 0), per-row
+    counts at their own stride (no copy of a strided count)."""
+    c = torch.zeros(10, dtype=torch.bool)
+    assert S._fs_counts("x", c, 7, False) == (None, -1, 7)
+    t = torch.tensor(7, dtype=torch.int32)
+    assert S._fs_counts("x", c, t, False) == (t.data_ptr(), 0, 0)
+    rows = torch.zeros((3, 10), dtype=torch.bool)
+    every_other = torch.arange(6, dtype=torch.int32)[::2]
+    assert S._fs_counts("x", rows, every_other, True) == (
+        every_other.data_ptr(), 2, 0)
+    with pytest.raises(ValueError, match="one int32"):
+        S._fs_counts("x", c, torch.tensor([1, 2], dtype=torch.int32), False)
+
+
+def _form_inputs(D, n, lead, seed, device):
+    """(chain, has_value) of D rows of n slots (a column when D is None),
+    views `lead` bytes into longer tensors on `device`."""
+    rng = np.random.default_rng(seed)
+    m = (D or 1) * n
+    chain = torch.from_numpy(rng.random(m + lead) < 0.8).to(device)[lead:]
+    has = torch.from_numpy(rng.random(m + lead) < 0.9).to(device)[lead:]
+    if D is not None:
+        chain, has = chain.view(D, n), has.view(D, n)
+    return chain, has
+
+
+def _carry(D, shards, n, seed, device):
+    """A (shards + 1, [D,] 3) carry of plausible totals."""
+    rng = np.random.default_rng(seed)
+    lead = (shards + 1,) + ((D,) if D is not None else ())
+    t = np.stack([rng.integers(0, n, lead), rng.integers(0, 50 * n, lead),
+                  rng.integers(0, n, lead)], -1).astype(np.int32)
+    return torch.from_numpy(t).to(device)
+
+
+def _check_three(ch, hv, ne, base, carry, shard):
+    """fs_totals, the carry-in fs_scan and fused_segment_scans against
+    their plain versions, bit-exact."""
+    got = S.fs_totals(ch, hv, ne, base)
+    want = S.fs_totals_plain(ch, hv, ne, base)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    got = S.fused_segment_scans_carry(ch, hv, ne, base, carry, shard)
+    want = S.fused_segment_scans_carry_plain(ch, hv, ne, base, carry, shard)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    got = S.fused_segment_scans(ch, hv, ne, base)
+    want = S.fused_segment_scans_plain(ch, hv, ne, base)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", FORM_EDGES)
+@pytest.mark.parametrize("lead", [0, 1, 16])
+@pytest.mark.parametrize("D", [None, 5])
+def test_forms_bit_exact_at_the_boundaries(cuda_device, n, lead, D):
+    """Each form at its edges, on aligned views and views one byte off 16
+    (the scalar path), rows of a length off a multiple of 16 included:
+    the three wrappers equal their plain versions, with int, device-scalar
+    and per-row counts and a carry-in of 3 earlier shards."""
+    ch, hv = _form_inputs(D, n, lead, n + lead, cuda_device)
+    carry = _carry(D, 3, n, n, cuda_device)
+    if D is None:
+        for ne in (n - n // 7, torch.tensor(n, dtype=torch.int32,
+                                            device=cuda_device)):
+            _check_three(ch, hv, ne, 5, carry, 3)
+    else:
+        rng = np.random.default_rng(n)
+        cnt = rng.integers(0, n + 1, D).astype(np.int32)
+        cnt[0], cnt[-1] = 0, n
+        ne = torch.from_numpy(cnt).to(cuda_device)
+        _check_three(ch, hv, ne, 3 * n, carry, 3)
+        # a strided per-row count is read in place
+        ne2 = torch.from_numpy(np.repeat(cnt, 2)).to(cuda_device)[::2]
+        _check_three(ch, hv, ne2, 0, carry, 2)
+
+
+@pytest.mark.cuda
+def test_back_to_back_mixed_shapes_on_one_stream(cuda_device):
+    """50 calls of mixed shapes and forms on one stream, no sync between
+    them: the self-resetting ticket and counters and the epoch carry every
+    call right, whatever ran before it."""
+    shapes = [(None, 100_003), (5, 8193), (None, 96), (3, 3 * 8192 + 5),
+              (None, 8192), (500, 192), (2, 20_000), (None, 9000)]
+    cases = []
+    for i in range(50):
+        D, n = shapes[(i * 3) % len(shapes)]
+        ch, hv = _form_inputs(D, n, i % 2, i, cuda_device)
+        ne = (n - i if D is None else torch.full(
+            (D,), n - i, dtype=torch.int32, device=cuda_device))
+        carry = _carry(D, 2, n, i, cuda_device)
+        kind = i % 3
+        if kind == 0:
+            out = (S.fs_totals(ch, hv, ne, i),)
+            want = (S.fs_totals_plain(ch, hv, ne, i),)
+        elif kind == 1:
+            out = S.fused_segment_scans_carry(ch, hv, ne, i, carry, 2)
+            want = S.fused_segment_scans_carry_plain(ch, hv, ne, i, carry, 2)
+        else:
+            out = S.fused_segment_scans(ch, hv, ne, i)
+            want = S.fused_segment_scans_plain(ch, hv, ne, i)
+        cases.append((out, want))
+    torch.cuda.synchronize()
+    for i, (out, want) in enumerate(cases):
+        for g, w in zip(out, want):
+            assert torch.equal(g, w), i
+
+
+@pytest.mark.cuda
+def test_replayed_graph_stays_bit_exact(cuda_device):
+    """A CUDA graph of 10 calls (every kernel, the look-back form among
+    them), captured after one warm-up on its stream, replayed 20 times:
+    the epoch and counters live on the device, so every replay is right."""
+    inputs = []
+    for i, (D, n) in enumerate([(None, 100_003), (4, 20_000), (500, 192),
+                                (3, 5000), (None, 8193)]):
+        ch, hv = _form_inputs(D, n, 0, 40 + i, cuda_device)
+        ne = (n - 3 if D is None else torch.full(
+            (D,), n - 3, dtype=torch.int32, device=cuda_device))
+        inputs.append((ch, hv, ne, _carry(D, 1, n, i, cuda_device)))
+
+    def calls():
+        outs = []
+        for ch, hv, ne, carry in inputs:
+            outs.append((S.fs_totals(ch, hv, ne, 7),))
+            outs.append(S.fused_segment_scans_carry(ch, hv, ne, 7, carry, 1))
+        return outs
+    want = []
+    for ch, hv, ne, carry in inputs:
+        want.append((S.fs_totals_plain(ch, hv, ne, 7),))
+        want.append(S.fused_segment_scans_carry_plain(ch, hv, ne, 7, carry,
+                                                      1))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()                              # sizes this stream's scratch
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = calls()
+    for r in range(20):
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, w in zip(outs, want):
+            for g, x in zip(o, w):
+                assert torch.equal(g, x), r
+
+
+@pytest.mark.cuda
+def test_eight_streams_at_once(cuda_device):
+    """8 streams launching look-back calls at once, with no sync between
+    them: each has its own scratch."""
+    streams = [torch.cuda.Stream() for _ in range(8)]
+    jobs = []
+    for i, st in enumerate(streams):
+        D, n = ((None, 1_000_003 + i) if i % 2 else (6, 50_000 + 16 * i))
+        ch, hv = _form_inputs(D, n, 0, 80 + i, cuda_device)
+        ne = (n - i if D is None else torch.full(
+            (D,), n - i, dtype=torch.int32, device=cuda_device))
+        carry = _carry(D, 1, n, i, cuda_device)
+        jobs.append((st, ch, hv, ne, carry))
+    torch.cuda.synchronize()
+    outs = []
+    for st, ch, hv, ne, carry in jobs:
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append([S.fs_totals(ch, hv, ne, 1)]
+                        + list(S.fused_segment_scans_carry(ch, hv, ne, 1,
+                                                           carry, 1))
+                        + list(S.fused_segment_scans(ch, hv, ne, 1)))
+    torch.cuda.synchronize()
+    for (st, ch, hv, ne, carry), out in zip(jobs, outs):
+        want = ([S.fs_totals_plain(ch, hv, ne, 1)]
+                + list(S.fused_segment_scans_carry_plain(ch, hv, ne, 1,
+                                                         carry, 1))
+                + list(S.fused_segment_scans_plain(ch, hv, ne, 1)))
+        for g, w in zip(out, want):
+            assert torch.equal(g, w)
+    keys = {k for k in S._SCRATCH.buffers
+            if k[1] in {s.cuda_stream for s in streams}}
+    assert len(keys) == len({s.cuda_stream for s in streams})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,n", [(None, 96), (None, 5000), (None, 100_003),
+                                 (500, 192), (7, 1025), (3, 20_000)])
+def test_each_call_is_one_kernel_and_no_memset(cuda_device, D, n):
+    """Every call of the three wrappers runs exactly one device operation,
+    its kernel: no memset, no fill, no copy (int counts by value, the
+    scratch persistent)."""
+    from torch.profiler import ProfilerActivity, profile
+    ch, hv = _form_inputs(D, n, 0, 3, cuda_device)
+    ne = (n - 5 if D is None else torch.full(
+        (D,), n - 5, dtype=torch.int32, device=cuda_device))
+    carry = _carry(D, 2, n, 3, cuda_device)
+    for fn, kernel in (
+            (lambda: S.fs_totals(ch, hv, ne, 0), "fs_totals"),
+            (lambda: S.fused_segment_scans_carry(ch, hv, ne, 0, carry, 2),
+             "fs_scan"),
+            (lambda: S.fused_segment_scans(ch, hv, ne, 0), "fs_scan")):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(ops) == 1 and kernel in ops[0], ops
+
+
+@pytest.mark.parametrize("w", [96, 1023, 1024, 1025, 8191, 8192, 8193])
+def test_sharded_rows_at_the_form_boundaries_match_jax(w):
+    """Rows whose per-shard length w sits on each form boundary: (2, 4 w)
+    over a (2, 4) mesh of virtual CPU shards (one row of w slots a shard),
+    random per-row counts, against the JAX package's sharded scan of each
+    row over 4 elem shards of its 8-device virtual CPU mesh."""
+    import jax
+    if len(jax.devices()) < 8:
+        pytest.skip("needs the 8-device virtual CPU mesh of conftest.py")
+    rng = np.random.default_rng(w)
+    C = 4 * w
+    chain, has = _row_columns(2, C, seed=w)
+    n = rng.integers(C // 2, C + 1, 2).astype(np.int32)
+    mesh = TM.make_mesh(8, devices=[torch.device("cpu")] * 8)
+    got = S.sharded_fused_scans(mesh, torch.from_numpy(chain),
+                                torch.from_numpy(has), torch.from_numpy(n))
+    assert all(g.blocks[(0, 0)].shape == (1, w) for g in got)
+    got = [np.asarray(g) for g in got]
+    jmesh = JM.make_mesh(4, 1)
+    for d in range(2):
+        want = P.sharded_fused_scans(jmesh, jnp.asarray(chain[d]),
+                                     jnp.asarray(has[d]), int(n[d]),
+                                     interpret=True)
+        for g, x in zip(got, want):
+            np.testing.assert_array_equal(g[d], np.asarray(x))
