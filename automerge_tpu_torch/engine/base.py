@@ -440,7 +440,8 @@ class CausalDeviceDoc:
             m = learned_index.doc_actor_model(self)
             if m is not None:
                 got = learned_index.actor_positions(
-                    self.actor_table, np.asarray(ts, object), m)
+                    self.actor_table, np.asarray(ts, object),
+                    "actor_rank", m)
                 if got is not None:
                     fnd = got[1]
                     missing = ([] if fnd.all() else

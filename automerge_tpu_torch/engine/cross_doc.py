@@ -97,11 +97,13 @@ class _Group:
 def _table_positions(doc, batch_table):
     """Positions of the batch's actors in the doc's sorted actor table, or
     None when one is missing. The doc's packed position model answers
-    when the table packs (engine/learned_index.py), a searchsorted over
-    the object table otherwise; both are exact."""
+    when the table packs and the "cross_doc_seed" site is not demoted
+    (engine/learned_index.py), a searchsorted over the object table
+    otherwise; both are exact."""
     table = doc.actor_table
-    model = learned_index.doc_actor_model(doc)
-    got = (learned_index.actor_positions(table, batch_table, model)
+    model = learned_index.doc_actor_model(doc, "cross_doc_seed")
+    got = (learned_index.actor_positions(table, batch_table,
+                                         "cross_doc_seed", model)
            if model is not None else None)
     if got is not None:
         pos, found = got

@@ -296,10 +296,12 @@ class BatchRangeIndex:
         state) and the query column is narrower than vector width,
         numpy's per-call fixed cost exceeds the arithmetic — the model
         evaluation is three int ops per key. Returns (slots, found)
-        python lists, or None when the index is not a single range
-        (caller falls through to the vectorized probe)."""
+        python lists, or None when the index is not a single range or
+        the "range_index" site is demoted (caller falls through to the
+        vectorized probe)."""
         runs = self._runs
-        if len(runs) != 1 or len(runs[0][0]) != 1:
+        if len(runs) != 1 or len(runs[0][0]) != 1 or \
+                _learned.RANGE_SITE.demoted:
             return None
         starts, lens, slots_r = runs[0]
         s0 = int(starts[0])
@@ -312,7 +314,25 @@ class BatchRangeIndex:
             hit = 0 <= off < l0
             found.append(hit)
             slots.append(z0 + off if hit else 0)
+        _learned.RANGE_SITE.note_hits(len(slots))
         return slots, found
+
+    def lookup(self, keys: np.ndarray):
+        """-> (slots int64, found bool) for packed query keys: the exact
+        probe, one binary-search pass per tier; a key lives in at most
+        one tier, so the per-tier hits combine by masked select."""
+        n = len(keys)
+        slot = np.zeros(n, np.int64)
+        found = np.zeros(n, bool)
+        for starts, lens, slots_r in self._runs:
+            pos = np.searchsorted(starts, keys, side="right") - 1
+            safe = np.clip(pos, 0, None)
+            hit = (pos >= 0) & (keys < starts[safe] + lens[safe])
+            if hit.any():
+                slot = np.where(hit, slots_r[safe] + (keys - starts[safe]),
+                                slot)
+                found |= hit
+        return slot, found
 
     def lookup_learned(self, keys: np.ndarray):
         """-> (slots int64, found bool) for packed query keys. One probe
@@ -323,7 +343,10 @@ class BatchRangeIndex:
         makes it exact, with exact fallback on miss. Tail tiers (small,
         freshly merged runs) probe exactly; the base run is where the
         document's lifetime of ranges lives, so it is where the binary
-        search depth was."""
+        search depth was. A demoted "range_index" site takes the exact
+        `lookup`."""
+        if _learned.RANGE_SITE.demoted:
+            return self.lookup(keys)
         runs = self._runs
         n = len(keys)
         if len(runs) == 1:
@@ -338,6 +361,7 @@ class BatchRangeIndex:
                 # the serving bench
                 off = keys - starts[0]
                 hit = (off >= 0) & (off < lens[0])
+                _learned.RANGE_SITE.note(n, 0)
                 return np.where(hit, slots_r[0] + off, 0), hit
         slot = np.zeros(n, np.int64)
         found = np.zeros(n, bool)
@@ -350,7 +374,8 @@ class BatchRangeIndex:
                     if ent is None or ent[0] is not starts:
                         # (source array, model | None): a refused fit is
                         # cached too, not re-attempted per probe
-                        ent = (starts, _learned.fit_model(starts))
+                        ent = (starts,
+                               _learned.fit_model(starts, "range_index"))
                         self._model = ent
                     m = ent[1]
                 else:

@@ -441,9 +441,11 @@ class DeviceTextDoc(CausalDeviceDoc):
             m = learned_index.doc_actor_model(self)
             if m is not None:
                 gb = learned_index.actor_positions(
-                    self.actor_table, np.asarray(b.actor_table, object), m)
+                    self.actor_table, np.asarray(b.actor_table, object),
+                    "actor_rank", m)
                 gr = learned_index.actor_positions(
-                    self.actor_table, np.asarray(b.actors, object), m)
+                    self.actor_table, np.asarray(b.actors, object),
+                    "actor_rank", m)
                 if (gb is not None and gr is not None
                         and gb[1].all() and gr[1].all()):
                     batch_rank = gb[0].astype(np.int64)

@@ -607,6 +607,11 @@ def site_of(doc_set) -> str:
     return site if site else f"ds-{id(doc_set) & 0xffff:04x}"
 
 
+def postmortem(k: int = 8) -> Optional[dict]:
+    led = _ledger
+    return led.postmortem(k) if led is not None else None
+
+
 def families(prefix: str = "amtpu_lineage") -> list:
     led = _ledger
     return led.families(prefix) if led is not None else []

@@ -1,7 +1,7 @@
 """Prometheus text-format exposition (version 0.0.4) for the telemetry
 tier, plus the one format validator shared by tests and `chip_smoke.py`,
-(INTERNALS §14.3). The port of the JAX package's ``obs/prom.py``, without
-its HTTP scrape endpoint, which comes with the service tier.
+plus an optional stdlib HTTP scrape endpoint (INTERNALS §14.3). The port
+of the JAX package's ``obs/prom.py``.
 
 No prometheus_client dependency: the container doesn't carry it, and the
 text format is a page of spec. Families are built as plain tuples
@@ -25,7 +25,10 @@ server's scrape log.
 
 from __future__ import annotations
 
+import json
 import re
+import threading
+from typing import Optional
 
 from .telemetry import N_BUCKETS, Telemetry, bucket_le_ns
 
@@ -215,3 +218,82 @@ def validate_prom(text: str) -> dict:
     if n_samples == 0:
         raise PromValidationError("page declares types but has no samples")
     return {"families": len(types), "samples": n_samples}
+
+
+class ScrapeServer:
+    """Optional stdlib HTTP scrape endpoint: ``GET /metrics`` serves the
+    exposition page, ``GET /describe`` the postmortem JSON dump. Runs a
+    daemon-threaded ThreadingHTTPServer bound to localhost; renders are
+    point-in-time best-effort snapshots (the render callbacks read
+    GIL-consistent dict copies, never lock the tick loop)."""
+
+    def __init__(self, render_metrics, render_describe=None,
+                 port: int = 0, host: str = "127.0.0.1"):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        outer = self
+
+        class _Handler(BaseHTTPRequestHandler):
+            def do_GET(self):
+                try:
+                    if self.path.split("?")[0] == "/metrics":
+                        body = outer._render_metrics().encode()
+                        ctype = ("text/plain; version=0.0.4; "
+                                 "charset=utf-8")
+                    elif (self.path.split("?")[0] == "/describe"
+                          and outer._render_describe is not None):
+                        body = json.dumps(
+                            outer._render_describe(),
+                            sort_keys=True, default=str).encode()
+                        ctype = "application/json"
+                    else:
+                        self.send_error(404)
+                        return
+                except Exception as exc:   # noqa: BLE001 — surface, don't die
+                    self.send_error(500, str(exc)[:120])
+                    return
+                try:
+                    self.send_response(200)
+                    self.send_header("Content-Type", ctype)
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                except ConnectionError:    # scraper gave up mid-write
+                    self.close_connection = True
+
+            def log_message(self, *a):     # no stderr chatter per scrape
+                pass
+
+        class _QuietServer(ThreadingHTTPServer):
+            def handle_error(self, request, client_address):
+                # wfile.flush() in handle_one_request can still raise on an
+                # aborted scrape; only real bugs deserve the stock traceback
+                import sys
+                exc = sys.exc_info()[1]
+                if not isinstance(exc, ConnectionError):
+                    super().handle_error(request, client_address)
+
+        self._render_metrics = render_metrics
+        self._render_describe = render_describe
+        self._httpd = _QuietServer((host, port), _Handler)
+        self._httpd.daemon_threads = True
+        self.host = host
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="amtpu-scrape", daemon=True)
+        self._thread.start()
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    def close(self, timeout: Optional[float] = 5.0):
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

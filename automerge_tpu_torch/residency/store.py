@@ -54,9 +54,11 @@ class BundleStore:
         table + model are cached per membership generation (put/pop
         bumps — the same token discipline as the interning-generation
         retrain trigger). Returns a bool array aligned to ``doc_ids``,
-        or None when the ids cannot pack (non-ASCII) or the packed table
-        is not strictly increasing — the caller then takes the exact
-        per-doc probes."""
+        or None when the "residency_clock" site is demoted, the ids cannot
+        pack (non-ASCII) or the packed table is not strictly increasing —
+        the caller then takes the exact per-doc probes."""
+        if not learned_index.site_enabled("residency_clock"):
+            return None
         ent = self._learned
         if ent is None or ent[0] != self._gen:
             ids = sorted([*self._warm, *self._cold])
@@ -64,13 +66,14 @@ class BundleStore:
             pair = None
             if tk is not None and (len(tk) < 2
                                    or bool((tk[1:] > tk[:-1]).all())):
-                pair = (tk, learned_index.fit_model(tk))
+                pair = (tk, learned_index.fit_model(tk, "residency_clock"))
             ent = (self._gen, ids, pair)
             self._learned = ent
         _gen, ids, pair = ent
         if pair is None:
             return None
-        got = learned_index.actor_positions(ids, doc_ids, pair)
+        got = learned_index.actor_positions(ids, doc_ids,
+                                            "residency_clock", pair)
         if got is None:
             return None
         return got[1]

@@ -38,7 +38,16 @@ scans' kernel pair over 2, 4 and 8 virtual shards of the card, bit-exact
 against its plain version and the unsharded kernel; the headline
 document materialized with its columns elem-sharded over 8 shards; the
 cfg3 DocSet on a (2, 4) mesh of virtual shards and on the machine's
-cards; the multi-shard dry run and the commit-path exchange audit); times
+cards; the multi-shard dry run and the commit-path exchange audit), the
+service tier (phase 16: run_all.py config11_service's 200 tenant
+sessions in rooms of 5; the same service on 4 rooms of cfg7's
+100,000-char text, where multi_scan must launch in the timed window;
+16a's population on 8 lanes with the pager, sequential and pipelined
+ticks; the loopback scrape endpoint with lineage on; 16a and 16b against
+a CPU run), and the federation (phase 17: scripts/soak.py
+session_federation's 3 regions, 6 rooms, 1,000 write sessions with
+partitions and a killed region rejoining empty, byte-identical at the
+end with zero residual lag); times
 each kernel at every shape those paths launched
 it with (device time over CUDA-graph replays, inputs rotated through
 copies so each call reads them from HBM; one eager call at the merge
@@ -147,6 +156,18 @@ FORM_EDGES = (96, 1023, 1024, 1025, 8191, 8192, 8193, 3 * 8192 + 5)
 #: shard 192 slots: warp form), a shard row past 1,024 (block form) and
 #: one past 8,192 (look-back form)
 MESH_ROW_CASES = ((DOCSET_DOCS, 768), (64, 4 * 1025), (16, 4 * 8193))
+SVC_SESSIONS = 200             # 16a: run_all.py config11_service's 200
+SVC_ROOM = 5                   # tenant sessions in rooms of 5, 10 rounds,
+SVC_ROUNDS = 10                # TenantBudget(ops_per_tick=256,
+SVC_OPS_PER_TICK = 256         # inbox_cap=64)
+SVC_INBOX = 64
+SVC_TEXT_ROOMS = 4             # 16b: 4 rooms of 5 on cfg7's 100,000 chars,
+SVC_TEXT_EDIT = "0123456789"   # each edit sync-a's 10 chars at index 0
+SVC_LANES = 8                  # 16c: 16a on 8 lanes (streams of the card),
+SVC_RES_ROOMS = 8              # the pager's budget 8 docs' bytes
+FED_ROOMS = 6                  # 17: scripts/soak.py session_federation's
+FED_SESSIONS = 1_000           # 3 regions, 6 rooms, 1,000 write sessions
+FED_TICKS = 80                 # over 80 ticks, seed 0
 
 
 def log(*a):
@@ -499,10 +520,10 @@ def check_kernels_per_call(torch, S):
     """Each wrapper call runs one device kernel: `multi_scan` beside the
     memset of its scratch, the three segment-scan wrappers with nothing
     else at all (no memset, no fill), in each of their forms. Runs after
-    the driven paths, since a profiler session left behind slows the
-    host's later launches, and before phase 7's CUDA graphs: after their
-    replays a profiler session has shown no device activity at all for an
-    `fs_totals` call that ran. Returns the kernels per call."""
+    phases 1-15, since a profiler session left behind slows the host's
+    later launches, and before phases 16-17 and phase 7's CUDA graphs:
+    after either, a profiler session has shown no device activity at all
+    for an `fs_totals` call that ran. Returns the kernels per call."""
     dev = torch.device("cuda")
     x = torch.zeros((6, N_MERGE), dtype=torch.int32, device=dev)
     ops = {"multi_scan": device_ops_per_call(torch, lambda: S.multi_scan(x))}
@@ -3709,6 +3730,731 @@ def mesh_phase(torch, M, card: str, doc, want_sha: str, device=None,
     return out
 
 
+# --- the service tier (run_all.py config11_service) -------------------------
+
+class SvcClient:
+    """run_all.py config11_service's tenant: a DocSet on the backend
+    namespace `be` holding `doc`, over a lossless queue transport and a
+    ResilientChannel to its server session."""
+
+    def __init__(self, M, svc, be, tid: str, room_id: str, doc):
+        from collections import deque
+        am = M.am
+        self.svc, self.tid, self.room_id = svc, tid, room_id
+        self.to_server, self.to_client = deque(), deque()
+        self.ds = am.DocSet(backend=be)
+        self.ds.set_doc(room_id, doc)
+        svc.connect(tid, room_id, self.to_client.append)
+        self.chan = M.res.ResilientChannel(self.to_server.append, None)
+        self.conn = am.Connection(self.ds, self.chan.send)
+        self.chan._deliver = self.conn.receive_msg
+        self.conn.open()
+
+    def pump(self):
+        while self.to_server:
+            env = self.to_server.popleft()
+            sess = self.svc.session(self.tid)
+            if sess is not None:
+                sess.on_wire(env)
+        while self.to_client:
+            self.chan.on_wire(self.to_client.popleft())
+        self.chan.tick()
+
+    def doc(self):
+        return self.ds.get_doc(self.room_id)
+
+
+def svc_settle(svc, clients, max_ticks: int = 800) -> int:
+    """Pump every client and tick until the service and every channel
+    are idle; -> the ticks it took."""
+    for i in range(max_ticks):
+        for c in clients:
+            c.pump()
+        svc.tick()
+        if svc.idle() and all(c.chan.idle and not c.to_server
+                              and not c.to_client for c in clients):
+            return i + 1
+    raise AssertionError(f"service never quiesced: {svc.metrics()}")
+
+
+def bulk_schedule(n_docs: int, n_rounds: int, ops: int = 8) -> list:
+    """16c's bulk-mesh traffic: round r appends an `ops`-op run to four
+    new docs and revisits the doc first touched three rounds before (a
+    page-in once the pager has demoted it)."""
+    seqs, ctrs, out = {}, {}, []
+    for r in range(n_rounds):
+        picks = [(4 * r + k) % n_docs for k in range(4)]
+        if r >= 3:
+            picks.append((4 * (r - 3)) % n_docs)
+        rnd = {}
+        for p in dict.fromkeys(picks):
+            d = f"bulk-{p}"
+            seqs[d] = seqs.get(d, 0) + 1
+            rnd.update(stack_text_round([d], seqs[d], ctrs.get(d, 0) + 1,
+                                        ops))
+            ctrs[d] = ctrs.get(d, 0) + ops // 2
+        out.append(rnd)
+    return out
+
+
+def svc_run(torch, M, card: str, device, label: str, n_sessions: int,
+            room_size: int, n_rounds: int, text_chars: int = 0,
+            shard_lanes: int = 0, budget_bytes: int = 0, spill_dir=None,
+            bulk=None, keep: bool = False) -> tuple:
+    """One service run on `device`: run_all.py config11_service's shape.
+    `n_sessions` tenants in rooms of `room_size` over lossless queue
+    transports into one SyncService (every room, lane and client document
+    on `device`), the join handshake settled off the clock, then
+    `n_rounds` rounds in which every client edits once and pumps, one
+    tick a round, and the settle to quiescence: the timed window.
+    `text_chars` 0 is cfg11's document (`t` = Text("svc"), `m` = {}) and
+    its edit (one key of `m`); otherwise each room's `t` holds that many
+    chars (restored from one checkpoint of the founding document under
+    each replica's own actor) and each edit inserts sync-a's 10 chars at
+    index 0. `bulk` is a `bulk_schedule` fed to the residency tier's doc
+    mesh, one round a tick. Asserts cfg11's checks: admitted ops >=
+    sessions x rounds, room-0 converged, zero lag at quiescence.
+    Returns (record, {room: save() bytes}[, the service when `keep`])."""
+    am = M.am
+    be = am.backend.backend_for(device)
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n_rooms = max(1, n_sessions // room_size)
+    rooms = [f"room-{g}" for g in range(n_rooms)]
+    _pinned_uuids(M)
+    t_setup = time.perf_counter()
+    svc = M.service.SyncService(M.service.ServiceConfig(
+        device=device, shard_lanes=shard_lanes,
+        residency_budget_bytes=budget_bytes, residency_spill_dir=spill_dir,
+        default_budget=M.service.TenantBudget(
+            ops_per_tick=SVC_OPS_PER_TICK, inbox_cap=SVC_INBOX)))
+    try:
+        if text_chars:
+            origin = am.change(
+                am.init({"actorId": "room-origin", "backend": be}),
+                lambda d: (d.__setitem__("t", am.Text("x" * text_chars)),
+                           d.__setitem__("m", {})))
+            bundle = am.checkpoint_doc(origin)
+            del origin
+
+            def founding(rid, actor):
+                return am.frontend.set_actor_id(
+                    am.restore(bundle, {"backend": be}), actor)
+
+            def edit(d, r, i):
+                d["t"].insert_at(0, *SVC_TEXT_EDIT)
+        else:
+            bases = {}
+
+            def founding(rid, actor):
+                if rid not in bases:
+                    doc0 = am.change(
+                        am.init({"actorId": f"{rid}-origin", "backend": be}),
+                        lambda d: (d.__setitem__("t", am.Text("svc")),
+                                   d.__setitem__("m", {})))
+                    bases[rid] = am.get_all_changes(doc0)
+                return am.apply_changes(
+                    am.init({"actorId": actor, "backend": be}), bases[rid])
+
+            def edit(d, r, i):
+                d["m"][f"k{i}"] = r
+        for g, rid in enumerate(rooms):
+            svc.seed_doc(rid, founding(rid, f"server-{g}"))
+        clients = [SvcClient(M, svc, be, f"t{i}", rooms[i % n_rooms],
+                             founding(rooms[i % n_rooms], f"c-t{i}"))
+                   for i in range(n_sessions)]
+        join_ticks = svc_settle(svc, clients)
+        sync()
+        setup_s = time.perf_counter() - t_setup
+        ops0 = svc.stats["admitted_ops"]
+        before = dict(M.S.launches)
+        t0 = time.perf_counter()
+        for r in range(n_rounds):
+            for i, c in enumerate(clients):
+                c.ds.set_doc(c.room_id, am.change(
+                    c.doc(), lambda d, r=r, i=i: edit(d, r, i)))
+                c.pump()
+            if bulk is not None:
+                svc.mesh_deliver(bulk[r])
+            svc.tick()
+        settle_ticks = svc_settle(svc, clients)
+        sync()
+        window_s = time.perf_counter() - t0
+        window = {k: M.S.launches[k] - before.get(k, 0)
+                  for k in M.S.launches}
+        admitted = svc.stats["admitted_ops"] - ops0
+        if admitted < n_sessions * n_rounds:
+            raise AssertionError(f"{label}: admitted {admitted} < "
+                                 f"{n_sessions * n_rounds}")
+
+        def canon(d):
+            return json.dumps(am.to_json(d), sort_keys=True)
+        want = canon(svc.room("room-0").doc_set.get_doc("room-0"))
+        for c in clients:
+            if c.room_id == "room-0" and canon(c.doc()) != want:
+                raise AssertionError(f"{label}: room-0 diverged")
+        svc.probe_lag()
+        m = svc.metrics()
+        if m["max_lag_ops"] or m["max_lag_ticks"] or m["lagging_tenants"]:
+            raise AssertionError(f"{label}: lag at quiescence: {m}")
+        docs = {rid: svc.room(rid).doc_set.get_doc(rid) for rid in rooms}
+        if not all(_on_device(M, d, device) for d in docs.values()) or \
+                not all(_on_device(M, c.doc(), device) for c in clients):
+            raise AssertionError(f"{label}: a document left {device}")
+        saves = {rid: am.save(d) for rid, d in docs.items()}
+        rec = {"sessions": n_sessions, "rooms": n_rooms,
+               "rounds": n_rounds, "text_chars": text_chars,
+               "shard_lanes": shard_lanes, "setup_s": setup_s,
+               "join_ticks": join_ticks, "window_s": window_s,
+               "settle_ticks": settle_ticks, "admitted_ops": admitted,
+               "admitted_ops_per_s": admitted / window_s,
+               "p50_tick_ms": m["p50_tick_ms"],
+               "p99_tick_ms": m["p99_tick_ms"],
+               "tick_p99_ms_telemetry": svc.tick_p99_ms_telemetry(),
+               "shed_total": m["shed_total"], "evictions": m["evictions"],
+               "deferrals": m["deferrals"], "peak_inbox": m["peak_inbox"],
+               "peak_parked": m["peak_parked"],
+               "peak_lag_ops": m["peak_lag_ops"],
+               "max_lag_ops": m["max_lag_ops"], "window_launches": window}
+        log(f"{label} ({card}): {n_sessions} sessions in {n_rooms} rooms, "
+            f"{n_rounds} rounds: {admitted} ops admitted in "
+            f"{window_s:.3f} s ({rec['admitted_ops_per_s']:.1f} ops/s), "
+            f"tick p50 {m['p50_tick_ms']} ms, p99 {m['p99_tick_ms']} ms, "
+            f"shed {m['shed_total']}, evictions {m['evictions']}, "
+            f"deferrals {m['deferrals']}, peak inbox {m['peak_inbox']}; "
+            f"set-up {setup_s:.2f} s; kernels in the window {window}")
+        out = (rec, saves) + ((svc,) if keep else ())
+        if not keep:
+            svc.close()
+        return out
+    except BaseException:
+        svc.close()
+        raise
+    finally:
+        M.uuid.reset()
+
+
+def svc_shard_ref(torch, M, device, n_rooms: int, n_rounds: int,
+                  n_lanes: int) -> dict:
+    """16c's reference: an unbounded `n_lanes`-lane mesh on `device` fed
+    the bulk schedule of `n_rooms` docs over `n_rounds` rounds. It is
+    not the service path, so `svc_phase` builds it before it sets the
+    kernel counts to 0. -> the schedule, the docs it touches, their
+    captures' digests and the largest doc's device bytes."""
+    bulk = bulk_schedule(n_rooms, n_rounds)
+    touched = sorted({d for rnd in bulk for d in rnd})
+    ref = M.shard.ShardedDocSet(n_shards=n_lanes,
+                                devices=[torch.device(device or "cuda")],
+                                assert_budget=False)
+    try:
+        for rnd in bulk:
+            ref.deliver_round(rnd)
+        return {"bulk": bulk, "touched": touched,
+                "digests": _mesh_digests(ref, touched),
+                "per_doc": max(doc.device_footprint()["device_bytes"]
+                               for lane in ref.lanes
+                               for doc in lane.docs.values())}
+    finally:
+        ref.close()
+
+
+def svc_shard(torch, M, card: str, device, saves_a: dict, ref: dict,
+              n_sessions: int, room_size: int, n_rounds: int, n_lanes: int,
+              budget_rooms: int) -> dict:
+    """16c: 16a's population on `n_lanes` lanes (streams of the card)
+    with the residency tier on at a budget of `budget_rooms` docs' bytes
+    of the bulk mesh (its per-doc bytes from `ref`, the unbounded
+    reference mesh `svc_shard_ref` fed the same `bulk_schedule`), once
+    with the sequential tick and once with AMTPU_TICK_PIPELINE=1. Each
+    room's save() must equal 16a's, the bulk mesh's captures the
+    reference's, and the pager must hold its budget."""
+    import tempfile
+    bulk, touched, per_doc = ref["bulk"], ref["touched"], ref["per_doc"]
+    budget = budget_rooms * per_doc
+    out = {"lanes": n_lanes, "bulk_docs": len(touched),
+           "per_doc_bytes": per_doc, "budget_bytes": budget}
+    prior = os.environ.get("AMTPU_TICK_PIPELINE")
+    try:
+        for leg, flag in (("sequential", "0"), ("pipelined", "1")):
+            os.environ["AMTPU_TICK_PIPELINE"] = flag
+            M.dt.REGISTRY.clear_session()
+            with tempfile.TemporaryDirectory() as spill:
+                rec, saves, svc = svc_run(
+                    torch, M, card, device, f"16c svc-shard {leg}",
+                    n_sessions, room_size, n_rounds, shard_lanes=n_lanes,
+                    budget_bytes=budget, spill_dir=spill, bulk=bulk,
+                    keep=True)
+                try:
+                    if saves != saves_a:
+                        raise AssertionError(f"16c {leg}: room saves "
+                                             "differ from 16a's")
+                    mesh, res = svc.doc_mesh, svc.residency
+                    _sync_lanes(torch, mesh)
+                    _check_lane_tables(mesh)
+                    if _mesh_digests(mesh, touched) != ref["digests"]:
+                        raise AssertionError(f"16c {leg}: bulk captures "
+                                             "differ from the reference")
+                    m = res.metrics()
+                    peak = res.peak_resident_bytes
+                    if m["budget_overruns"] or peak > budget or not (
+                            m["page_outs"] and m["page_ins"]):
+                        raise AssertionError(f"16c {leg}: pager {m}, peak "
+                                             f"{peak} of {budget}")
+                    ex = svc._mesh_executor()
+                    fanned = ex is not None and ex.stats["barriers"] > 0
+                    if fanned != (flag == "1"):
+                        raise AssertionError(f"16c {leg}: the tick "
+                                             f"executor fanned out: {fanned}")
+                    smap = svc.shard_map()
+                    used = sum(1 for ln in smap["lanes"].values()
+                               if ln["rooms"])
+                    if smap["n_lanes"] != n_lanes or used < 2:
+                        raise AssertionError(f"16c {leg}: shard map {smap}")
+                    rdesc = svc.describe()["residency"]
+                    # plain JSON (no default=): devices are written as names
+                    log(f"16c {leg} shard_map: {json.dumps(smap)}")
+                    log(f"16c {leg} residency: {json.dumps(rdesc)}")
+                    out[leg] = dict(rec, peak_resident_bytes=peak,
+                                    pager=dict(m),
+                                    executor=(dict(ex.stats)
+                                              if ex is not None else None))
+                finally:
+                    svc.close()
+    finally:
+        if prior is None:
+            os.environ.pop("AMTPU_TICK_PIPELINE", None)
+        else:
+            os.environ["AMTPU_TICK_PIPELINE"] = prior
+    return out
+
+
+def svc_scrape(M, svc, clients_room: str = "room-0") -> dict:
+    """16d: the loopback scrape endpoint against 16b's live service with
+    lineage sampling on: one more edit of the room's server replica
+    flushed through a tick, then GET /metrics (validate_prom-clean) and
+    GET /describe (JSON holding the lineage and learned_index blocks)."""
+    import urllib.request
+    am = M.am
+    led = M.lineage.enable(rate=1, capacity=4096)
+    try:
+        ds = svc.room(clients_room).doc_set
+        ds.set_doc(clients_room, am.change(
+            ds.get_doc(clients_room),
+            lambda d: d["t"].insert_at(0, *SVC_TEXT_EDIT)))
+        svc.tick()
+        srv = svc.serve_metrics()
+        try:
+            if srv.host != "127.0.0.1":
+                raise AssertionError(f"16d: bound {srv.host}")
+            t = time.perf_counter()
+            page = urllib.request.urlopen(srv.url + "/metrics",
+                                          timeout=60).read().decode()
+            metrics_s = time.perf_counter() - t
+            counts = M.prom.validate_prom(page)
+            t = time.perf_counter()
+            dump = json.loads(urllib.request.urlopen(
+                srv.url + "/describe", timeout=60).read())
+            describe_s = time.perf_counter() - t
+        finally:
+            srv.close()
+        if "lineage" not in dump or not dump["lineage"]["chains"]:
+            raise AssertionError("16d: /describe has no lineage chains")
+        if dump["learned_index"]["schema"] != "amtpu-learned-index-v1":
+            raise AssertionError("16d: /describe has no learned_index")
+        for fam in ("amtpu_svc_admitted_ops_total", "amtpu_lineage_",
+                    "amtpu_index_lookups_total", "amtpu_device_"):
+            if fam not in page:
+                raise AssertionError(f"16d: /metrics lacks {fam}")
+        out = {"families": counts["families"], "samples": counts["samples"],
+               "metrics_bytes": len(page), "metrics_s": metrics_s,
+               "describe_s": describe_s,
+               "lineage_chains": dump["lineage"]["chains"],
+               "learned_index_sites": sorted(dump["learned_index"]["sites"]),
+               "demoted_sites": dump["learned_index"]["demoted_sites"]}
+        log(f"16d scrape: /metrics {counts['families']} families, "
+            f"{counts['samples']} samples ({len(page)} bytes, "
+            f"{metrics_s * 1e3:.1f} ms); /describe {describe_s * 1e3:.1f} "
+            f"ms with {out['lineage_chains']} lineage chains and the "
+            f"learned_index block ({out['learned_index_sites']})")
+        return out
+    finally:
+        led.clear()
+        M.lineage.disable()
+
+
+def svc_phase(torch, M, card: str, device=None,
+              n_sessions: int = SVC_SESSIONS, room_size: int = SVC_ROOM,
+              n_rounds: int = SVC_ROUNDS, text_rooms: int = SVC_TEXT_ROOMS,
+              text_chars: int = API_TEXT, n_lanes: int = SVC_LANES,
+              budget_rooms: int = SVC_RES_ROOMS) -> dict:
+    """The service tier on `device`: 16a svc-a (cfg11 at its defaults),
+    16b svc-text (the same service on rooms of cfg7's text; multi_scan
+    must launch in its timed window), 16c svc-shard (16a on lanes with
+    the pager, sequential and pipelined ticks), 16d the scrape endpoint.
+    16a and 16b then run on the CPU, whose room saves the card's must
+    equal. The kernel counts are set to 0 after 16c's reference mesh is
+    built (it is not the service path) and read after the card's parts.
+    Raises on any failed check."""
+    cuda = torch.device(device or "cuda").type == "cuda"
+    t_phase = time.perf_counter()
+    ref = svc_shard_ref(torch, M, device, max(1, n_sessions // room_size),
+                        n_rounds, n_lanes)
+    if cuda:
+        torch.cuda.synchronize()
+    M.S.reset_launches()
+    a, saves_a = svc_run(torch, M, card, device, "16a svc-a", n_sessions,
+                         room_size, n_rounds)
+    b, saves_b, svc_b = svc_run(torch, M, card, device, "16b svc-text",
+                                text_rooms * room_size, room_size,
+                                n_rounds, text_chars=text_chars, keep=True)
+    try:
+        if cuda and not b["window_launches"]["multi_scan"]:
+            raise AssertionError("16b: multi_scan did not launch in the "
+                                 f"timed window: {b['window_launches']}")
+        c = svc_shard(torch, M, card, device, saves_a, ref, n_sessions,
+                      room_size, n_rounds, n_lanes, budget_rooms)
+        d = svc_scrape(M, svc_b)
+    finally:
+        svc_b.close()
+        del svc_b
+    if cuda:
+        torch.cuda.synchronize()
+    launches = dict(M.S.launches)
+    shapes = {k: dict(v) for k, v in M.S.launch_shapes.items()}
+    card_s = time.perf_counter() - t_phase
+    if cuda:
+        t = time.perf_counter()
+        _, want_a = svc_run(torch, M, "cpu backend", "cpu", "16a svc-a",
+                            n_sessions, room_size, n_rounds)
+        _, want_b = svc_run(torch, M, "cpu backend", "cpu", "16b svc-text",
+                            text_rooms * room_size, room_size, n_rounds,
+                            text_chars=text_chars)
+        cpu_s = time.perf_counter() - t
+        for part, got, want in (("16a", saves_a, want_a),
+                                ("16b", saves_b, want_b)):
+            if got != want:
+                raise AssertionError(f"{part}: the card's room saves differ "
+                                     "from the CPU run's")
+        if not launches["multi_scan"]:
+            raise AssertionError(f"service: multi_scan missed the service "
+                                 f"path: {launches}")
+    else:
+        cpu_s = 0.0
+    out = {"a": a, "b": b, "c": c, "d": d, "launches": launches,
+           "shapes": shapes, "card_s": card_s, "cpu_s": cpu_s,
+           "wall_s": time.perf_counter() - t_phase}
+    log(f"service phase launches: {launches}; card parts {card_s:.2f} s, "
+        f"the CPU runs {cpu_s:.2f} s; room saves equal to the CPU run's "
+        f"({card})")
+    log("svc record: " + json.dumps(dict(out, shapes={
+        k: {"x".join(map(str, sh)): n for sh, n in v.items()}
+        for k, v in shapes.items()}), default=str))
+    return out
+
+
+# --- the federation (scripts/soak.py session_federation) -----------------
+
+FED_KEYS = ["alpha", "beta", "gamma", "delta", "eps"]
+
+
+def _fed_text_edit(am, doc, rng):
+    """scripts/soak.py `_text_edit`: one random insert or delete in `t`."""
+    def cb(d):
+        t = d["t"]
+        n = len(t)
+        if n and rng.integers(0, 3) == 0:
+            t.delete_at(int(rng.integers(0, n)))
+        else:
+            t.insert_at(int(rng.integers(0, n + 1)),
+                        chr(97 + int(rng.integers(0, 26))))
+    return am.change(doc, cb)
+
+
+def fed_phase(torch, M, card: str, device=None, seed: int = 0,
+              n_rooms: int = FED_ROOMS, n_sessions: int = FED_SESSIONS,
+              n_ticks: int = FED_TICKS, quiesce_rounds: int = 6000) -> dict:
+    """Phase 17: scripts/soak.py session_federation at its defaults on
+    `device` — three FederatedRegions (each a SyncService whose rooms
+    live on `device`) over seeded cross_region WAN chaos, `n_sessions`
+    write sessions over `n_ticks` ticks while us-eu and eu-ap partition
+    and heal and region ap is killed and rejoins empty. Asserts the
+    soak's three checks: byte-identical convergence on every region
+    (canonical saves and sorted histories), zero residual lag with every
+    link on `ok`, full reclamation. On the card the phase then runs
+    again on the CPU, whose canonical saves the card's must equal. The
+    kernel counts are set to 0 before the phase and read after the
+    card's run."""
+    am = M.am
+    be = am.backend.backend_for(device)
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    F = M.federation
+    sync()
+    M.S.reset_launches()
+    _pinned_uuids(M)
+    rng = np.random.default_rng(seed)
+    names = ["us", "eu", "ap"]
+    placement = F.RegionPlacement(names)
+    t_phase = time.perf_counter()
+
+    def mk_region(name):
+        return F.FederatedRegion(
+            M.service.SyncService(M.service.ServiceConfig(
+                region=name, device=device)), name,
+            placement=placement, probe_every=2, max_buffer=256,
+            max_retries=4)
+
+    regions = {n: mk_region(n) for n in names}
+    chaos = {}
+    s = seed * 7919 + 1
+    for i in range(len(names)):
+        for j in range(i + 1, len(names)):
+            a, b = names[i], names[j]
+            _, _, fwd, rev = F.connect_regions(
+                regions[a], regions[b], profile="cross_region", seed=s)
+            chaos[(a, b)] = (fwd, rev)
+            s += 10
+    room_ids = [f"room-{g}" for g in range(n_rooms)]
+    for room_id in room_ids:
+        doc0 = am.change(
+            am.init({"actorId": f"{room_id}-origin", "backend": be}),
+            lambda d: (d.__setitem__("t", am.Text("start")),
+                       d.__setitem__("m", {})))
+        base = am.get_all_changes(doc0)
+        for r in regions.values():
+            r.svc.seed_doc(room_id, am.apply_changes(
+                am.init({"actorId": f"srv-{r.name}-{room_id}",
+                         "backend": be}), base))
+            r.svc.room(room_id).hub.snapshot_min_changes = 8
+
+    def pump_all(rounds=1):
+        for _ in range(rounds):
+            for r in regions.values():
+                r.pump()
+                r.svc.tick()
+
+    def edit(region_name, room_id):
+        ds = regions[region_name].svc.room(room_id).doc_set
+        doc = ds.get_doc(room_id)
+        if doc is None:
+            return False
+        if int(rng.integers(0, 3)) == 0:
+            doc = _fed_text_edit(am, doc, rng)
+        else:
+            k = FED_KEYS[int(rng.integers(0, len(FED_KEYS)))]
+            doc = am.change(doc, lambda d, k=k,
+                            v=int(rng.integers(0, 999)):
+                            d["m"].__setitem__(k, v))
+        ds.set_doc(room_id, doc)
+        return True
+
+    cut_a = ("us", "eu")
+    cut_a_at, cut_a_len = n_ticks // 5, max(4, n_ticks // 6)
+    cut_b = ("eu", "ap")
+    cut_b_at, cut_b_len = (2 * n_ticks) // 3, max(4, n_ticks // 8)
+    kill_name = "ap"
+    kill_at = n_ticks // 2
+    rejoin_at = kill_at + max(4, n_ticks // 8)
+    killed = False
+    n_writes = n_skipped = 0
+    per_tick = max(1, n_sessions // n_ticks)
+
+    def kill_edges(name):
+        for (a, b), (f, r) in chaos.items():
+            if name in (a, b):
+                f.partition()
+                r.partition()
+
+    def rejoin_region(name):
+        fresh = mk_region(name)
+        ls = seed * 104729 + 17
+        for (a, b), (f, r) in chaos.items():
+            if b == name:
+                ln = fresh.link_to(a, seed=ls)
+                f._deliver = ln.on_raw
+                ln.attach_transport(r)
+            elif a == name:
+                ln = fresh.link_to(b, seed=ls)
+                r._deliver = ln.on_raw
+                ln.attach_transport(f)
+            else:
+                continue
+            ls += 3
+            f.heal()
+            r.heal()
+        regions[name] = fresh
+
+    try:
+        t0 = time.perf_counter()
+        for t in range(n_ticks):
+            if t == cut_a_at:
+                f, r = chaos[cut_a]
+                f.partition()
+                r.partition()
+            if t == cut_a_at + cut_a_len and not killed:
+                f, r = chaos[cut_a]
+                f.heal()
+                r.heal()
+            if t == cut_b_at:
+                f, r = chaos[cut_b]
+                f.partition()
+                r.partition()
+            if t == cut_b_at + cut_b_len:
+                f, r = chaos[cut_b]
+                f.heal()
+                r.heal()
+            if t == kill_at:
+                killed = True
+                regions.pop(kill_name)
+                kill_edges(kill_name)
+            if t == rejoin_at:
+                killed = False
+                rejoin_region(kill_name)
+            for _ in range(per_tick):
+                room_id = room_ids[int(rng.integers(0, n_rooms))]
+                if int(rng.integers(0, 5)) == 0:
+                    target = list(regions)[int(rng.integers(
+                        0, len(regions)))]
+                else:
+                    target = placement.home(room_id)
+                    if target not in regions:
+                        target = next(iter(regions))
+                if edit(target, room_id):
+                    n_writes += 1
+                else:
+                    n_skipped += 1
+            pump_all()
+        sync()
+        write_s = time.perf_counter() - t0
+        if killed:
+            rejoin_region(kill_name)
+        for f, r in chaos.values():
+            f.heal()
+            r.heal()
+        t1 = time.perf_counter()
+        for q in range(quiesce_rounds):
+            pump_all()
+            if q > 5 and all(r.idle() for r in regions.values()):
+                break
+        else:
+            raise AssertionError(
+                "17: never quiesced: "
+                f"{ {n: r.lag_table() for n, r in regions.items()} }")
+        sync()
+        quiesce_s = time.perf_counter() - t1
+        quiesce_n = q + 1
+        canon_saves = {}
+        for room_id in room_ids:
+            docs = {n: r.svc.room(room_id).doc_set.get_doc(room_id)
+                    for n, r in regions.items()}
+            if any(d is None for d in docs.values()):
+                raise AssertionError(f"17 {room_id}: a missing replica")
+            if not all(_on_device(M, d, device) for d in docs.values()):
+                raise AssertionError(f"17 {room_id}: a replica left "
+                                     f"{device}")
+            saves, hists = {}, {}
+            for n, d in docs.items():
+                chs = sorted(am.get_all_changes(d),
+                             key=lambda c: (c["actor"], c["seq"]))
+                saves[n] = am.save(am.apply_changes(
+                    am.init({"actorId": "canon-probe", "backend": be}),
+                    chs))
+                hists[n] = sorted(json.dumps(c, sort_keys=True)
+                                  for c in chs)
+            if len(set(saves.values())) != 1:
+                raise AssertionError(f"17 {room_id}: saves diverged")
+            ref = next(iter(hists.values()))
+            if not all(h == ref for h in hists.values()):
+                raise AssertionError(f"17 {room_id}: histories diverged")
+            canon_saves[room_id] = _digest(
+                next(iter(saves.values())).encode())
+        residual = {(n, peer): entry for n, r in regions.items()
+                    for peer, entry in r.lag_table().items()
+                    if entry["lag_tokens"] or entry["state"] != "ok"}
+        if residual:
+            raise AssertionError(f"17: residual lag {residual}")
+        for n, r in regions.items():
+            for room_id in room_ids:
+                if r.svc.room(room_id).gate._n_parked:
+                    raise AssertionError(f"17: {n}/{room_id} quarantine "
+                                         "not drained")
+            for peer, link in r.links.items():
+                if link._buf_adverts or link._buf_data or \
+                        link.chan._recv_buf:
+                    raise AssertionError(f"17: {n}->{peer} buffers not "
+                                         "drained")
+    except BaseException:
+        try:
+            out_dir = os.path.join(os.path.dirname(os.path.abspath(
+                __file__)), "chiprun_out")
+            os.makedirs(out_dir, exist_ok=True)
+            path = os.path.join(out_dir, "federation_postmortem.json")
+            with open(path, "w") as fh:
+                json.dump({n: r.svc.describe() for n, r in regions.items()},
+                          fh, indent=1, default=str)
+            log(f"17: federation postmortem written to {path}")
+        except Exception as dump_exc:   # noqa: BLE001 - never mask
+            log(f"17: postmortem dump failed: {dump_exc!r}")
+        raise
+    finally:
+        M.uuid.reset()
+    sync()
+    launches = dict(M.S.launches)
+    shapes = {k: dict(v) for k, v in M.S.launch_shapes.items()}
+    links = [ln for r in regions.values() for ln in r.links.values()]
+    out = {"regions": len(regions), "rooms": n_rooms,
+           "sessions": n_sessions, "ticks": n_ticks, "writes": n_writes,
+           "writes_skipped_bootstrapping": n_skipped,
+           "write_s": write_s, "quiesce_s": quiesce_s,
+           "quiesce_rounds": quiesce_n,
+           "writes_per_s": n_writes / write_s,
+           "reconnects": sum(ln.stats["reconnects"] for ln in links),
+           "channel_revives": sum(ln.chan.stats["revives"] for ln in links),
+           "buffer_dropped": sum(ln.stats["buffer_dropped"] for ln in links),
+           "shipped": sum(ln.stats["shipped"] for ln in links),
+           "delivered": sum(ln.stats["delivered"] for ln in links),
+           "group_tokens_minted": sum(r.clock.stats["minted"]
+                                      for r in regions.values()),
+           "ladder_transitions": {
+               k: sum(ln.transitions.get(k, 0) for ln in links)
+               for k in sorted({t for ln in links for t in ln.transitions})},
+           "canonical_save_sha256": canon_saves,
+           "launches": launches, "shapes": shapes,
+           "wall_s": time.perf_counter() - t_phase}
+    if cuda and not launches["multi_scan"]:
+        raise AssertionError(f"17: multi_scan missed the federation path: "
+                             f"{launches}")
+    log(f"17 federation ({card}): 3 regions, {n_rooms} rooms, {n_writes} "
+        f"writes over {n_ticks} ticks in {write_s:.2f} s "
+        f"({out['writes_per_s']:.1f} writes/s; {n_skipped} skipped while "
+        f"bootstrapping), quiesced in {quiesce_n} rounds ({quiesce_s:.2f} "
+        f"s); {out['reconnects']} reconnects, {out['buffer_dropped']} "
+        f"buffered drops; converged byte-identically with zero residual "
+        f"lag; launches {launches}")
+    if cuda:
+        # the CPU twin in this process: the schedule is seeded and no
+        # clock enters it, and set orders follow this process's string
+        # hash, so the same run on the plain versions must reach the
+        # same documents
+        t = time.perf_counter()
+        want = fed_phase(torch, M, "cpu backend", "cpu", seed, n_rooms,
+                         n_sessions, n_ticks, quiesce_rounds)
+        out["cpu_s"] = time.perf_counter() - t
+        if want["canonical_save_sha256"] != canon_saves:
+            raise AssertionError("17: the card's canonical saves differ "
+                                 "from the CPU run's")
+        sched = ("writes", "writes_skipped_bootstrapping", "quiesce_rounds",
+                 "reconnects", "shipped", "delivered", "group_tokens_minted")
+        out["cpu_schedule_equal"] = all(out[k] == want[k] for k in sched)
+        log(f"17: canonical saves equal to the CPU run's ({card}; CPU run "
+            f"{out['cpu_s']:.2f} s); schedule counters equal: "
+            f"{out['cpu_schedule_equal']}")
+    log("fed record: " + json.dumps(dict(out, shapes={
+        k: {"x".join(map(str, sh)): n for sh, n in v.items()}
+        for k, v in shapes.items()})))
+    return out
+
+
 def _sharded_library(torch, chain, has, ne, n: int):
     """One PyTorch program's form of the sharded scans: per shard the
     library scans (`torch.cumsum` x 2, `torch.cummax`) on its precomputed
@@ -3989,8 +4735,9 @@ def port_modules():
     from types import SimpleNamespace
 
     import automerge_tpu_torch as am
-    from automerge_tpu_torch import (_common, _uuid, checkpoint, native, obs,
-                                     residency, shard)
+    from automerge_tpu_torch import (_common, _uuid, checkpoint, federation,
+                                     native, obs, residency, resilience,
+                                     service, shard)
     from automerge_tpu_torch.backend import device as device_backend
     from automerge_tpu_torch.engine import (DeviceMapDoc, DeviceTextDocSet,
                                             MapChangeBatch,
@@ -4013,7 +4760,8 @@ def port_modules():
         DeviceTextDoc=DeviceTextDoc, DeviceTextDocSet=DeviceTextDocSet,
         stacked=stacked, S=scan_kernels, bucket=bucket, am=am,
         device_backend=device_backend, shard=shard, residency=residency,
-        pmesh=pmesh, dryrun=_dryrun, audit=audit)
+        pmesh=pmesh, dryrun=_dryrun, audit=audit, service=service,
+        federation=federation, res=resilience)
 
 
 def main() -> int:
@@ -4256,16 +5004,32 @@ def main() -> int:
     mesh_rec = mesh_phase(torch, M, card, doc2, sha(r["text"]))
     del doc2
 
-    # 7. one kernel per call (a profiler session slows later host
-    # launches, and after CUDA graph replays has missed device work), then
-    # kernel times at every shape the driven paths launched with
+    # 7 (first part). one kernel per call, before phases 16-17: after
+    # 16a's population a profiler session loses device events (it saw no
+    # activity at all for an fs_totals call that ran), and after phase
+    # 7's CUDA graph replays too; a session left behind slows later host
+    # launches, which phase 15's ten sessions already do
     per_call = check_kernels_per_call(torch, S)
+
+    # 16. the service tier (before phase 7 too): 16a cfg11 at its
+    # defaults, 16b the same service on rooms of cfg7's text, 16c 16a on
+    # 8 lanes (streams) with the pager, sequential and pipelined ticks,
+    # 16d the loopback scrape endpoint
+    svc_rec = svc_phase(torch, M, card)
+
+    # 17. the federation (before phase 7 too): scripts/soak.py
+    # session_federation at its defaults, every region's rooms on the card
+    fed_rec = fed_phase(torch, M, card)
+
+    # 7. kernel times at every shape the driven paths launched with
     shapes_by_path = {"main": main_shapes, "self_contained": sc_shapes,
                       "residual": res_shapes, "pipeline": ring["shapes"],
                       "stacked": stacked_shapes, "docset": dset["shapes"],
                       "api": api["shapes"], "checkpoint": ckpt["shapes"],
                       "sync": sync["shapes"], "shard": shard_rec["shapes"],
-                      "mesh": mesh_rec["shapes"]}
+                      "mesh": mesh_rec["shapes"],
+                      "service": svc_rec["shapes"],
+                      "federation": fed_rec["shapes"]}
     log(f"launches by shape on the driven paths: {shapes_by_path}")
     shapes = {k: set().union(*(p[k] for p in shapes_by_path.values()))
               for k in S.launches}
@@ -4300,7 +5064,9 @@ def main() -> int:
                "stacked": stacked_launches, "docset": dset["launches"],
                "api": api["launches"], "checkpoint": ckpt["launches"],
                "sync": sync["launches"], "shard": shard_rec["launches"],
-               "mesh": mesh_rec["launches"]}
+               "mesh": mesh_rec["launches"],
+               "service": svc_rec["launches"],
+               "federation": fed_rec["launches"]}
     kernels = []
     for name, replaces, path in (
             ("multi_scan", "automerge_tpu/ops/scan_pallas.py:204", "main"),

@@ -35,6 +35,20 @@ from automerge_tpu_torch.backend import device as t_device
 ROOT = "00000000-0000-0000-0000-000000000000"
 
 
+@pytest.fixture(autouse=True)
+def uuid_factories_left_default():
+    """Every test here must leave both packages' uuid factories as it
+    found them: a pinned factory leaks into every later test file that
+    shares this process. A test that leaks fails here, by name; both
+    factories are reset either way."""
+    yield
+    leaked = [m.__name__ for m in (j_uuid, t_uuid)
+              if m._factory is not m._default_factory]
+    j_uuid.reset()
+    t_uuid.reset()
+    assert not leaked, f"uuid factory left pinned: {leaked}"
+
+
 class Ctx:
     """One backend under one package's frontend, recording every patch the
     backend hands the frontend (local changes, deliveries, merges)."""
@@ -608,22 +622,24 @@ def test_fast_paths_serve_the_same_rounds():
     """The write-behind path serves the same local and covering remote
     rounds in both packages (the backlog is compared after every round)."""
     backlog = {}
-    for name in ("jax_device", "port"):
-        pin_uuids()
-        x = Ctx(name)
-        d = x.change(x.init("aaaa"),
-                     lambda doc: doc.__setitem__("t", x.Text("hello")))
-        seen = []
-        for i in range(4):
-            d = x.change(d, lambda doc, i=i: doc["t"].insert_at(i, "X"))
+    try:
+        for name in ("jax_device", "port"):
+            pin_uuids()
+            x = Ctx(name)
+            d = x.change(x.init("aaaa"),
+                         lambda doc: doc.__setitem__("t", x.Text("hello")))
+            seen = []
+            for i in range(4):
+                d = x.change(d, lambda doc, i=i: doc["t"].insert_at(i, "X"))
+                seen.append(x.pending(d))
+            peer = x.apply(x.init("bbbb"), x.all_changes(d))
+            seen.append(x.pending(peer))
+            d = x.merge(d, peer)
             seen.append(x.pending(d))
-        peer = x.apply(x.init("bbbb"), x.all_changes(d))
-        seen.append(x.pending(peer))
-        d = x.merge(d, peer)
-        seen.append(x.pending(d))
-        backlog[name] = seen
-    j_uuid.reset()
-    t_uuid.reset()
+            backlog[name] = seen
+    finally:
+        j_uuid.reset()
+        t_uuid.reset()
     assert backlog["port"] == backlog["jax_device"]
     assert backlog["port"][:4] == [1, 2, 3, 4]
 
@@ -639,6 +655,7 @@ def test_cpu_binding_keeps_every_engine_on_the_cpu():
         d2 = x.change(d, lambda doc: doc["t"].insert_at(0, "z"))
         branch = x.change(d, lambda doc: doc["m"].__setitem__("k", 2))
     finally:
+        j_uuid.reset()
         t_uuid.reset()
     for doc in (d2, branch):
         core = x.state(doc)._core
