@@ -5,6 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--profile DIR] [--blocking-sync]
     python3 chip_smoke.py --lane-probe [--blocking-sync]
+    python3 chip_smoke.py --workloads
 
 It builds the CUDA kernels from csrc/ and holds each kernel bit-exact
 against its plain PyTorch version: at the main path's shapes, at ragged
@@ -47,7 +48,11 @@ ticks; the loopback scrape endpoint with lineage on; 16a and 16b against
 a CPU run), and the federation (phase 17: scripts/soak.py
 session_federation's 3 regions, 6 rooms, 1,000 write sessions with
 partitions and a killed region rejoining empty, byte-identical at the
-end with zero residual lag); times
+end with zero residual lag), and the JAX package's remaining workloads
+(phase 18: run_all.py cfg5b's residual-heavy and cfg5c's two-round
+merges of 10,000 actors into a 1,000,000-char document, cfg6's 200
+conflicting writers, cfg2's shared counter, cfg10's save/load and cfg7b's
+nested edits under a 100,000-key root, each against a CPU run); times
 each kernel at every shape those paths launched
 it with (device time over CUDA-graph replays, inputs rotated through
 copies so each call reads them from HBM; one eager call at the merge
@@ -62,6 +67,9 @@ of one stacked apply, one DocSet build and one api-a merge.
 With --lane-probe, it runs only `lane_probe` (shard-a's map population
 served alternately with the lane workers and sequentially, each lane
 ingest timed in wall and thread CPU time) and prints its record last.
+With --workloads, it builds the kernels and runs only phase 18, then
+one 18a commit under cProfile and one under torch.profiler, and prints
+the phase's record last.
 With --blocking-sync, host waits on the card block instead of spinning.
 
 The output ends with three lines: one JSON object describing every
@@ -168,6 +176,17 @@ SVC_RES_ROOMS = 8              # the pager's budget 8 docs' bytes
 FED_ROOMS = 6                  # 17: scripts/soak.py session_federation's
 FED_SESSIONS = 1_000           # 3 regions, 6 rooms, 1,000 write sessions
 FED_TICKS = 80                 # over 80 ticks, seed 0
+ADV_ACTORS = 10_000            # 18a-b: run_all.py cfg5b and cfg5c, 10,000
+ADV_BASE = 1_000_000           # actors on a 1,000,000-char base
+ADV_REPS = 5                   # timed runs of each part, after one warm-up
+CONFLICT_ACTORS = 200          # 18c: run_all.py config6_conflict_heavy's
+CONFLICT_TARGETS = 500         # 200 actors x 500 shared targets
+COUNTER_ACTORS = 100           # 18d: run_all.py config2_map_counter's 100
+COUNTER_KEYS = 100             # actors x 100 keys + one shared counter
+SAVE_CHANGES = 40              # 18e: run_all.py config10_save_load's 40
+SAVE_RUN = 250                 # changes of 250 chars
+NESTED_ROOT = 100_000          # 18f: run_all.py config7b's 100,000 root
+NESTED_CHANGES = 20            # keys and 20 nested edits
 
 
 def log(*a):
@@ -1611,6 +1630,38 @@ def docset_phase(torch, M, card: str, device=None, n_docs: int = DOCSET_DOCS,
     return out
 
 
+def _sync_of(torch, device):
+    if torch.device(device or "cuda").type == "cuda":
+        return torch.cuda.synchronize
+    return lambda: None
+
+
+def part_counts(M, sync):
+    """Kernel launch counts of a phase's parts: `counted(part, fn)` sets
+    the counts to 0, runs fn between two syncs, records what launched
+    under `part` (`by_part`, shapes as "KxN" strings) and adds it to the
+    phase's `launches` and `shapes`. Returns (counted, launches, shapes,
+    by_part)."""
+    launches = {k: 0 for k in M.S.launches}
+    shapes = {k: {} for k in M.S.launches}
+    by_part = {}
+
+    def counted(part, fn):
+        sync()
+        M.S.reset_launches()
+        out = fn()
+        sync()
+        by_part[part] = {k: {"x".join(map(str, sh)): n
+                             for sh, n in v.items()}
+                         for k, v in M.S.launch_shapes.items()}
+        for k, n in M.S.launches.items():
+            launches[k] += n
+            for sh, c in M.S.launch_shapes[k].items():
+                shapes[k][sh] = shapes[k].get(sh, 0) + c
+        return out
+    return counted, launches, shapes, by_part
+
+
 def trellis_changes(am, oracle, n_actors: int, n_cards: int, backend):
     """benchmarks/run_all.py trellis_changes through the port's API: a
     board of n_cards cards x 3 tasks made on `backend`, then n_actors
@@ -1834,25 +1885,9 @@ def api_phase(torch, M, card: str, device=None, n_actors: int = API_ACTORS,
     interactive latency, with the same session on the CPU backend) and
     api-c (graduation). The kernel counts are set to 0 before each part
     and read after it. Raises on any failed check."""
-    launches = {k: 0 for k in M.S.launches}
-    shapes = {k: {} for k in M.S.launches}
-    by_part = {}
     cuda = torch.device(device or "cuda").type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
-
-    def counted(part, fn):
-        sync()
-        M.S.reset_launches()
-        out = fn()
-        sync()
-        by_part[part] = {k: {"x".join(map(str, sh)): n
-                             for sh, n in v.items()}
-                         for k, v in M.S.launch_shapes.items()}
-        for k, n in M.S.launches.items():
-            launches[k] += n
-            for sh, c in M.S.launch_shapes[k].items():
-                shapes[k][sh] = shapes[k].get(sh, 0) + c
-        return out
+    counted, launches, shapes, by_part = part_counts(M, _sync_of(torch,
+                                                                device))
     a = counted("api-a", lambda: api_trellis(torch, M, card, device,
                                              n_actors, reps))
     b, text = counted("api-b", lambda: api_latency(torch, M, card, device,
@@ -4455,6 +4490,610 @@ def fed_phase(torch, M, card: str, device=None, seed: int = 0,
     return out
 
 
+# --- the JAX package's remaining workloads (benchmarks/run_all.py cfg5b,
+# cfg5c, cfg6, cfg2, cfg10, cfg7b) -------------------------------------------
+
+def residual_heavy_batch(TB, C, n_actors: int):
+    """A copy of run_all.py config5b_residual_heavy's batch (:987-1030):
+    n_actors changes of 1,000 ops on a base of 100 * n_actors chars, 20%
+    of them residuals: 400 ins/set pairs typed after the actor's own base
+    element, 100 bare deletes of its distinct base range, 100 value-less
+    inserts. Returns (batch, base_n, the visible count the config
+    asserts)."""
+    base_n = 100 * n_actors
+    run_pairs, n_del, n_bare = 400, 100, 100
+    n_per = 2 * run_pairs + n_del + n_bare
+    n_ops = n_actors * n_per
+    actors = [f"actor-{i:06d}" for i in range(n_actors)]
+    op_change = np.repeat(np.arange(n_actors, dtype=np.int32), n_per)
+    kind = np.empty(n_ops, np.int8)
+    ta = np.zeros(n_ops, np.int32)
+    tc = np.zeros(n_ops, np.int32)
+    pa = np.zeros(n_ops, np.int32)
+    pc = np.zeros(n_ops, np.int32)
+    val = np.zeros(n_ops, np.int64)
+    pair_kind = np.tile(np.array([C.KIND_INS, C.KIND_SET], np.int8),
+                        run_pairs)
+    ctrs = np.arange(1, run_pairs + 1, dtype=np.int32) + base_n + 1
+    for a in range(n_actors):
+        s = a * n_per
+        e_run = s + 2 * run_pairs
+        kind[s:e_run] = pair_kind
+        ta[s:e_run] = a
+        tc[s: e_run: 2] = ctrs
+        tc[s + 1: e_run: 2] = ctrs
+        pa[s] = n_actors                      # 'base' rank
+        pc[s] = a * 100 + 1
+        pa[s + 2: e_run: 2] = a
+        pc[s + 2: e_run: 2] = ctrs[:-1]
+        val[s + 1: e_run: 2] = 97 + (a % 26)
+        d0 = e_run
+        kind[d0: d0 + n_del] = C.KIND_DEL
+        ta[d0: d0 + n_del] = n_actors
+        tc[d0: d0 + n_del] = a * 100 + 1 + np.arange(n_del)
+        b0 = d0 + n_del
+        kind[b0: b0 + n_bare] = C.KIND_INS
+        ta[b0: b0 + n_bare] = a
+        tc[b0: b0 + n_bare] = ctrs[-1] + 1 + np.arange(n_bare)
+        pa[b0: b0 + n_bare] = n_actors
+        pc[b0: b0 + n_bare] = a * 100 + 50
+    batch = TB(
+        obj_id="t", actors=actors, seqs=np.ones(n_actors, np.int32),
+        deps=[{"base": 1}] * n_actors, messages=[None] * n_actors,
+        op_change=op_change, op_kind=kind, op_target_actor=ta,
+        op_target_ctr=tc, op_parent_actor=pa, op_parent_ctr=pc,
+        op_value=val, actor_table=actors + ["base"], value_pool=[])
+    return batch, base_n, base_n - n_actors * n_del + n_actors * run_pairs
+
+
+def residual_heavy_text(n_actors: int) -> str:
+    """Independent reference of the cfg5b merge: every base char is
+    deleted, each actor's run hangs alone off its own base element and
+    the bare inserts carry no value, so the text is the runs in actor
+    order."""
+    return "".join(chr(97 + a % 26) * 400 for a in range(n_actors))
+
+
+def two_round_targets(n_actors: int, base_n: int):
+    return np.random.default_rng(7).integers(1, base_n, n_actors)
+
+
+def two_round_batch(TB, C, n_actors: int, base_n: int):
+    """A copy of run_all.py config5c_two_causal_rounds's batch
+    (:1262-1305): every actor delivers two causally chained changes of
+    250 ins/set pairs (seq 2 continues its own seq-1 run), the seq-1 runs
+    after rng(7) targets of the base."""
+    pairs_per_change = 250
+    n_changes = 2 * n_actors
+    n_per = 2 * pairs_per_change
+    n_ops = n_changes * n_per
+    actors = [f"actor-{i:06d}" for i in range(n_actors)]
+    op_change = np.repeat(np.arange(n_changes, dtype=np.int32), n_per)
+    kind = np.tile(np.array([C.KIND_INS, C.KIND_SET], np.int8),
+                   n_changes * pairs_per_change)
+    ta = np.repeat(np.arange(n_actors, dtype=np.int32), 2 * n_per)
+    tc = np.zeros(n_ops, np.int32)
+    pa = np.zeros(n_ops, np.int32)
+    pc = np.zeros(n_ops, np.int32)
+    val = np.zeros(n_ops, np.int64)
+    targets = two_round_targets(n_actors, base_n)
+    c1 = np.arange(1, pairs_per_change + 1, dtype=np.int32) + base_n + 1
+    c2 = c1 + pairs_per_change
+    for a in range(n_actors):
+        for half, ctrs in ((0, c1), (1, c2)):
+            s = (2 * a + half) * n_per
+            tc[s: s + n_per: 2] = ctrs
+            tc[s + 1: s + n_per: 2] = ctrs
+            if half == 0:
+                pa[s] = n_actors
+                pc[s] = int(targets[a])
+            else:
+                pa[s] = a                 # continue own seq-1 run
+                pc[s] = c1[-1]
+            pa[s + 2: s + n_per: 2] = a
+            pc[s + 2: s + n_per: 2] = ctrs[:-1]
+            val[s + 1: s + n_per: 2] = 97 + (a % 26)
+    seqs = np.empty(n_changes, np.int32)
+    seqs[0::2] = 1
+    seqs[1::2] = 2
+    shared = {"base": 1}
+    return TB(
+        obj_id="t", actors=[a for a in actors for _ in range(2)],
+        seqs=seqs, deps=[shared] * n_changes,
+        messages=[None] * n_changes, op_change=op_change, op_kind=kind,
+        op_target_actor=ta, op_target_ctr=tc, op_parent_actor=pa,
+        op_parent_ctr=pc, op_value=val, actor_table=actors + ["base"],
+        value_pool=[])
+
+
+def two_round_text(n_actors: int, base_n: int) -> str:
+    """Independent reference of the cfg5c merge: an actor's two changes
+    read as one 500-char run after its target; the runs after one target
+    share a head counter, so RGA orders them by descending actor id."""
+    by_target: dict = {}
+    for a, t in enumerate(two_round_targets(n_actors, base_n).tolist()):
+        by_target.setdefault(t, []).append(a)
+    parts = []
+    for i in range(1, base_n + 1):
+        parts.append(chr(97 + i % 26))
+        for a in reversed(by_target.get(i, ())):
+            parts.append(chr(97 + a % 26) * 500)
+    return "".join(parts)
+
+
+def conflict_changes(n_actors: int, n_targets: int):
+    """A copy of run_all.py config6_conflict_heavy's changes (:249-268):
+    a base of n_targets typed chars, then n_actors concurrent changes
+    each overwriting every base char (every fifth, by (actor + index), a
+    delete instead). Returns (base change, changes)."""
+    base_ops = []
+    for i in range(1, n_targets + 1):
+        key = "_head" if i == 1 else f"base:{i - 1}"
+        base_ops.append({"action": "ins", "obj": "t", "key": key, "elem": i})
+        base_ops.append({"action": "set", "obj": "t", "key": f"base:{i}",
+                         "value": chr(97 + i % 26)})
+    base = {"actor": "base", "seq": 1, "deps": {}, "ops": base_ops}
+    changes = []
+    for a in range(n_actors):
+        ops = []
+        for i in range(1, n_targets + 1):
+            if (a + i) % 5 == 0:
+                ops.append({"action": "del", "obj": "t",
+                            "key": f"base:{i}"})
+            else:
+                ops.append({"action": "set", "obj": "t", "key": f"base:{i}",
+                            "value": chr(65 + (a + i) % 26)})
+        changes.append({"actor": f"actor-{a:04d}", "seq": 1,
+                        "deps": {"base": 1}, "ops": ops})
+    return base, changes
+
+
+def counter_changes(n_actors: int, n_keys: int):
+    """A copy of run_all.py config2_map_counter's changes (:56-65): a
+    counter `count` made by `base`, then n_actors concurrent changes each
+    setting n_keys own keys and incrementing the counter. Returns (base
+    change, changes)."""
+    base = {"actor": "base", "seq": 1, "deps": {}, "ops":
+            [{"action": "set", "obj": "m", "key": "count", "value": 0,
+              "datatype": "counter"}]}
+    changes = []
+    for a in range(n_actors):
+        ops = [{"action": "set", "obj": "m", "key": f"k{a}-{i}", "value": i}
+               for i in range(n_keys)]
+        ops.append({"action": "inc", "obj": "m", "key": "count", "value": 1})
+        changes.append({"actor": f"actor-{a:04d}", "seq": 1,
+                        "deps": {"base": 1}, "ops": ops})
+    return base, changes
+
+
+def _spread(values) -> dict:
+    return {"median": float(np.median(values)), "min": float(min(values)),
+            "max": float(max(values))}
+
+
+def _label_n(M, kind: str, label: str) -> dict:
+    agg = M.accounting.LABELS[kind].get(label, {})
+    return {"n": agg.get("n", 0), "ns": agg.get("ns", 0)}
+
+
+def adv_commit(torch, M, device, batch, base_n: int) -> dict:
+    """One run of run_all.py merge_once's discipline (bench.py run_once):
+    a fresh document holding the base text with the batch prepared,
+    untimed; timed: commit_prepared + the codes-only materialize + the one
+    scalar sync. Counts the mixed rounds and slow_info fetches it ran."""
+    sync = _sync_of(torch, device)
+    doc = M.DeviceTextDoc("t", device=device)
+    doc.eager_materialize = True
+    doc.apply_batch(base_batch(M.TB, M.C, "t", base_n))
+    doc.text()
+    prepared = doc.prepare_batch(batch)
+    n_rounds = len(prepared.rounds)
+    mixed0 = _label_n(M, "dispatch", "fused_mixed_round")
+    fetch0 = _label_n(M, "sync", "slow_info_fetch")
+    sync()
+    with M.accounting.track() as tr:
+        t0 = time.perf_counter()
+        doc.commit_prepared(prepared)
+        doc._materialize(with_pos=False)
+        scal = doc._scalars()
+        dt = time.perf_counter() - t0
+    mixed1 = _label_n(M, "dispatch", "fused_mixed_round")
+    fetch1 = _label_n(M, "sync", "slow_info_fetch")
+    return {"doc": doc, "commit_s": dt, "n_vis": int(scal[0]),
+            "rounds": n_rounds,
+            "mixed_rounds": mixed1["n"] - mixed0["n"],
+            "slow_fetches": fetch1["n"] - fetch0["n"],
+            "slow_fetch_s": (fetch1["ns"] - fetch0["ns"]) / 1e9,
+            "d2h_bytes": tr.stats["d2h_bytes"],
+            "syncs": tr.stats["syncs"], "dispatches": tr.stats["dispatches"]}
+
+
+def adv_merge(torch, M, card: str, device, label: str, batch, base_n: int,
+              expect_vis: int, want_text: str, reps: int) -> dict:
+    """18a / 18b: one warm-up run, under obs.tracing() so the slow_info
+    fetch records its seconds, then `reps` timed runs (`adv_commit`); the
+    last run's text against the host-computed reference, then the same
+    batch once on the CPU, whose text must be equal."""
+    n_ops = len(batch.op_kind)
+    with M.obs.tracing():
+        warm = adv_commit(torch, M, device, batch, base_n)
+    del warm["doc"]
+    runs = []
+    for _ in range(reps):
+        run = adv_commit(torch, M, device, batch, base_n)
+        doc = run.pop("doc")
+        runs.append(run)
+    for run in [warm] + runs:
+        if run["n_vis"] != expect_vis:
+            raise AssertionError(f"{label}: n_vis {run['n_vis']} != "
+                                 f"{expect_vis}")
+    t = time.perf_counter()
+    text = doc.text()
+    pull_s = time.perf_counter() - t
+    del doc
+    if len(text) != expect_vis or text != want_text:
+        raise AssertionError(f"{label}: the text differs from the "
+                             "host-computed reference")
+    times = [r["commit_s"] for r in runs]
+    out = {"ops": n_ops, "base": base_n, "reps": reps, "commit_s": times,
+           "commit_s_spread": _spread(times),
+           "ops_per_s": _spread([n_ops / s for s in times]),
+           "rounds": runs[-1]["rounds"], "mixed_rounds": runs[-1][
+               "mixed_rounds"], "slow_fetches": runs[-1]["slow_fetches"],
+           "slow_fetch_d2h_bytes": runs[-1]["d2h_bytes"],
+           "warmup_slow_fetch_s": warm["slow_fetch_s"],
+           "syncs": runs[-1]["syncs"], "dispatches": runs[-1]["dispatches"],
+           "text_pull_s": pull_s, "text_sha256": sha(text)}
+    if torch.device(device or "cuda").type == "cuda":
+        t = time.perf_counter()
+        cpu = adv_commit(torch, M, "cpu", batch, base_n)
+        cpu_text = cpu.pop("doc").text()
+        out["cpu_s"] = time.perf_counter() - t
+        out["cpu_commit_s"] = cpu["commit_s"]
+        if cpu_text != text:
+            raise AssertionError(f"{label}: the card's text differs from "
+                                 "the CPU run's")
+    log(f"{label} ({card}): {n_ops} ops on a {base_n}-char base, "
+        f"{out['rounds']} planned rounds, {out['mixed_rounds']} mixed "
+        f"rounds; commit+sync median {out['commit_s_spread']['median']:.4f}"
+        f" s (range {out['commit_s_spread']['min']:.4f}-"
+        f"{out['commit_s_spread']['max']:.4f}), ops/s median "
+        f"{out['ops_per_s']['median']:.0f}; slow_info fetches "
+        f"{out['slow_fetches']} ({out['slow_fetch_d2h_bytes']} d2h bytes, "
+        f"warm-up fetch {out['warmup_slow_fetch_s']:.6f} s); text "
+        f"{len(text)} chars equal to the reference"
+        + (f" and the CPU run ({out['cpu_s']:.2f} s)" if "cpu_s" in out
+           else ""))
+    return out
+
+
+def conflict_run(torch, M, device, base, batch):
+    """run_all.py config6's run: the base applied, then timed apply_batch
+    + text()."""
+    sync = _sync_of(torch, device)
+    doc = M.DeviceTextDoc("t", device=device)
+    doc.apply_changes([base])
+    sync()
+    t0 = time.perf_counter()
+    doc.apply_batch(batch)
+    text = doc.text()
+    return doc, text, time.perf_counter() - t0
+
+
+def adv_conflicts(torch, M, card: str, device, n_actors: int,
+                  n_targets: int, reps: int) -> dict:
+    """18c, cfg6: every actor overwrites or deletes the same base chars
+    (multi-writer registers, the host slow path); the text and conflicts
+    against a CPU run of the same batch."""
+    base, changes = conflict_changes(n_actors, n_targets)
+    batch = M.TB.from_changes(changes, "t")
+    n_ops = len(batch.op_kind)
+    conflict_run(torch, M, device, base, batch)            # warm-up
+    times = []
+    for _ in range(reps):
+        doc, text, dt = conflict_run(torch, M, device, base, batch)
+        times.append(dt)
+    cpu_doc, cpu_text, cpu_s = conflict_run(torch, M, "cpu", base, batch)
+    if not doc.conflicts:
+        raise AssertionError("18c: the conflict-heavy batch minted no "
+                             "conflicts")
+    if text != cpu_text or doc.conflicts != cpu_doc.conflicts:
+        raise AssertionError("18c: the text or the conflicts differ from "
+                             "the CPU run's")
+    out = {"ops": n_ops, "reps": reps, "apply_s": times,
+           "ops_per_s": _spread([n_ops / s for s in times]),
+           "conflicts": len(doc.conflicts), "text_len": len(text),
+           "cpu_s": cpu_s}
+    log(f"18c cfg6 conflict-heavy ({card}): {n_actors} actors x "
+        f"{n_targets} targets, {n_ops} ops; ops/s median "
+        f"{out['ops_per_s']['median']:.0f} (range "
+        f"{out['ops_per_s']['min']:.0f}-{out['ops_per_s']['max']:.0f}); "
+        f"{out['conflicts']} conflicted slots, text {len(text)} chars; "
+        f"text and conflicts equal to the CPU run's ({cpu_s:.3f} s)")
+    return out
+
+
+def counter_run(torch, M, device, base, batch):
+    """run_all.py config2's run: the base counter, then timed
+    apply_batch."""
+    sync = _sync_of(torch, device)
+    doc = M.DeviceMapDoc("m", device=device)
+    doc.apply_changes([base])
+    sync()
+    t0 = time.perf_counter()
+    doc.apply_batch(batch)
+    sync()
+    return doc, time.perf_counter() - t0
+
+
+def adv_counter(torch, M, card: str, device, n_actors: int, n_keys: int,
+                reps: int) -> dict:
+    """18d, cfg2: n_actors writers set their own keys and increment one
+    shared counter in one round; the counter, the length, the map and its
+    conflicts against a CPU run."""
+    base, changes = counter_changes(n_actors, n_keys)
+    batch = M.MapChangeBatch.from_changes(changes, "m")
+    n_ops = len(batch.op_kind)
+    counter_run(torch, M, device, base, batch)             # warm-up
+    times = []
+    for _ in range(reps):
+        doc, dt = counter_run(torch, M, device, base, batch)
+        times.append(dt)
+    cpu_doc, cpu_s = counter_run(torch, M, "cpu", base, batch)
+    if doc.get("count") != n_actors or len(doc) != n_actors * n_keys + 1:
+        raise AssertionError(f"18d: count {doc.get('count')}, length "
+                             f"{len(doc)}")
+    if (doc.to_dict() != cpu_doc.to_dict()
+            or doc.conflicts != cpu_doc.conflicts):
+        raise AssertionError("18d: the map or its conflicts differ from "
+                             "the CPU run's")
+    out = {"ops": n_ops, "reps": reps, "apply_s": times,
+           "ops_per_s": _spread([n_ops / s for s in times]),
+           "count": doc.get("count"), "keys": len(doc), "cpu_s": cpu_s}
+    log(f"18d cfg2 map counter ({card}): {n_actors} actors x {n_keys} keys "
+        f"+ 1 counter, {n_ops} ops; ops/s median "
+        f"{out['ops_per_s']['median']:.0f} (range "
+        f"{out['ops_per_s']['min']:.0f}-{out['ops_per_s']['max']:.0f}); "
+        f"count {out['count']}, {out['keys']} keys; equal to the CPU run")
+    return out
+
+
+def save_load_session(am, opts, n_changes: int, run_chars: int,
+                      loads: int, sync=lambda: None) -> dict:
+    """run_all.py config10_save_load (:1642-1680) through `am`, either
+    package's API (`opts(actor)` gives init's and load's options): a Text
+    grown by n_changes inserts of run_chars chars at index 0, saved once,
+    then loaded `loads` times, each load timed."""
+    doc = am.change(am.init(opts("u")),
+                    lambda d: d.__setitem__("t", am.Text("x")))
+    for _ in range(n_changes):
+        doc = am.change(doc, lambda d: d["t"].insert_at(
+            0, *("ab" * (run_chars // 2))))
+    sync()
+    t0 = time.perf_counter()
+    blob = am.save(doc)
+    save_s = time.perf_counter() - t0
+    times = []
+    for _ in range(loads):
+        t0 = time.perf_counter()
+        back = am.load(blob, opts("loader"))
+        sync()
+        times.append(time.perf_counter() - t0)
+    return {"blob": blob, "save_s": save_s, "load_s": times,
+            "json": _canon(am, back), "text": str(am.to_json(back)["t"]),
+            "saved_text": str(am.to_json(doc)["t"])}
+
+
+def _backend_opts(M, device):
+    be = M.am.backend.backend_for(device)
+    return lambda actor: {"actorId": actor, "backend": be}
+
+
+def adv_save_load(torch, M, card: str, device, n_changes: int,
+                  run_chars: int, reps: int) -> dict:
+    """18e, cfg10: save on the card backend, load timed; the save string
+    byte-equal to the CPU backend's, the loaded documents equal."""
+    _pinned_uuids(M)
+    got = save_load_session(M.am, _backend_opts(M, device), n_changes,
+                            run_chars, 1 + reps, _sync_of(torch, device))
+    _pinned_uuids(M)
+    want = save_load_session(M.am, _backend_opts(M, "cpu"), n_changes,
+                             run_chars, 1)
+    M.uuid.reset()
+    del got["load_s"][0]                       # the warm-up load
+    if got["text"] != got["saved_text"]:
+        raise AssertionError("18e: the loaded text differs from the saved "
+                             "document's")
+    if got["blob"] != want["blob"] or got["json"] != want["json"]:
+        raise AssertionError("18e: the save string or the loaded document "
+                             "differs from the CPU backend's")
+    n_chars = 1 + n_changes * run_chars
+    out = {"chars": n_chars, "changes": n_changes, "reps": reps,
+           "blob_bytes": len(got["blob"]), "save_ms": got["save_s"] * 1e3,
+           "load_ms": _spread([s * 1e3 for s in got["load_s"]])}
+    log(f"18e cfg10 save/load ({card}): {n_chars} chars in {n_changes} "
+        f"changes, {out['blob_bytes']} B saved in {out['save_ms']:.2f} ms; "
+        f"load median {out['load_ms']['median']:.2f} ms (range "
+        f"{out['load_ms']['min']:.2f}-{out['load_ms']['max']:.2f}); save "
+        f"bytes and loaded document equal to the CPU backend's")
+    return out
+
+
+def nested_session(am, opts, n_root: int, n_changes: int) -> dict:
+    """run_all.py config7b_nested_under_large_root (:1457-1512) through
+    `am`, either package's API: a root of n_root keys made in 4 changes, a
+    nested board.meta map, then n_changes title edits through am.change,
+    each timed whole."""
+    doc = am.init(opts("user"))
+    for c in range(4):
+        doc = am.change(doc, lambda d, c=c: [
+            d.__setitem__(f"k{c}-{i}", i) for i in range(n_root // 4)])
+    doc = am.change(doc, lambda d: d.__setitem__(
+        "board", {"meta": {"title": "t"}}))
+    lat = []
+    for i in range(n_changes):
+        t0 = time.perf_counter()
+        doc = am.change(doc, lambda d, i=i: d["board"]["meta"]
+                        .__setitem__("title", f"v{i}"))
+        lat.append(time.perf_counter() - t0)
+    return {"lat": lat, "json": _canon(am, doc),
+            "title": am.to_json(doc)["board"]["meta"]["title"]}
+
+
+def adv_nested(torch, M, card: str, device, n_root: int,
+               n_changes: int) -> dict:
+    """18f, cfg7b: per-edit latency of a nested map under a large device
+    root map (the keyed parent relink); the document against the CPU
+    backend's."""
+    _pinned_uuids(M)
+    got = nested_session(M.am, _backend_opts(M, device), n_root, n_changes)
+    _pinned_uuids(M)
+    want = nested_session(M.am, _backend_opts(M, "cpu"), n_root, n_changes)
+    M.uuid.reset()
+    if got["title"] != f"v{n_changes - 1}":
+        raise AssertionError(f"18f: the title reads {got['title']!r}")
+    if got["json"] != want["json"]:
+        raise AssertionError("18f: the document differs from the CPU "
+                             "backend's")
+    skip = n_changes // 5                      # run_all.py's warm-up skip
+    w = np.asarray(got["lat"][skip:]) * 1e3
+    out = {"root_keys": n_root, "changes": n_changes, "skip": skip,
+           "p50_ms": float(np.percentile(w, 50)),
+           "p99_ms": float(np.percentile(w, 99)),
+           "cpu_p50_ms": float(np.percentile(
+               np.asarray(want["lat"][skip:]) * 1e3, 50))}
+    log(f"18f cfg7b nested edits ({card}): {n_root} root keys, "
+        f"{n_changes} edits of board.meta.title; p50 {out['p50_ms']:.3f} "
+        f"ms p99 {out['p99_ms']:.3f} ms (CPU backend p50 "
+        f"{out['cpu_p50_ms']:.3f} ms); document equal to the CPU "
+        f"backend's")
+    return out
+
+
+def adv_phase(torch, M, card: str, device=None, n_actors: int = ADV_ACTORS,
+              two_round_base: int = ADV_BASE, reps: int = ADV_REPS,
+              conflict_actors: int = CONFLICT_ACTORS,
+              conflict_targets: int = CONFLICT_TARGETS,
+              counter_actors: int = COUNTER_ACTORS,
+              counter_keys: int = COUNTER_KEYS,
+              save_changes: int = SAVE_CHANGES, save_run: int = SAVE_RUN,
+              nested_root: int = NESTED_ROOT,
+              nested_changes: int = NESTED_CHANGES,
+              clean_commit_s: float = None) -> dict:
+    """Phase 18, the JAX package's remaining workloads on `device`: 18a
+    cfg5b residual-heavy, 18b cfg5c two causal rounds, 18c cfg6
+    conflict-heavy, 18d cfg2 map counter, 18e cfg10 save/load, 18f cfg7b
+    nested edits under a large root. Each part against a CPU run of the
+    same part. The kernel counts are set to 0 before each part and read
+    after its card runs. Raises on any failed check."""
+    cuda = torch.device(device or "cuda").type == "cuda"
+    count, launches, shapes, by_part = part_counts(M, _sync_of(torch,
+                                                              device))
+    t_phase = time.perf_counter()
+
+    def counted(part, fn):
+        t = time.perf_counter()
+        out = count(part, fn)
+        out["wall_s"] = time.perf_counter() - t
+        log(f"{part} launches by shape: {by_part[part]}; part wall "
+            f"{out['wall_s']:.2f} s")
+        return out
+
+    # 18a: the counts are read after the card's runs; the CPU run inside
+    # adv_merge launches no kernel
+    b5, base5, vis5 = residual_heavy_batch(M.TB, M.C, n_actors)
+    a = counted("18a", lambda: adv_merge(
+        torch, M, card, device, "18a cfg5b residual-heavy", b5, base5,
+        vis5, residual_heavy_text(n_actors), reps))
+    del b5
+    if a["mixed_rounds"] < 1 or a["slow_fetches"] < 1:
+        raise AssertionError(f"18a: no mixed round or slow_info fetch: {a}")
+    if a["slow_fetch_d2h_bytes"] <= 0:
+        raise AssertionError("18a: the slow_info fetch counted no bytes")
+    if clean_commit_s:
+        a["vs_clean"] = clean_commit_s / a["commit_s_spread"]["median"]
+        log(f"18a: {a['vs_clean']:.3f} of phase 4's clean ops/s (run_all.py "
+            "bounds it at >= 0.25; recorded, not asserted)")
+    b5c = two_round_batch(M.TB, M.C, n_actors, two_round_base)
+    vis5c = two_round_base + len(b5c.op_kind) // 2
+    b = counted("18b", lambda: adv_merge(
+        torch, M, card, device, "18b cfg5c two causal rounds", b5c,
+        two_round_base, vis5c, two_round_text(n_actors, two_round_base),
+        reps))
+    del b5c
+    if b["rounds"] != 2:
+        raise AssertionError(f"18b: {b['rounds']} planned rounds, not 2")
+    c = counted("18c", lambda: adv_conflicts(
+        torch, M, card, device, conflict_actors, conflict_targets, reps))
+    d = counted("18d", lambda: adv_counter(
+        torch, M, card, device, counter_actors, counter_keys, reps))
+    e = counted("18e", lambda: adv_save_load(
+        torch, M, card, device, save_changes, save_run, reps))
+    f = counted("18f", lambda: adv_nested(
+        torch, M, card, device, nested_root, nested_changes))
+    if cuda:
+        for part in ("18a", "18b"):
+            if not by_part[part]["multi_scan"]:
+                raise AssertionError(f"{part}: multi_scan did not launch")
+    out = {"a": a, "b": b, "c": c, "d": d, "e": e, "f": f,
+           "launches": launches, "shapes": shapes,
+           "launches_by_part": by_part,
+           "wall_s": time.perf_counter() - t_phase}
+    log(f"adversarial phase launches: {launches}; phase "
+        f"{out['wall_s']:.2f} s ({card})")
+    log("adv record: " + json.dumps(dict(out, shapes={
+        k: {"x".join(map(str, sh)): n for sh, n in v.items()}
+        for k, v in shapes.items()})))
+    return out
+
+
+def profile_residual(torch, M, n_actors: int = ADV_ACTORS, top: int = 20):
+    """`--workloads`: one 18a commit (cfg5b at n_actors) under cProfile
+    (the host functions that took the most own time), then one under
+    torch.profiler (its device time against its wall time, and the
+    device operations that took the most)."""
+    from torch.profiler import ProfilerActivity, profile
+    batch, base_n, vis = residual_heavy_batch(M.TB, M.C, n_actors)
+
+    def prepared():
+        doc = M.DeviceTextDoc("t")
+        doc.eager_materialize = True
+        doc.apply_batch(base_batch(M.TB, M.C, "t", base_n))
+        doc.text()
+        return doc, doc.prepare_batch(batch)
+
+    def commit(doc, plan):
+        doc.commit_prepared(plan)
+        doc._materialize(with_pos=False)
+        if int(doc._scalars()[0]) != vis:
+            raise AssertionError("profiled 18a commit: wrong n_vis")
+
+    doc, plan = prepared()
+    torch.cuda.synchronize()
+    log("18a commit+materialize+sync, host profile:")
+    host_profile(lambda: commit(doc, plan), top)
+    del doc, plan
+    doc, plan = prepared()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        commit(doc, plan)
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in events)
+    log(f"18a commit+materialize+sync under torch.profiler: wall "
+        f"{wall * 1e3:.3f} ms, device time {dev_us / 1e3:.3f} ms, busy "
+        f"share {dev_us / 1e3 / (wall * 1e3):.4f}")
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    log("self device ms | calls | device operation")
+    for e in events[:top]:
+        log(f"{e.self_device_time_total / 1e3:14.4f} | {e.count:5d} | "
+            f"{e.key[:90]}")
+    return {"wall_s": wall, "device_s": dev_us / 1e6}
+
+
 def _sharded_library(torch, chain, has, ne, n: int):
     """One PyTorch program's form of the sharded scans: per shard the
     library scans (`torch.cumsum` x 2, `torch.cummax`) on its precomputed
@@ -4780,6 +5419,10 @@ def main() -> int:
                     help="only profile the sharded segment scans at phase "
                          "7's shapes (eager and in a graph), writing the "
                          "traces to DIR, and print the record last")
+    ap.add_argument("--workloads", action="store_true",
+                    help="only build the kernels and run phase 18 (the "
+                         "JAX package's remaining workloads), printing "
+                         "its record as the last line")
     ap.add_argument("--wrapper-host", metavar="ROOT", default=None,
                     help="only time the host work per call of the "
                          "segment-scan wrappers of the package under ROOT "
@@ -4827,6 +5470,17 @@ def main() -> int:
         rec = dict(lane_probe(torch, M, card), context_flags=ctx_flags)
         print(card, flush=True)
         print(json.dumps(rec), flush=True)
+        return 0
+    if args.workloads:
+        with ThreadPoolExecutor(2) as ex:
+            native_build = ex.submit(M.native.load)
+            S.build()
+            native_build.result()
+        rec = adv_phase(torch, M, card)
+        rec["profile_18a"] = profile_residual(torch, M)
+        print(card, flush=True)
+        print(json.dumps({k: v for k, v in rec.items() if k != "shapes"}),
+              flush=True)
         return 0
 
     # 2. build: the CUDA kernels (nvcc) and the host codec (g++), started
@@ -5021,6 +5675,13 @@ def main() -> int:
     # session_federation at its defaults, every region's rooms on the card
     fed_rec = fed_phase(torch, M, card)
 
+    # 18. the JAX package's remaining workloads (before phase 7 too): 18a
+    # cfg5b residual-heavy and 18b cfg5c two causal rounds at the
+    # headline's width, 18c cfg6 conflict-heavy, 18d cfg2's shared
+    # counter, 18e cfg10 save/load, 18f cfg7b nested edits under a
+    # 100,000-key root; each against a CPU run
+    adv_rec = adv_phase(torch, M, card, clean_commit_s=r["commit_s"])
+
     # 7. kernel times at every shape the driven paths launched with
     shapes_by_path = {"main": main_shapes, "self_contained": sc_shapes,
                       "residual": res_shapes, "pipeline": ring["shapes"],
@@ -5029,7 +5690,8 @@ def main() -> int:
                       "sync": sync["shapes"], "shard": shard_rec["shapes"],
                       "mesh": mesh_rec["shapes"],
                       "service": svc_rec["shapes"],
-                      "federation": fed_rec["shapes"]}
+                      "federation": fed_rec["shapes"],
+                      "adversarial": adv_rec["shapes"]}
     log(f"launches by shape on the driven paths: {shapes_by_path}")
     shapes = {k: set().union(*(p[k] for p in shapes_by_path.values()))
               for k in S.launches}
@@ -5066,7 +5728,8 @@ def main() -> int:
                "sync": sync["launches"], "shard": shard_rec["launches"],
                "mesh": mesh_rec["launches"],
                "service": svc_rec["launches"],
-               "federation": fed_rec["launches"]}
+               "federation": fed_rec["launches"],
+               "adversarial": adv_rec["launches"]}
     kernels = []
     for name, replaces, path in (
             ("multi_scan", "automerge_tpu/ops/scan_pallas.py:204", "main"),

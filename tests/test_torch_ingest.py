@@ -282,6 +282,76 @@ def test_rga_linearize_matches_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def segment_tree(shape: str, seed: int, n: int = 96):
+    """A seeded condensed RGA tree of `n` slots (0: the head), as
+    (parent, attach_off, ctr, actor, weight, valid) int32/bool columns.
+    Padding slots hold junk that must not matter."""
+    rng = np.random.default_rng(seed)
+    live = {"head": 1, "chain": 40, "fan": 70, "random": 80}[shape]
+    parent = rng.integers(0, n, n).astype(np.int32)
+    attach = rng.integers(0, 9, n).astype(np.int32)
+    ctr = rng.integers(0, 5, n).astype(np.int32)
+    actor = rng.integers(0, 4, n).astype(np.int32)
+    weight = rng.integers(1, 6, n).astype(np.int32)
+    for i in range(1, live):
+        if shape == "chain":
+            parent[i], attach[i] = i - 1, max(weight[i - 1] - 1, 0)
+            ctr[i] = ctr[i - 1] + weight[i - 1]
+        elif shape == "fan":                 # siblings tied on ctr and
+            parent[i] = 0 if i < 40 else 1   # often on actor and offset
+            attach[i] = 0 if i < 40 else rng.integers(0, 2)
+            ctr[i] = 7
+        else:
+            parent[i] = rng.integers(0, i)
+            attach[i] = rng.integers(0, weight[parent[i]])
+    valid = np.arange(n) < live
+    if shape == "random":
+        valid[live - 5:live] = False          # padding between live slots
+    return parent, attach, ctr, actor, weight, valid
+
+
+@pytest.mark.parametrize("shape", ["head", "chain", "fan", "random"])
+@pytest.mark.parametrize("seed", range(3))
+def test_rga_linearize_segments_matches_jax(shape, seed):
+    cols = segment_tree(shape, seed)
+    want = np.asarray(JL.rga_linearize_segments(*map(jnp.asarray, cols)))
+    got = TL.rga_linearize_segments(*map(torch.from_numpy, cols))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the row form: two trees stacked give each tree's own starts
+    other = segment_tree(shape, seed + 10)
+    rows = TL._rga_linearize_segments_r(*(
+        torch.from_numpy(np.stack([a, b])) for a, b in zip(cols, other)))
+    np.testing.assert_array_equal(rows[0].numpy(), want)
+    np.testing.assert_array_equal(rows[1].numpy(), np.asarray(
+        JL.rga_linearize_segments(*map(jnp.asarray, other))))
+
+
+def test_rga_linearize_segments_of_typing_runs():
+    """A condensed tree of typing runs places every element where the
+    element-wise linearization does: segment start + offset."""
+    # elements: head, run A (3 chars after the head, actor 1), run B (2
+    # chars after A's first char, tied with A's second on ctr, actor 0),
+    # run C (2 chars after the head, an earlier ctr than A's)
+    parent = np.array([0, 0, 1, 2, 1, 4, 0, 6], np.int32)
+    ctr = np.array([0, 5, 6, 7, 6, 7, 2, 3], np.int32)
+    actor = np.array([0, 1, 1, 1, 0, 0, 0, 0], np.int32)
+    valid = np.ones(8, bool)
+    pos = TL.rga_linearize(*map(torch.from_numpy,
+                                (parent, ctr, actor, valid))).numpy()
+    np.testing.assert_array_equal(pos, [-1, 0, 1, 2, 3, 4, 5, 6])
+    seg = tuple(np.asarray(c, np.int32) for c in (
+        [0, 0, 1, 0], [0, 0, 0, 0], [0, 5, 6, 2], [0, 1, 0, 0],
+        [0, 3, 2, 2]))
+    start = TL.rga_linearize_segments(
+        *map(torch.from_numpy, seg + (np.ones(4, bool),))).numpy()
+    np.testing.assert_array_equal(start, [0, 0, 3, 5])
+    heads = {1: 1, 4: 2, 6: 3}                # element -> its segment
+    for elem, s in heads.items():
+        assert pos[elem] == start[s]
+    assert pos[2] == start[1] + 1 and pos[5] == start[2] + 1
+
+
 @pytest.mark.parametrize("seed", range(2))
 def test_scatter_registers_packed_matches_jax(seed):
     rng = np.random.default_rng(seed)
@@ -432,10 +502,12 @@ def test_int32_scans_stay_int32():
     assert int(np.asarray(jnp.cumsum(jnp.asarray(x.numpy())))[1]) == -2**31
 
 
-def test_live_scatter_indices_are_unique(monkeypatch):
-    """Every scatter of a real round writes each in-range index at most
-    once (or the same value each time): only the dropped sentinel rows may
-    collide, so CUDA's unordered index_put_ stays deterministic."""
+def check_live_scatters(monkeypatch) -> list:
+    """Route every drop-mode scatter of the port's round programs through
+    a check that each in-range index is written at most once (or with the
+    same value each time): only the dropped sentinel rows may collide, so
+    CUDA's unordered index_put_ stays deterministic. Returns the list each
+    checked scatter appends its count of live writes to."""
     seen = []
     real = TK._set_drop_r
     real_rows = TK._set_drop_rows_r
@@ -472,6 +544,13 @@ def test_live_scatter_indices_are_unique(monkeypatch):
     monkeypatch.setattr(TK, "_set_drop_r", checked)
     monkeypatch.setattr(TF, "_set_drop_r", checked)
     monkeypatch.setattr(TL, "_set_drop_r", checked)
+    return seen
+
+
+def test_live_scatter_indices_are_unique(monkeypatch):
+    """Every scatter of a real round writes each in-range index at most
+    once (or the same value each time)."""
+    seen = check_live_scatters(monkeypatch)
     jdoc, tdoc = twin_docs(planned=False)
     tdoc.apply_batch(as_port(merge(6, 30)))
     tdoc.apply_batch(as_port(residual_batch(600, 0)))
