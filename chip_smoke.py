@@ -6,6 +6,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py [--profile DIR] [--blocking-sync]
     python3 chip_smoke.py --lane-probe [--blocking-sync]
     python3 chip_smoke.py --workloads
+    python3 chip_smoke.py --soak [--profile DIR]
 
 It builds the CUDA kernels from csrc/ and holds each kernel bit-exact
 against its plain PyTorch version: at the main path's shapes, at ragged
@@ -52,7 +53,13 @@ end with zero residual lag), and the JAX package's remaining workloads
 (phase 18: run_all.py cfg5b's residual-heavy and cfg5c's two-round
 merges of 10,000 actors into a 1,000,000-char document, cfg6's 200
 conflicting writers, cfg2's shared counter, cfg10's save/load and cfg7b's
-nested edits under a 100,000-key root, each against a CPU run); times
+nested edits under a 100,000-key root, each against a CPU run), the soak
+campaign (phase 19: scripts/soak.py's general, conflict, lossy, table,
+chaos, checkpoint, service, sharded and residency sessions at seeds 0-2
+and a 1,000-client service session, each ending in the same state as
+the same seed on the CPU) and the cold text-planning population (phase
+20: bench.py cfg12t/cfg19's 512 text documents through the cross-doc
+planner, the batch index and the learned index, against a CPU run); times
 each kernel at every shape those paths launched
 it with (device time over CUDA-graph replays, inputs rotated through
 copies so each call reads them from HBM; one eager call at the merge
@@ -70,6 +77,9 @@ ingest timed in wall and thread CPU time) and prints its record last.
 With --workloads, it builds the kernels and runs only phase 18, then
 one 18a commit under cProfile and one under torch.profiler, and prints
 the phase's record last.
+With --soak, it builds the kernels and runs only phases 19-20 (with
+--profile, one more planning stream under torch.profiler), and prints
+their record last.
 With --blocking-sync, host waits on the card block instead of spinning.
 
 The output ends with three lines: one JSON object describing every
@@ -139,8 +149,9 @@ SYNC_STORM = 20                # sync-b: joiners in one hub.batched() window
 SYNC_STORM_MIN = 32            # sync-b: the storm hub's snapshot_min_changes
 SYNC_CHAOS_EDITS = 50          # sync-c: concurrent edits on each side
 MESH_LANES = 8                 # shard-a: bench.py measure_sharded's 8 lanes
-MESH_WARMUP = 2                # (streams of the one card); bench.py's 2
-MESH_REPS = 5                  # warm-up and 5 timed reps
+MESH_WARMUP = 1                # (streams of the one card); bench.py's 2
+MESH_REPS = 3                  # warm-up and 5 timed reps, cut to 1 and 3 to
+#                                keep the whole script inside its time limit
 ONE_LANE_WARMUP = 0            # the one-lane per-object leg's reps, cut
 ONE_LANE_REPS = 1              # from bench.py's 2 + 5 (13-26 s a map rep)
 MESH_CPU_DOCS = 64             # docs of each lane the CPU mesh replays
@@ -2739,16 +2750,23 @@ def sync_chaos(torch, M, card: str, device, n_base: int,
 def sync_phase(torch, M, card: str, device=None, n_base: int = API_TEXT,
                n_peers: int = SYNC_PEERS, n_changes: int = SYNC_CHANGES,
                n_storm: int = SYNC_STORM, storm_min: int = SYNC_STORM_MIN,
-               chaos_edits: int = SYNC_CHAOS_EDITS) -> dict:
+               chaos_edits: int = SYNC_CHAOS_EDITS, twins=None) -> dict:
     """The sync tier on `device`: sync-a (cfg9's fan-out on cfg7's text,
     a reconnect, a late full-history join), sync-b (a join storm served
-    from one snapshot) and sync-c (two replicas under WAN chaos). Each
-    part then runs as the same stream on the CPU backend, whose texts and
-    save() bytes the card's must equal. The kernel counts are set to 0
-    before the phase and read after the card's parts. Raises on any
-    failed check."""
+    from one snapshot) and sync-c (two replicas under WAN chaos). On the
+    card each part also runs as the same stream on the CPU backend in
+    `twins`' worker (a CpuTwins) while the card's parts go on, and the
+    card's texts and save() bytes must equal the CPU runs'. The kernel
+    counts are set to 0 before the phase and read after the card's
+    parts. Raises on any failed check."""
     cuda = torch.device(device or "cuda").type == "cuda"
     if cuda:
+        wants = [twins.submit("sync_fanout", "cpu backend", "cpu", n_base,
+                              n_peers, n_changes, item=1),
+                 twins.submit("sync_storm", "cpu backend", "cpu", n_base,
+                              n_changes, n_storm, storm_min, item=1),
+                 twins.submit("sync_chaos", "cpu backend", "cpu", n_base,
+                              chaos_edits, item=1)]
         torch.cuda.synchronize()
     t_phase = time.perf_counter()
     M.S.reset_launches()
@@ -2763,16 +2781,9 @@ def sync_phase(torch, M, card: str, device=None, n_base: int = API_TEXT,
     shapes = {k: dict(v) for k, v in M.S.launch_shapes.items()}
     card_s = time.perf_counter() - t_phase
     if cuda:
-        _, want_a = sync_fanout(torch, M, "cpu backend", "cpu", n_base,
-                                n_peers, n_changes)
-        _, want_b = sync_storm(torch, M, "cpu backend", "cpu", n_base,
-                               n_changes, n_storm, storm_min)
-        _, want_c = sync_chaos(torch, M, "cpu backend", "cpu", n_base,
-                               chaos_edits)
-        for part, got, want in (("sync-a", got_a, want_a),
-                                ("sync-b", got_b, want_b),
-                                ("sync-c", got_c, want_c)):
-            if got != want:
+        for part, got, want in zip(("sync-a", "sync-b", "sync-c"),
+                                   (got_a, got_b, got_c), wants):
+            if got != want.result():
                 raise AssertionError(f"{part}: the card's texts or save() "
                                      "bytes differ from the CPU backend's")
         if not launches["multi_scan"] or not launches["fused_segment_scans"]:
@@ -2781,8 +2792,8 @@ def sync_phase(torch, M, card: str, device=None, n_base: int = API_TEXT,
     out = {"a": a, "b": b, "c": c, "launches": launches, "shapes": shapes,
            "card_s": card_s, "wall_s": time.perf_counter() - t_phase}
     log(f"sync phase launches: {launches}; card parts {card_s:.2f} s, "
-        f"with the CPU backend's runs {out['wall_s']:.2f} s; texts and "
-        "save() bytes equal to the CPU backend's")
+        f"with the wait for the CPU backend's runs {out['wall_s']:.2f} s; "
+        "texts and save() bytes equal to the CPU backend's")
     log("sync record: " + json.dumps(dict(out, shapes={
         k: {"x".join(map(str, sh)): n for sh, n in v.items()}
         for k, v in shapes.items()}), default=str))
@@ -4121,16 +4132,24 @@ def svc_phase(torch, M, card: str, device=None,
               n_sessions: int = SVC_SESSIONS, room_size: int = SVC_ROOM,
               n_rounds: int = SVC_ROUNDS, text_rooms: int = SVC_TEXT_ROOMS,
               text_chars: int = API_TEXT, n_lanes: int = SVC_LANES,
-              budget_rooms: int = SVC_RES_ROOMS) -> dict:
+              budget_rooms: int = SVC_RES_ROOMS, twins=None) -> dict:
     """The service tier on `device`: 16a svc-a (cfg11 at its defaults),
     16b svc-text (the same service on rooms of cfg7's text; multi_scan
     must launch in its timed window), 16c svc-shard (16a on lanes with
     the pager, sequential and pipelined ticks), 16d the scrape endpoint.
-    16a and 16b then run on the CPU, whose room saves the card's must
-    equal. The kernel counts are set to 0 after 16c's reference mesh is
-    built (it is not the service path) and read after the card's parts.
-    Raises on any failed check."""
+    On the card 16a and 16b also run on the CPU in `twins`' worker (a
+    CpuTwins) while the card's parts go on, and the card's room saves
+    must equal theirs. The kernel counts are set to 0 after 16c's
+    reference mesh is built (it is not the service path) and read after
+    the card's parts. Raises on any failed check."""
     cuda = torch.device(device or "cuda").type == "cuda"
+    if cuda:
+        wants = [twins.submit("svc_run", "cpu backend", "cpu", "16a svc-a",
+                              n_sessions, room_size, n_rounds, item=1),
+                 twins.submit("svc_run", "cpu backend", "cpu",
+                              "16b svc-text", text_rooms * room_size,
+                              room_size, n_rounds, text_chars=text_chars,
+                              item=1)]
     t_phase = time.perf_counter()
     ref = svc_shard_ref(torch, M, device, max(1, n_sessions // room_size),
                         n_rounds, n_lanes)
@@ -4159,12 +4178,8 @@ def svc_phase(torch, M, card: str, device=None,
     card_s = time.perf_counter() - t_phase
     if cuda:
         t = time.perf_counter()
-        _, want_a = svc_run(torch, M, "cpu backend", "cpu", "16a svc-a",
-                            n_sessions, room_size, n_rounds)
-        _, want_b = svc_run(torch, M, "cpu backend", "cpu", "16b svc-text",
-                            text_rooms * room_size, room_size, n_rounds,
-                            text_chars=text_chars)
-        cpu_s = time.perf_counter() - t
+        want_a, want_b = (w.result() for w in wants)
+        wait_s = time.perf_counter() - t
         for part, got, want in (("16a", saves_a, want_a),
                                 ("16b", saves_b, want_b)):
             if got != want:
@@ -4174,25 +4189,38 @@ def svc_phase(torch, M, card: str, device=None,
             raise AssertionError(f"service: multi_scan missed the service "
                                  f"path: {launches}")
     else:
-        cpu_s = 0.0
+        wait_s = 0.0
     out = {"a": a, "b": b, "c": c, "d": d, "launches": launches,
-           "shapes": shapes, "card_s": card_s, "cpu_s": cpu_s,
+           "shapes": shapes, "card_s": card_s, "cpu_wait_s": wait_s,
            "wall_s": time.perf_counter() - t_phase}
     log(f"service phase launches: {launches}; card parts {card_s:.2f} s, "
-        f"the CPU runs {cpu_s:.2f} s; room saves equal to the CPU run's "
-        f"({card})")
+        f"then {wait_s:.2f} s waiting for the CPU runs; room saves equal to "
+        f"the CPU run's ({card})")
     log("svc record: " + json.dumps(dict(out, shapes={
         k: {"x".join(map(str, sh)): n for sh, n in v.items()}
         for k, v in shapes.items()}), default=str))
     return out
 
 
-# --- the federation (scripts/soak.py session_federation) -----------------
+# --- scripts/soak.py's helpers, shared by phases 17 and 19 -------------------
 
-FED_KEYS = ["alpha", "beta", "gamma", "delta", "eps"]
+KEYS = ["alpha", "beta", "gamma", "delta", "eps"]
 
 
-def _fed_text_edit(am, doc, rng):
+def _rand_value(rng):
+    """scripts/soak.py `_rand_value`: an int, a 5-letter string, a map or
+    a list, drawn from `rng`."""
+    kind = rng.integers(0, 4)
+    if kind == 0:
+        return int(rng.integers(-1000, 1000))
+    if kind == 1:
+        return "".join(chr(97 + int(c)) for c in rng.integers(0, 26, 5))
+    if kind == 2:
+        return {"n": int(rng.integers(0, 99))}
+    return [int(x) for x in rng.integers(0, 9, 3)]
+
+
+def _text_edit(am, doc, rng):
     """scripts/soak.py `_text_edit`: one random insert or delete in `t`."""
     def cb(d):
         t = d["t"]
@@ -4205,9 +4233,26 @@ def _fed_text_edit(am, doc, rng):
     return am.change(doc, cb)
 
 
+def _converged(am, docs):
+    """scripts/soak.py `_converged`: (True, None) when every document
+    renders as the first does, else (False, (first, differing))."""
+    jsons = [am.to_json(d) for d in docs]
+    ref = {k: (str(v) if hasattr(v, "elems") else v)
+           for k, v in jsons[0].items()}
+    for j in jsons[1:]:
+        got = {k: (str(v) if hasattr(v, "elems") else v)
+               for k, v in j.items()}
+        if got != ref:
+            return False, (ref, got)
+    return True, None
+
+
+# --- the federation (scripts/soak.py session_federation) -----------------
+
 def fed_phase(torch, M, card: str, device=None, seed: int = 0,
               n_rooms: int = FED_ROOMS, n_sessions: int = FED_SESSIONS,
-              n_ticks: int = FED_TICKS, quiesce_rounds: int = 6000) -> dict:
+              n_ticks: int = FED_TICKS, quiesce_rounds: int = 6000,
+              twins=None) -> dict:
     """Phase 17: scripts/soak.py session_federation at its defaults on
     `device` — three FederatedRegions (each a SyncService whose rooms
     live on `device`) over seeded cross_region WAN chaos, `n_sessions`
@@ -4215,13 +4260,17 @@ def fed_phase(torch, M, card: str, device=None, seed: int = 0,
     and heal and region ap is killed and rejoins empty. Asserts the
     soak's three checks: byte-identical convergence on every region
     (canonical saves and sorted histories), zero residual lag with every
-    link on `ok`, full reclamation. On the card the phase then runs
-    again on the CPU, whose canonical saves the card's must equal. The
-    kernel counts are set to 0 before the phase and read after the
-    card's run."""
+    link on `ok`, full reclamation. On the card the phase also runs on
+    the CPU in `twins`' worker (a CpuTwins) while the card's run goes
+    on, and the card's canonical saves must equal its. The kernel counts
+    are set to 0 before the phase and read after the card's run."""
     am = M.am
     be = am.backend.backend_for(device)
     cuda = torch.device(device or "cuda").type == "cuda"
+    if cuda:
+        want_run = twins.submit("fed_phase", "cpu backend", "cpu", seed,
+                                n_rooms, n_sessions, n_ticks,
+                                quiesce_rounds)
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     F = M.federation
     sync()
@@ -4274,9 +4323,9 @@ def fed_phase(torch, M, card: str, device=None, seed: int = 0,
         if doc is None:
             return False
         if int(rng.integers(0, 3)) == 0:
-            doc = _fed_text_edit(am, doc, rng)
+            doc = _text_edit(am, doc, rng)
         else:
-            k = FED_KEYS[int(rng.integers(0, len(FED_KEYS)))]
+            k = KEYS[int(rng.integers(0, len(KEYS)))]
             doc = am.change(doc, lambda d, k=k,
                             v=int(rng.integers(0, 999)):
                             d["m"].__setitem__(k, v))
@@ -4467,14 +4516,12 @@ def fed_phase(torch, M, card: str, device=None, seed: int = 0,
         f"buffered drops; converged byte-identically with zero residual "
         f"lag; launches {launches}")
     if cuda:
-        # the CPU twin in this process: the schedule is seeded and no
-        # clock enters it, and set orders follow this process's string
-        # hash, so the same run on the plain versions must reach the
-        # same documents
-        t = time.perf_counter()
-        want = fed_phase(torch, M, "cpu backend", "cpu", seed, n_rooms,
-                         n_sessions, n_ticks, quiesce_rounds)
-        out["cpu_s"] = time.perf_counter() - t
+        # the schedule is seeded and no clock enters it, and the worker
+        # iterates sets in this process's string-hash order (both run
+        # with PYTHONHASHSEED=0), so the same run on the plain versions
+        # must reach the same documents
+        want = want_run.result()
+        out["cpu_s"] = want["wall_s"]
         if want["canonical_save_sha256"] != canon_saves:
             raise AssertionError("17: the card's canonical saves differ "
                                  "from the CPU run's")
@@ -5094,6 +5141,1467 @@ def profile_residual(torch, M, n_actors: int = ADV_ACTORS, top: int = 20):
     return {"wall_s": wall, "device_s": dev_us / 1e6}
 
 
+# --- the soak campaign (scripts/soak.py's sessions other than federation) --
+
+SOAK_SEEDS = (0, 1, 2)         # 19: tests/test_soak_smoke.py's seeds, at the
+SOAK_CLIENTS = 1_000           # soak's defaults; plus one --service
+SOAK_CLIENT_TICKS = 40         # --clients 1000 session (soak.py:1564-1569)
+SOAK_TICK_STEP_S = 10e-6       # the service tick's modeled clock (TickClock)
+SOAK_TIMING = ("p50_tick_ms", "p99_tick_ms", "max_tick_ms",
+               "tick_p99_ms_telemetry", "page_in_p99_ms")
+
+
+def _check(ok, msg):
+    if not ok:
+        raise AssertionError(msg)
+
+
+def _render(am, doc) -> str:
+    """A document as `_converged` compares it, as JSON text."""
+    return json.dumps({k: (str(v) if hasattr(v, "elems") else v)
+                       for k, v in am.to_json(doc).items()},
+                      sort_keys=True, default=str)
+
+
+def _doc_states(am, docs) -> list:
+    """Each document's save() digest and rendered to_json."""
+    return [(_digest(am.save(d).encode()), _render(am, d)) for d in docs]
+
+
+def _histories(am, doc) -> list:
+    return sorted(json.dumps(c, sort_keys=True)
+                  for c in am.get_all_changes(doc))
+
+
+def _soak_api(M, device):
+    """(am, be, init): the port's API, the backend namespace of
+    `device`, and init(actor) binding a new document to it."""
+    am = M.am
+    be = am.backend.backend_for(device)
+    return am, be, lambda actor: am.init({"actorId": actor, "backend": be})
+
+
+def _check_on(M, docs, device, what: str):
+    _check(all(_on_device(M, d, device) for d in docs),
+           f"{what}: a document left {device or 'cuda'}")
+
+
+def _nt(d):
+    """`d` as plain JSON data less the wall-clock fields (SOAK_TIMING)."""
+    d = json.loads(json.dumps(d, sort_keys=True, default=str))
+    if isinstance(d, dict):
+        return {k: _nt(v) for k, v in d.items() if k not in SOAK_TIMING}
+    return d
+
+
+class TickClock:
+    """The clock `SyncService.tick` reads in phase 19: each read advances
+    it by `step_s`. The tick's admission deadline
+    (`ServiceConfig.tick_budget_ms`) reads the wall clock, so which
+    tenants it sheds, and with them every document of a service session,
+    depends on how fast the host admits; on this clock the deadline cuts
+    the admission order after budget / step_s reads in every run of a
+    seed, on the card and on the CPU alike. `installed(module)` puts it
+    in place of a service server module's `time` for a `with` block."""
+
+    def __init__(self, step_s: float = SOAK_TICK_STEP_S):
+        self.step_s, self.t = step_s, 0.0
+
+    def perf_counter(self) -> float:
+        self.t += self.step_s
+        return self.t
+
+    def installed(self, server_module):
+        import contextlib
+        from types import SimpleNamespace
+
+        @contextlib.contextmanager
+        def cm():
+            real = server_module.time
+            server_module.time = SimpleNamespace(
+                perf_counter=self.perf_counter)
+            try:
+                yield self
+            finally:
+                server_module.time = real
+        return cm()
+
+
+def soak_general(torch, M, device, seed: int) -> dict:
+    """scripts/soak.py session_general (:109): nested histories with
+    undo/redo and merge interleavings on three peers."""
+    am, be, init = _soak_api(M, device)
+    rng = np.random.default_rng(seed)
+    base = am.change(init("base"), lambda d: (
+        d.__setitem__("t", am.Text("seed")), d.__setitem__("m", {"k": 0})))
+    changes = am.get_all_changes(base)
+    peers = [am.apply_changes(init(f"actor-{i}"), changes)
+             for i in range(3)]
+    for _ in range(int(rng.integers(15, 30))):
+        i = int(rng.integers(0, len(peers)))
+        act = int(rng.integers(0, 6))
+        if act == 0:
+            k = KEYS[int(rng.integers(0, len(KEYS)))]
+            v = _rand_value(rng)
+            peers[i] = am.change(peers[i],
+                                 lambda d, k=k, v=v: d.__setitem__(k, v))
+        elif act == 1:
+            peers[i] = _text_edit(am, peers[i], rng)
+        elif act == 2:
+            n = int(rng.integers(0, 50))
+            peers[i] = am.change(
+                peers[i], lambda d, n=n: d["m"].__setitem__("k", n))
+        elif act == 3 and am.can_undo(peers[i]):
+            peers[i] = am.undo(peers[i])
+        elif act == 4 and am.can_redo(peers[i]):
+            peers[i] = am.redo(peers[i])
+        else:
+            j = int(rng.integers(0, len(peers)))
+            if j != i:
+                peers[i] = am.merge(peers[i], peers[j])
+    order = rng.permutation(len(peers))
+    for _ in range(2):
+        for i in order:
+            for j in order:
+                if i != j:
+                    peers[i] = am.merge(peers[i], peers[j])
+    ok, diff = _converged(am, peers)
+    _check(ok, f"general seed {seed} diverged: {diff}")
+    back = am.load(am.save(peers[0]), {"backend": be})
+    ok, diff = _converged(am, [peers[0], back])
+    _check(ok, f"general seed {seed} save/load mismatch: {diff}")
+    _check_on(M, peers + [back], device, f"general seed {seed}")
+    return {"docs": _doc_states(am, peers + [back])}
+
+
+def soak_conflict(torch, M, device, seed: int) -> dict:
+    """scripts/soak.py session_conflict (:156): same-key and same-element
+    races on four peers with partial pairwise sync."""
+    am, be, init = _soak_api(M, device)
+    rng = np.random.default_rng(seed)
+    base = am.change(init("base"), lambda d: (
+        d.__setitem__("t", am.Text("abcdef")),
+        *[d.__setitem__(k, 0) for k in KEYS]))
+    changes = am.get_all_changes(base)
+    peers = [am.apply_changes(init(f"w{i}"), changes)
+             for i in range(4)]
+    for step in range(int(rng.integers(10, 20))):
+        for i in range(len(peers)):
+            act = int(rng.integers(0, 3))
+            if act == 0:
+                k = KEYS[int(rng.integers(0, len(KEYS)))]
+                peers[i] = am.change(
+                    peers[i], lambda d, k=k, i=i, s=step:
+                    d.__setitem__(k, f"w{i}s{s}"))
+            elif act == 1 and len(peers[i]["t"]):
+                idx = int(rng.integers(0, len(peers[i]["t"])))
+                peers[i] = am.change(
+                    peers[i], lambda d, idx=idx, i=i:
+                    d["t"].set(min(idx, len(d["t"]) - 1), str(i)))
+            else:
+                peers[i] = _text_edit(am, peers[i], rng)
+        if rng.integers(0, 2):
+            i, j = rng.choice(len(peers), 2, replace=False)
+            peers[int(i)] = am.merge(peers[int(i)], peers[int(j)])
+    for _ in range(2):
+        for i in range(len(peers)):
+            for j in range(len(peers)):
+                if i != j:
+                    peers[i] = am.merge(peers[i], peers[j])
+    ok, diff = _converged(am, peers)
+    _check(ok, f"conflict seed {seed} diverged: {diff}")
+    conflicts = {}
+    for k in KEYS:
+        refc = am.get_conflicts(peers[0], k)
+        for p in peers[1:]:
+            _check(am.get_conflicts(p, k) == refc,
+                   f"conflict seed {seed}: conflicts diverged at {k}")
+        conflicts[k] = json.dumps(refc, sort_keys=True, default=str)
+    _check_on(M, peers, device, f"conflict seed {seed}")
+    return {"docs": _doc_states(am, peers), "conflicts": conflicts}
+
+
+def soak_lossy(torch, M, device, seed: int) -> dict:
+    """scripts/soak.py session_lossy (:199): Connection sync over a
+    dropping in-memory network with churn."""
+    am, be, init = _soak_api(M, device)
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(2, 4))
+    sets = [am.DocSet(backend=be) for _ in range(n)]
+    doc0 = am.change(init("origin"),
+                     lambda d: d.__setitem__("t", am.Text("start")))
+    base_changes = am.get_all_changes(doc0)
+    for i, ds in enumerate(sets):
+        ds.set_doc("doc", am.apply_changes(init(f"peer-{i}"),
+                                           base_changes))
+    queues: dict = {}
+    conns: dict = {}
+
+    def wire(a: int, b: int):
+        ca = am.Connection(sets[a], lambda m, a=a, b=b:
+                           queues.setdefault((a, b), []).append(m))
+        cb = am.Connection(sets[b], lambda m, a=a, b=b:
+                           queues.setdefault((b, a), []).append(m))
+        conns[(a, b)], conns[(b, a)] = ca, cb
+        ca.open()
+        cb.open()
+
+    def deliver(edge, drop_p: float):
+        q = queues.get(edge, [])
+        while q:
+            msg = q.pop(0)
+            if rng.random() < drop_p:
+                continue
+            conns[(edge[1], edge[0])].receive_msg(msg)
+
+    for a in range(n):
+        for b in range(a + 1, n):
+            wire(a, b)
+    edges = list(conns.keys())
+    for step in range(int(rng.integers(10, 25))):
+        i = int(rng.integers(0, n))
+        doc = sets[i].get_doc("doc")
+        sets[i].set_doc("doc", _text_edit(am, doc, rng))
+        for edge in edges:
+            deliver(edge, drop_p=0.3)
+        if rng.integers(0, 5) == 0:
+            a, b = edges[int(rng.integers(0, len(edges)))]
+            if a < b:
+                conns[(a, b)].close()
+                conns[(b, a)].close()
+                queues.pop((a, b), None)
+                queues.pop((b, a), None)
+                wire(a, b)
+    for a in range(n):
+        for b in range(a + 1, n):
+            conns[(a, b)].close()
+            conns[(b, a)].close()
+            queues.pop((a, b), None)
+            queues.pop((b, a), None)
+            wire(a, b)
+    for _ in range(4):
+        for edge in edges:
+            deliver(edge, drop_p=0.0)
+    docs = [ds.get_doc("doc") for ds in sets]
+    ok, diff = _converged(am, docs)
+    _check(ok, f"lossy seed {seed} diverged: {diff}")
+    _check_on(M, docs, device, f"lossy seed {seed}")
+    return {"docs": _doc_states(am, docs)}
+
+
+def soak_table(torch, M, device, seed: int) -> dict:
+    """scripts/soak.py session_table (:273): concurrent Table row
+    add/update/remove on three peers with partial sync. `to_json`
+    renders the table's rows, so the states compare them."""
+    am, be, init = _soak_api(M, device)
+    rng = np.random.default_rng(seed)
+    base = am.change(init("base"),
+                     lambda d: d.__setitem__("t", am.Table()))
+    changes = am.get_all_changes(base)
+    peers = [am.apply_changes(init(f"tw{i}"), changes)
+             for i in range(3)]
+    known_rows: list = []
+    for step in range(int(rng.integers(12, 24))):
+        i = int(rng.integers(0, len(peers)))
+        act = int(rng.integers(0, 4))
+        if act == 0 or not known_rows:
+            holder = {}
+
+            def add(d, i=i, s=step, holder=holder):
+                holder["id"] = d["t"].add(
+                    {"by": f"tw{i}", "step": s,
+                     "v": int(rng.integers(0, 99))})
+            peers[i] = am.change(peers[i], add)
+            known_rows.append(holder["id"])
+        elif act == 1:
+            rid = known_rows[int(rng.integers(0, len(known_rows)))]
+            if peers[i]["t"].by_id(rid) is not None:
+                peers[i] = am.change(
+                    peers[i], lambda d, rid=rid, s=step:
+                    d["t"].by_id(rid).__setitem__("v", 1000 + s))
+        elif act == 2:
+            rid = known_rows[int(rng.integers(0, len(known_rows)))]
+            if peers[i]["t"].by_id(rid) is not None:
+                peers[i] = am.change(
+                    peers[i], lambda d, rid=rid: d["t"].remove(rid))
+        else:
+            j = int(rng.integers(0, len(peers)))
+            if j != i:
+                peers[i] = am.merge(peers[i], peers[j])
+    for _ in range(2):
+        for i in range(len(peers)):
+            for j in range(len(peers)):
+                if i != j:
+                    peers[i] = am.merge(peers[i], peers[j])
+    ok, diff = _converged(am, peers)
+    _check(ok, f"table seed {seed} diverged: {diff}")
+    _check_on(M, peers, device, f"table seed {seed}")
+    return {"docs": _doc_states(am, peers)}
+
+
+def _quiesce(pump, channels, links, what: str, rounds: int = 400):
+    for _ in range(rounds):
+        pump(1)
+        if all(ch.idle for ch in channels.values()) \
+                and all(ln.idle for ln in links.values()):
+            return
+    raise AssertionError(f"{what}: channels never quiesced")
+
+
+def soak_chaos(torch, M, device, seed: int) -> dict:
+    """scripts/soak.py session_chaos (:318): three peers' Connection sync
+    over ChaosLink + ResilientChannel (drop, dup, reorder, delay and one
+    partition/heal cycle); byte-identical convergence after the heal."""
+    am, be, init = _soak_api(M, device)
+    rng = np.random.default_rng(seed)
+    n = 3
+    sets = [am.DocSet(backend=be) for _ in range(n)]
+    doc0 = am.change(init("origin"),
+                     lambda d: d.__setitem__("t", am.Text("start")))
+    base = am.get_all_changes(doc0)
+    for i, ds in enumerate(sets):
+        ds.set_doc("doc", am.apply_changes(init(f"peer-{i}"), base))
+    drop = float(rng.uniform(0.05, 0.30))
+    dup = float(rng.uniform(0.0, 0.20))
+    reorder = float(rng.uniform(0.05, 0.30))
+    delay = float(rng.uniform(0.0, 0.30))
+    edges = [(a, b) for a in range(n) for b in range(n) if a != b]
+    links, channels, conns = {}, {}, {}
+    for a, b in edges:
+        links[(a, b)] = M.res.ChaosLink(
+            lambda env, a=a, b=b: channels[(b, a)].on_wire(env),
+            rng=rng, drop=drop, dup=dup, reorder=reorder, delay=delay)
+    for a, b in edges:
+        channels[(a, b)] = M.res.ResilientChannel(
+            links[(a, b)].send,
+            lambda msg, a=a, b=b: conns[(a, b)].receive_msg(msg),
+            seed=seed * 7919 + a * 97 + b)
+    for a, b in edges:
+        conns[(a, b)] = am.Connection(sets[a], channels[(a, b)].send)
+        conns[(a, b)].open()
+
+    def pump(rounds: int = 1):
+        for _ in range(rounds):
+            for e in edges:
+                links[e].pump()
+            for e in edges:
+                channels[e].tick()
+
+    n_steps = int(rng.integers(12, 22))
+    part_at = int(rng.integers(2, n_steps - 6))
+    part_len = int(rng.integers(2, 6))
+    pa, pb = (int(x) for x in rng.choice(n, 2, replace=False))
+    for step in range(n_steps):
+        if step == part_at:
+            links[(pa, pb)].partition()
+            links[(pb, pa)].partition()
+        if step == part_at + part_len:
+            links[(pa, pb)].heal()
+            links[(pb, pa)].heal()
+        i = int(rng.integers(0, n))
+        sets[i].set_doc("doc", _text_edit(am, sets[i].get_doc("doc"), rng))
+        pump(1)
+    for e in edges:
+        links[e].heal()
+        links[e].drop = links[e].dup = 0.0
+        links[e].reorder = links[e].delay = 0.0
+    _quiesce(pump, channels, links, f"chaos seed {seed}")
+    docs = [ds.get_doc("doc") for ds in sets]
+    ok, diff = _converged(am, docs)
+    _check(ok, f"chaos seed {seed} diverged: {diff}")
+    hists = [_histories(am, d) for d in docs]
+    _check(hists.count(hists[0]) == len(hists),
+           f"chaos seed {seed}: change histories diverged after heal")
+    for ds in sets:
+        gate = getattr(ds, "_inbound_gate", None)
+        _check(not gate or gate.quarantined("doc") == 0,
+               f"chaos seed {seed}: quarantine not drained")
+    _check_on(M, docs, device, f"chaos seed {seed}")
+    return {"docs": _doc_states(am, docs), "history": hists[0]}
+
+
+def soak_checkpoint(torch, M, device, seed: int) -> dict:
+    """scripts/soak.py session_checkpoint (:412): chaos sync with
+    periodic async captures of one peer, which restarts mid-run from its
+    last completed bundle (on the same device) and catches up."""
+    am, be, init = _soak_api(M, device)
+    rng = np.random.default_rng(seed)
+    n = 3
+    sets = [am.DocSet(backend=be) for _ in range(n)]
+    doc0 = am.change(init("origin"),
+                     lambda d: d.__setitem__("t", am.Text("start")))
+    base = am.get_all_changes(doc0)
+    for i, ds in enumerate(sets):
+        ds.set_doc("doc", am.apply_changes(init(f"peer-{i}"), base))
+    drop = float(rng.uniform(0.05, 0.25))
+    reorder = float(rng.uniform(0.05, 0.25))
+    links, channels, conns = {}, {}, {}
+
+    def wire_edge(a, b):
+        links[(a, b)] = M.res.ChaosLink(
+            lambda env, a=a, b=b: channels[(b, a)].on_wire(env),
+            rng=rng, drop=drop, dup=0.05, reorder=reorder, delay=0.1)
+        channels[(a, b)] = M.res.ResilientChannel(
+            links[(a, b)].send,
+            lambda msg, a=a, b=b: conns[(a, b)].receive_msg(msg),
+            seed=seed * 7919 + a * 97 + b)
+        conns[(a, b)] = am.Connection(sets[a], channels[(a, b)].send)
+
+    edges = [(a, b) for a in range(n) for b in range(n) if a != b]
+    for a, b in edges:
+        wire_edge(a, b)
+    for e in edges:
+        conns[e].open()
+
+    def pump(rounds: int = 1):
+        for _ in range(rounds):
+            for e in edges:
+                links[e].pump()
+            for e in edges:
+                channels[e].tick()
+
+    victim = int(rng.integers(0, n))
+    writer = am.AsyncCheckpointer()
+    handles: list = []
+    bundle = None
+    n_steps = int(rng.integers(14, 22))
+    restart_at = int(rng.integers(6, n_steps - 4))
+    restarted = False
+    try:
+        for step in range(n_steps):
+            i = int(rng.integers(0, n))
+            sets[i].set_doc("doc",
+                            _text_edit(am, sets[i].get_doc("doc"), rng))
+            if step % 3 == 0:
+                state = am.Frontend.get_backend_state(
+                    sets[victim].get_doc("doc"))
+                handles.append(writer.capture_async(state))
+            if step == restart_at:
+                for h in handles:
+                    bundle = h.result(30)
+                _check(bundle is not None, "no checkpoint completed")
+                for a, b in edges:
+                    if victim in (a, b):
+                        conns[(a, b)].close()
+                sets[victim] = am.DocSet(backend=be)
+                sets[victim].bootstrap_doc("doc", bundle)
+                _check_on(M, [sets[victim].get_doc("doc")], device,
+                          f"checkpoint seed {seed}: the restart")
+                for a, b in edges:
+                    if victim in (a, b):
+                        wire_edge(a, b)
+                        conns[(a, b)].open()
+                restarted = True
+            pump(1)
+    finally:
+        writer.close()
+    _check(restarted, f"checkpoint seed {seed}: no restart")
+    for e in edges:
+        links[e].heal()
+        links[e].drop = links[e].dup = 0.0
+        links[e].reorder = links[e].delay = 0.0
+    _quiesce(pump, channels, links, f"checkpoint seed {seed}")
+    docs = [ds.get_doc("doc") for ds in sets]
+    ok, diff = _converged(am, docs)
+    _check(ok, f"checkpoint seed {seed} diverged after restart: {diff}")
+    hists = [_histories(am, d) for d in docs]
+    _check(hists.count(hists[0]) == len(hists),
+           f"checkpoint seed {seed}: change histories diverged after "
+           "restart")
+    _check_on(M, docs, device, f"checkpoint seed {seed}")
+    return {"docs": _doc_states(am, docs), "history": hists[0],
+            "bundle_sha256": _digest(bytes(bundle))}
+
+
+class SoakClient:
+    """scripts/soak.py `_SvcClient` (:561): one tenant endpoint — a
+    DocSet on the backend namespace `be`, a Connection and a
+    ResilientChannel over a pair of directed ChaosLinks into `svc`."""
+
+    __slots__ = ("tid", "room_id", "ds", "chan", "conn", "c2s", "s2c",
+                 "slow", "alive")
+
+    def __init__(self, M, be, svc, tid, room_id, base_changes, actor,
+                 link_seed, chaos, empty=False):
+        am = M.am
+        self.tid = tid
+        self.room_id = room_id
+        self.slow = 1
+        self.alive = True
+        self.ds = am.DocSet(backend=be)
+        self.ds._lineage_site = tid
+        if not empty:
+            self.ds.set_doc(room_id, am.apply_changes(
+                am.init({"actorId": actor, "backend": be}), base_changes))
+        self.c2s = M.res.ChaosLink(
+            lambda env: (svc.session(tid) is not None
+                         and svc.session(tid).on_wire(env)),
+            seed=link_seed, **chaos)
+        self.s2c = M.res.ChaosLink(lambda env: self.chan.on_wire(env),
+                                   seed=link_seed + 1, **chaos)
+        sess = svc.connect(tid, room_id, self.s2c.send, seed=link_seed + 2)
+        _check(sess is not None, f"{tid}: connect refused")
+        self.chan = M.res.ResilientChannel(self.c2s.send, None,
+                                           seed=link_seed + 3)
+        self.conn = am.Connection(self.ds, self.chan.send)
+        self.chan._deliver = self.conn.receive_msg
+        self.conn.open()
+
+    def pump(self):
+        self.c2s.pump()
+        self.s2c.pump()
+        self.chan.tick()
+
+    def heal(self):
+        for ln in (self.c2s, self.s2c):
+            ln.heal()
+            ln.drop = ln.dup = ln.reorder = ln.delay = 0.0
+        self.slow = 1
+
+    def idle(self):
+        return self.chan.idle and self.c2s.idle and self.s2c.idle
+
+
+def _validate_scrape(M, url: str, metrics: dict):
+    """scripts/soak.py `_validate_scrape` (:541): the live endpoint's
+    exposition page passes `validate_prom` and /describe parses as the
+    postmortem schema."""
+    import urllib.request
+    page = urllib.request.urlopen(url + "/metrics", timeout=10) \
+        .read().decode()
+    counts = M.prom.validate_prom(page)
+    dump = json.loads(
+        urllib.request.urlopen(url + "/describe", timeout=10).read())
+    _check(dump.get("schema") == "amtpu-postmortem-v1", dump.get("schema"))
+    metrics.update(scrape_ok=True, scrape_families=counts["families"],
+                   scrape_samples=counts["samples"])
+
+
+def soak_service(torch, M, device, seed: int, n_clients: int = 24,
+                 n_ticks: int = 30, room_size: int = 4,
+                 quiesce_ticks: int = 400, scrape: bool = False) -> dict:
+    """scripts/soak.py session_service (:618): `n_clients` tenant
+    sessions over chaotic links into one SyncService on `device`, with
+    partitions, slow peers, kills and rejoins; the soak's acceptance
+    bars (`_service_scenario`). With `scrape`, the Prometheus endpoint is
+    served live for the session and checked over loopback HTTP. Returns
+    the soak's metrics, the service's describe() and every room's
+    documents. A failure writes the service's postmortem to
+    chiprun_out/service_postmortem.json before it re-raises."""
+    lin = M.lineage
+    lineage_full = (lin.ENABLED and lin.ledger() is not None
+                    and lin.ledger().rate == 1)
+    cfg = M.service.ServiceConfig(
+        heartbeat_ticks=12, suspect_grace_ticks=12, max_retries=24,
+        recv_window=256,
+        tick_budget_ms=max(0.5, n_clients / 200.0)
+        * (1.5 if lineage_full else 1.0),
+        default_budget=M.service.TenantBudget(ops_per_tick=64,
+                                              bytes_per_tick=32 * 1024,
+                                              inbox_cap=32),
+        device=device)
+    svc = M.service.SyncService(cfg)
+    if lin.ENABLED:
+        lin.clear()
+    metrics: dict = {}
+    scrape_srv = svc.serve_metrics() if scrape else None
+    try:
+        rooms = _service_scenario(M, device, svc, cfg, seed, n_clients,
+                                  n_ticks, room_size, quiesce_ticks,
+                                  metrics)
+        if scrape_srv is not None:
+            _validate_scrape(M, scrape_srv.url, metrics)
+    except BaseException:
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "chiprun_out")
+        try:
+            os.makedirs(out_dir, exist_ok=True)
+            svc.write_postmortem(os.path.join(out_dir,
+                                              "service_postmortem.json"))
+            log(f"19: service postmortem written to {out_dir}")
+        except Exception as dump_exc:   # noqa: BLE001 - never mask
+            log(f"19: postmortem dump failed: {dump_exc!r}")
+        raise
+    finally:
+        if scrape_srv is not None:
+            scrape_srv.close()
+    return {"metrics": metrics, "describe": svc.describe(), "rooms": rooms}
+
+
+def _service_scenario(M, device, svc, cfg, seed, n_clients, n_ticks,
+                      room_size, quiesce_ticks, metrics) -> dict:
+    """scripts/soak.py `_service_scenario` (:714): the fault schedule,
+    the drain and the acceptance asserts; fills `metrics` as the soak
+    fills PROFILE_METRICS["service"]. -> each room's documents (server
+    first, then its live members)."""
+    import math
+    am, be, init = _soak_api(M, device)
+    rng = np.random.default_rng(seed)
+    n_rooms = max(1, math.ceil(n_clients / room_size))
+    base_changes: dict = {}
+    for g in range(n_rooms):
+        room_id = f"room-{g}"
+        doc0 = am.change(init(f"{room_id}-origin"), lambda d: (
+            d.__setitem__("t", am.Text("start")), d.__setitem__("m", {})))
+        base_changes[room_id] = am.get_all_changes(doc0)
+        svc.seed_doc(room_id, am.apply_changes(init(f"server-{g}"),
+                                               base_changes[room_id]))
+        svc.room(room_id).hub.snapshot_min_changes = 8
+    chaos = {"drop": float(rng.uniform(0.02, 0.10)),
+             "dup": float(rng.uniform(0.0, 0.05)),
+             "reorder": float(rng.uniform(0.02, 0.10)),
+             "delay": float(rng.uniform(0.0, 0.10))}
+    clients: dict = {}
+    epoch: dict = {}
+
+    def wire(tid: str, room_id: str, empty: bool = False):
+        e = epoch.get(tid, 0)
+        clients[tid] = SoakClient(
+            M, be, svc, tid, room_id, base_changes[room_id],
+            actor=f"c-{tid}-e{e}",
+            link_seed=seed * 104729 + int(tid.split("-")[-1]) * 13 + e * 7,
+            chaos=chaos, empty=empty)
+
+    for i in range(n_clients):
+        wire(f"{seed}-{i}", f"room-{i % n_rooms}")
+    ids = list(clients)
+    n_slow = max(1, n_clients // 12)
+    for tid in rng.choice(ids, n_slow, replace=False):
+        clients[str(tid)].slow = 4
+    n_part = max(1, n_clients // 12)
+    part_victims = [str(t) for t in rng.choice(ids, n_part, replace=False)]
+    part_at = {t: int(rng.integers(3, max(4, n_ticks - 10)))
+               for t in part_victims}
+    part_len = {t: int(rng.integers(3, 9)) for t in part_victims}
+    n_kill = max(1, n_clients // 16)
+    kill_order = [str(t) for t in rng.choice(ids, n_kill, replace=False)]
+    kill_at = {t: int(rng.integers(6, max(7, n_ticks - 4)))
+               for t in kill_order}
+    rejoiners = set(kill_order[: len(kill_order) // 2])
+    rejoin_at = {t: kill_at[t] + int(rng.integers(4, 10))
+                 for t in rejoiners}
+    killed: set = set()
+    n_kills_done = 0
+    n_rejoins_done = 0
+
+    def live_room_members(room_id):
+        return [c for c in clients.values()
+                if c.room_id == room_id and c.alive]
+
+    def pump_all(tick_no: int):
+        for c in clients.values():
+            if c.alive and tick_no % c.slow == 0:
+                c.pump()
+        svc.tick()
+
+    for t in range(n_ticks):
+        for tid in part_victims:
+            c = clients[tid]
+            if t == part_at[tid] and c.alive:
+                c.c2s.partition()
+                c.s2c.partition()
+            if t == part_at[tid] + part_len[tid]:
+                c.c2s.heal()
+                c.s2c.heal()
+        for tid, at in kill_at.items():
+            c = clients[tid]
+            if t == at and c.alive and len(live_room_members(c.room_id)) > 1:
+                c.alive = False
+                killed.add(tid)
+                n_kills_done += 1
+        for tid, at in rejoin_at.items():
+            if t == at and tid in killed:
+                killed.discard(tid)
+                epoch[tid] = epoch.get(tid, 0) + 1
+                n_rejoins_done += 1
+                wire(tid, clients[tid].room_id, empty=True)
+        n_edit = max(1, n_clients // 20)
+        for tid in rng.choice(ids, n_edit, replace=False):
+            c = clients[str(tid)]
+            if not c.alive:
+                continue
+            doc = c.ds.get_doc(c.room_id)
+            if doc is None:
+                continue
+            if int(rng.integers(0, 3)) == 0:
+                doc = _text_edit(am, doc, rng)
+            else:
+                k = KEYS[int(rng.integers(0, len(KEYS)))]
+                v = int(rng.integers(0, 999))
+                doc = am.change(doc, lambda d, k=k, v=v:
+                                d["m"].__setitem__(k, v))
+            c.ds.set_doc(c.room_id, doc)
+        pump_all(t)
+
+    for c in clients.values():
+        c.heal()
+    for tid in killed:
+        room_id = clients[tid].room_id
+        room = svc.room(room_id)
+        doc = room.doc_set.get_doc(room_id)
+        if doc is not None:
+            room.doc_set.set_doc(room_id, am.change(
+                doc, lambda d: d["m"].__setitem__("_drain", 1)))
+    n_orphan_rejoins = 0
+    for q in range(quiesce_ticks):
+        for tid, c in list(clients.items()):
+            if c.alive and svc.session(tid) is None:
+                epoch[tid] = epoch.get(tid, 0) + 1
+                n_orphan_rejoins += 1
+                wire(tid, c.room_id, empty=True)
+        pump_all(q)
+        if svc.idle() \
+                and all(c.idle() for c in clients.values() if c.alive) \
+                and all(svc.session(tid) is None for tid in killed):
+            break
+    else:
+        raise AssertionError(
+            f"service seed {seed}: never quiesced "
+            f"(unevicted={[t for t in killed if svc.session(t)]}, "
+            f"metrics={svc.metrics()})")
+
+    svc.probe_lag()
+    m = svc.metrics()
+    metrics.clear()
+    metrics.update(m, n_clients=n_clients, n_rooms=n_rooms,
+                   killed=n_kills_done, rejoined=n_rejoins_done,
+                   orphan_rejoins=n_orphan_rejoins,
+                   tick_p99_ms_telemetry=svc.tick_p99_ms_telemetry())
+    rooms = {}
+    for g in range(n_rooms):
+        room_id = f"room-{g}"
+        server_doc = svc.room(room_id).doc_set.get_doc(room_id)
+        members = live_room_members(room_id)
+        if server_doc is None:
+            _check(not members, f"room {room_id} lost its server replica")
+            continue
+        docs = [server_doc] + [c.ds.get_doc(room_id) for c in members]
+        ok, diff = _converged(am, docs)
+        _check(ok, f"service seed {seed} room {room_id} diverged: {diff}")
+        hists = [_histories(am, d) for d in docs]
+        _check(hists.count(hists[0]) == len(hists),
+               f"service seed {seed} room {room_id}: histories diverged")
+        _check_on(M, docs, device, f"service seed {seed} {room_id}")
+        rooms[room_id] = _doc_states(am, docs)
+    _check(m["peak_inbox"] <= cfg.default_budget.inbox_cap
+           + cfg.recv_window, m)
+    _check(m["peak_recv_buf"] <= cfg.recv_window, m)
+    _check(m["peak_parked"] <= cfg.quarantine_global_capacity, m)
+    for g in range(n_rooms):
+        gate = svc.room(f"room-{g}").gate
+        _check(gate._n_parked == 0,
+               f"service seed {seed}: room-{g} quarantine not drained")
+    for c in clients.values():
+        if c.alive:
+            _check(len(c.chan._recv_buf) <= 1024, c.tid)
+    _check(m["max_starved_streak"] <= 2 * cfg.starvation_boost_ticks, m)
+    for tid in killed:
+        _check(svc.reclaimed(tid),
+               f"service seed {seed}: tenant {tid} not reclaimed after "
+               "eviction")
+    _check(m["evictions"] >= n_kills_done, m)
+    lag = svc.replication_lag()
+    laggards = {t: v for t, v in lag.items() if v["ops"]}
+    _check(not laggards,
+           f"service seed {seed}: replication lag nonzero at quiescence: "
+           f"{dict(list(laggards.items())[:5])}")
+    _check(m["max_lag_ops"] == 0 and m["max_lag_ticks"] == 0, m)
+    _lineage_acceptance(M, svc, clients, seed, metrics)
+    return rooms
+
+
+def _lineage_acceptance(M, svc, clients, seed, metrics):
+    """scripts/soak.py `_lineage_acceptance` (:931), when lineage
+    sampling is on: >= 99% of the sampled changes the server committed
+    show a complete origin-to-visibility chain on every surviving
+    replica of their room."""
+    lin = M.lineage
+    led = lin.ledger()
+    if led is None or not lin.ENABLED:
+        return
+    live_by_room: dict = {}
+    for tid, c in clients.items():
+        if c.alive and svc.session(tid) is not None:
+            live_by_room.setdefault(c.room_id, set()).add(tid)
+    total = complete = 0
+    incomplete_sample = []
+    for ch in led.chains():
+        vis = led.visible_sites(ch)
+        for room_id in {d for d in ch["docs"]
+                        if isinstance(d, str) and d in svc._rooms}:
+            server_site = f"svc:{room_id}"
+            if server_site not in vis:
+                continue
+            origin = ch["origin_site"] or ""
+            if origin.startswith("c-") and "-e" in origin:
+                origin_replica = origin[2:].rsplit("-e", 1)[0]
+            else:
+                origin_replica = server_site
+            expected = {server_site} | live_by_room.get(room_id, set())
+            expected.discard(origin_replica)
+            total += 1
+            if ch["origin_ns"] is not None and expected <= vis:
+                complete += 1
+            elif len(incomplete_sample) < 5:
+                incomplete_sample.append(
+                    (ch["actor"], ch["seq"], sorted(expected - vis),
+                     [h[0] for h in ch["hops"]]))
+    ratio = complete / total if total else 1.0
+    metrics.update(
+        lineage_rate=led.rate, lineage_sampled_chains=led.n_chains,
+        lineage_commit_population=total,
+        lineage_complete_ratio=round(ratio, 4),
+        lineage_hops_per_chain=round(
+            led.stats["hops_recorded"] / max(1, led.stats[
+                "chains_started"]), 2),
+        lineage_max_quarantine_dwell_ms=led.max_dwell_ms("quar/park"),
+        lineage_max_defer_dwell_ms=led.max_dwell_ms("svc/defer"),
+        lineage_visibility_p99_ms=led.visibility_ms(0.99))
+    _check(total > 0,
+           f"service seed {seed}: lineage sampling enabled but no sampled "
+           f"chain committed at any server replica (rate {led.rate})")
+    _check(ratio >= 0.99,
+           f"service seed {seed}: only {ratio:.2%} of sampled changes "
+           f"have a complete origin->visibility chain on every surviving "
+           f"replica; first incomplete: {incomplete_sample}")
+
+
+def _sharded_stream(seed: int, n_docs: int, n_actors: int, n_seqs: int,
+                    hot_doc: str, hot_factor: int, n_chunks: int):
+    """scripts/soak.py `_sharded_stream` (:992): per-doc causally
+    chained change lists, shuffled across docs and seqs, ~10%
+    duplicated, chunked into `n_chunks` serving rounds."""
+    rng = np.random.default_rng(seed * 7919 + 17)
+    docs = [f"sdoc-{seed}-{i}" for i in range(n_docs)]
+    flat = []
+    for di, doc in enumerate(docs):
+        seqs = n_seqs * (hot_factor if doc == hot_doc else 1)
+        for s in range(1, seqs + 1):
+            for a in range(n_actors):
+                actor, run = f"w{a}", 4
+                base = (s - 1) * run + 1
+                key = "_head" if s == 1 else f"{actor}:{base - 1}"
+                ops = []
+                for k in range(run):
+                    ctr = base + k
+                    ops.append({"action": "ins", "obj": doc, "key": key,
+                                "elem": ctr})
+                    ops.append({"action": "set", "obj": doc,
+                                "key": f"{actor}:{ctr}",
+                                "value": chr(97 + (ctr + a + di) % 26)})
+                    key = f"{actor}:{ctr}"
+                deps = {} if s == 1 else \
+                    {f"w{b}": s - 1 for b in range(n_actors) if b != a}
+                flat.append((doc, {"actor": actor, "seq": s,
+                                   "deps": deps, "ops": ops}))
+    rng.shuffle(flat)
+    for i in rng.choice(len(flat), max(1, len(flat) // 10),
+                        replace=False):
+        flat.insert(int(rng.integers(0, len(flat))), flat[int(i)])
+    per = max(1, -(-len(flat) // n_chunks))
+    rounds = []
+    for c in range(0, len(flat), per):
+        chunk: dict = {}
+        for doc, ch in flat[c: c + per]:
+            chunk.setdefault(doc, []).append(ch)
+        rounds.append(chunk)
+    return docs, rounds
+
+
+def _soak_mesh(torch, M, device, n_shards: int):
+    """A ShardedDocSet of `n_shards` lanes on `device` (None: the card's
+    streams), at the soak's capacity."""
+    devices = None if device is None else [torch.device(device)]
+    return M.shard.ShardedDocSet(n_shards=n_shards, capacity=64,
+                                 devices=devices)
+
+
+def soak_sharded(torch, M, device, seed: int, n_docs: int = 8,
+                 n_actors: int = 2, n_seqs: int = 4, shard_counts=(1, 8),
+                 parallel_lanes: str = None) -> dict:
+    """scripts/soak.py session_sharded (:1038): the same seeded chaotic
+    stream served at every shard count, with a telemetry-triggered
+    migration of the hot doc on the multi-shard mesh, converges to equal
+    captures and texts. The executor assertion follows the port's rule:
+    lane workers run when the lanes span more than one device
+    (`parallel_lanes_enabled(lane_devices(...))`), so on one card or the
+    CPU every leg is sequential unless `parallel_lanes` sets
+    AMTPU_PARALLEL_LANES for the call ("1": workers on every leg)."""
+    P = M.lanes
+    max_shards = max(shard_counts)
+    ids = [f"sdoc-{seed}-{i}" for i in range(n_docs)]
+    homes = [M.shard.hash_shard(d, max_shards) for d in ids]
+    hot_doc = ids[0]
+    for i, d in enumerate(ids):
+        if homes.count(homes[i]) >= 2:
+            hot_doc = d
+            break
+    results = {}
+    exec_stats = {}
+    prior = os.environ.get("AMTPU_PARALLEL_LANES")
+    if parallel_lanes is not None:
+        os.environ["AMTPU_PARALLEL_LANES"] = parallel_lanes
+    try:
+        for n_shards in shard_counts:
+            docs, rounds = _sharded_stream(seed, n_docs, n_actors, n_seqs,
+                                           hot_doc, hot_factor=4,
+                                           n_chunks=6)
+            mesh = _soak_mesh(torch, M, device, n_shards)
+            try:
+                if n_shards >= 2:
+                    mesh.attach_rebalancer(ratio=2.0, min_ops=64,
+                                           cooldown=2)
+                mesh.deliver_rounds(rounds)
+                ex = mesh._executor
+                if P.parallel_lanes_enabled(P.lane_devices(mesh.lanes)):
+                    _check(ex is not None, f"sharded seed {seed} "
+                           f"({n_shards} shards): parallel lanes enabled "
+                           "but no executor engaged")
+                if ex is not None:
+                    _check(ex.stats["barriers"] > 0
+                           and ex.stats["errors"] == 0
+                           and ex.stats["submitted"]
+                           == ex.stats["completed"],
+                           f"sharded seed {seed} ({n_shards} shards): lane "
+                           f"workers attached but never engaged cleanly "
+                           f"({ex.stats})")
+                    exec_stats[str(n_shards)] = dict(ex.stats)
+            finally:
+                mesh.close()
+            for doc in docs:
+                _check(mesh.quarantined(doc) == 0,
+                       f"sharded seed {seed} ({n_shards} shards): "
+                       f"quarantine not drained for {doc}")
+            if n_shards >= 2:
+                _check(mesh.stats["migrations"] >= 1,
+                       f"sharded seed {seed}: no telemetry-triggered "
+                       f"migration on the {n_shards}-shard mesh "
+                       f"({mesh.stats}, loads "
+                       f"{mesh.rebalancer.window_loads()})")
+            _check_lane_tables(mesh)
+            results[n_shards] = ({doc: mesh.capture(doc) for doc in docs},
+                                 mesh.texts(), dict(mesh.stats))
+    finally:
+        if prior is None:
+            os.environ.pop("AMTPU_PARALLEL_LANES", None)
+        else:
+            os.environ["AMTPU_PARALLEL_LANES"] = prior
+    ref_shards = shard_counts[0]
+    bundles0, texts0, _ = results[ref_shards]
+    for n_shards, (bundles, texts, _stats) in results.items():
+        _check(texts == texts0, f"sharded seed {seed}: texts diverged at "
+               f"{n_shards} vs {ref_shards} shards")
+        for doc in bundles0:
+            _check(bundles[doc] == bundles0[doc],
+                   f"sharded seed {seed}: checkpoint bytes of {doc} "
+                   f"diverged at {n_shards} vs {ref_shards} shards")
+    metrics = dict(
+        shard_counts=list(shard_counts), n_docs=n_docs, hot_doc=hot_doc,
+        **{f"stats_{n}_shards": results[n][2] for n in shard_counts},
+        migrations=results[max_shards][2]["migrations"],
+        parked=results[max_shards][2]["parked"],
+        released=results[max_shards][2]["released"],
+        lane_executor=exec_stats)
+    return {"metrics": metrics,
+            "captures": {d: _digest(b) for d, b in bundles0.items()},
+            "texts": texts0}
+
+
+def soak_residency(torch, M, device, seed: int, n_docs: int = 40,
+                   n_seqs: int = 4, budget_docs: int = 4) -> dict:
+    """scripts/soak.py session_residency (:1130): a population >= 10x
+    the device byte budget served through the residency tier against an
+    unbounded reference mesh; the peak footprint gauge stays within the
+    budget after every round and every doc converges. On the card the
+    record also carries the allocator's peak
+    (`cuda_max_memory_allocated`, after a reset; recorded, not
+    asserted)."""
+    import tempfile
+    dtruth = M.dt
+    rng = np.random.default_rng(seed * 6133 + 11)
+    docs = [f"rdoc-{seed}-{i}" for i in range(n_docs)]
+    streams = {}
+    for di, doc in enumerate(docs):
+        actor, run_len = f"r{di}", 3
+        chs = []
+        for s in range(1, n_seqs + 1):
+            base = (s - 1) * run_len + 1
+            key = "_head" if s == 1 else f"{actor}:{base - 1}"
+            ops = []
+            for k in range(run_len):
+                ctr = base + k
+                ops.append({"action": "ins", "obj": doc, "key": key,
+                            "elem": ctr})
+                ops.append({"action": "set", "obj": doc,
+                            "key": f"{actor}:{ctr}",
+                            "value": chr(97 + (ctr + di) % 26)})
+                key = f"{actor}:{ctr}"
+            chs.append({"actor": actor, "seq": s, "deps": {}, "ops": ops})
+        streams[doc] = chs
+    pos = {d: 0 for d in docs}
+    skipped: dict = {}
+    rounds = []
+    while True:
+        pool = [d for d in docs if pos[d] < n_seqs or d in skipped]
+        if not pool:
+            break
+        chunk = {}
+        for i in rng.choice(len(pool), size=min(2, len(pool)),
+                            replace=False):
+            d = pool[int(i)]
+            if d in skipped:
+                out = [streams[d][skipped.pop(d)]]
+            elif pos[d] + 1 < n_seqs and rng.random() < 0.2:
+                skipped[d] = pos[d]
+                out = [streams[d][pos[d] + 1]]
+                pos[d] += 2
+            else:
+                out = [streams[d][pos[d]]]
+                pos[d] += 1
+            if rng.random() < 0.1:
+                out = out + [out[0]]
+            chunk[d] = out
+        rounds.append(chunk)
+
+    ref = _soak_mesh(torch, M, device, 2)
+    for chunk in rounds:
+        ref.deliver_round(chunk)
+    ref_caps = {d: ref.capture(d) for d in docs}
+    ref_texts = ref.texts()
+    per_doc = max(doc.device_footprint()["device_bytes"]
+                  for lane in ref.lanes for doc in lane.docs.values())
+    ref.close()
+    del ref
+    budget = budget_docs * per_doc
+    _check(n_docs * per_doc >= 10 * budget,
+           f"residency seed {seed}: population only "
+           f"{n_docs * per_doc / budget:.1f}x the budget")
+    cuda = torch.device(device or "cuda").type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        allocated0 = torch.cuda.memory_allocated()
+    dtruth.REGISTRY.clear_session()
+    with tempfile.TemporaryDirectory() as spill:
+        mesh = _soak_mesh(torch, M, device, 2)
+        try:
+            res = mesh.attach_residency(budget_bytes=budget,
+                                        spill_dir=spill, cold_after=4)
+            for n, chunk in enumerate(rounds):
+                mesh.deliver_round(chunk)
+                peak = dtruth.REGISTRY.footprint()["peak_device_bytes"]
+                _check(peak <= budget, f"residency seed {seed}: round {n} "
+                       f"peak {peak} > budget {budget}")
+            for d in docs:
+                _check(mesh.quarantined(d) == 0, f"residency seed {seed}: "
+                       f"quarantine not drained for {d}")
+            acct = res.accounting()
+            population = sorted(acct["hot"] + acct["warm"] + acct["cold"])
+            _check(population == sorted(docs),
+                   f"residency seed {seed}: tier accounting lost docs")
+            m = res.metrics()
+            _check(m["budget_overruns"] == 0,
+                   f"residency seed {seed}: {m['budget_overruns']} budget "
+                   "overruns (working set exceeded the budget)")
+            _check(m["page_outs"] > 0 and m["page_ins"] > 0, m)
+            _check(m["prefetches"] > 0, f"residency seed {seed}: "
+                   f"premature arrivals never prefetched a demoted doc "
+                   f"({m})")
+            _check(m["cold_ages"] > 0, f"residency seed {seed}: the disk "
+                   f"tier never engaged ({m})")
+            texts = {}
+            for d in docs:
+                _check(mesh.capture(d) == ref_caps[d],
+                       f"residency seed {seed}: capture of {d} diverged "
+                       "after paging churn")
+                res.ensure_resident(d)
+                lane = mesh.lane_of(d)
+                with lane.device_ctx():
+                    texts[d] = lane.docs[d].text()
+            _check(texts == ref_texts, f"residency seed {seed}: texts "
+                   "diverged after paging churn")
+            fp = dtruth.REGISTRY.footprint()
+            peak = fp["peak_device_bytes"]
+            _check(peak <= budget, f"residency seed {seed}: paged reads "
+                   f"breached the budget ({peak} > {budget})")
+            _check_lane_tables(mesh)
+            final = res.metrics()
+        finally:
+            mesh.close()
+    metrics = dict(
+        n_docs=n_docs, budget_bytes=budget, per_doc_bytes=per_doc,
+        population_over_budget=round(n_docs * per_doc / budget, 1),
+        peak_resident_bytes=final["peak_resident_bytes"],
+        gauge_peak_bytes=peak, hit_rate=final["hit_rate"],
+        page_in_p99_ms=final["page_in_p99_ms"],
+        page_ins=final["page_ins"], page_outs=final["page_outs"],
+        prefetches=final["prefetches"], cold_ages=final["cold_ages"],
+        cold_loads=final["cold_loads"],
+        budget_overruns=final["budget_overruns"])
+    return {"metrics": metrics,
+            "captures": {d: _digest(b) for d, b in ref_caps.items()},
+            "texts": ref_texts,
+            "cuda_max_memory_allocated": fp.get("cuda_max_memory_allocated"),
+            "cuda_allocated_at_reset": allocated0 if cuda else None}
+
+
+SOAK_EVENTS = ("chaos.", "chan.", "quar.", "svc.")   # what the seed fixes
+SOAK_SESSIONS = {"general": soak_general, "conflict": soak_conflict,
+                 "lossy": soak_lossy, "table": soak_table,
+                 "chaos": soak_chaos, "checkpoint": soak_checkpoint,
+                 "service": soak_service, "sharded": soak_sharded,
+                 "residency": soak_residency}
+
+
+def _soak_run(torch, M, device, profile: str, seed: int, **kw) -> dict:
+    """One soak session on `device` from pinned uuids and zeroed
+    learned-index counters (the service's on a TickClock): -> its record
+    plus `wall_s` and `events`, the obs counter delta (soak.run's
+    summary). Run it under obs.tracing()."""
+    sync = _sync_of(torch, device)
+    _pinned_uuids(M)
+    M.learned.reset_stats()
+    # a session is a deployment of its own: lineage off and no ledger
+    # retained from an earlier phase (describe() would carry it)
+    M.lineage.disable()
+    M.lineage._ledger = None
+    c0 = dict(M.obs.metrics_snapshot()["counters"])
+    fn = SOAK_SESSIONS[profile]
+    try:
+        t = time.perf_counter()
+        if profile == "service":
+            with TickClock().installed(M.service.server):
+                out = fn(torch, M, device, seed, **kw)
+        else:
+            out = fn(torch, M, device, seed, **kw)
+        sync()
+        wall = time.perf_counter() - t
+    finally:
+        M.uuid.reset()
+    c1 = M.obs.metrics_snapshot()["counters"]
+    events = {k: v - c0.get(k, 0) for k, v in sorted(c1.items())
+              if v - c0.get(k, 0) > 0}
+    return dict(out, wall_s=wall, events=events)
+
+
+def _soak_state(rec: dict) -> dict:
+    """What a card run must share with its CPU run: the session's record
+    less wall-clock readings, the allocator's, the scrape counts (the
+    card's page carries device families) and the events the seed does
+    not fix (device dispatches and syncs)."""
+    out = {k: v for k, v in rec.items()
+           if k not in ("wall_s", "events", "cuda_max_memory_allocated",
+                        "cuda_allocated_at_reset")}
+    out["events"] = {k: v for k, v in rec["events"].items()
+                     if k.startswith(SOAK_EVENTS)}
+    if "metrics" in out:
+        out["metrics"] = {k: v for k, v in out["metrics"].items()
+                          if not k.startswith("scrape_")}
+    return _nt(out)
+
+
+def soak_twin(torch, M, profile: str, seed: int, **kw) -> tuple:
+    """A soak session's CPU run: (its `_soak_state`, its seconds)."""
+    with M.obs.tracing():
+        rec = _soak_run(torch, M, "cpu", profile, seed, **kw)
+    return _soak_state(rec), rec["wall_s"]
+
+
+_TWIN: dict = {}
+
+
+def _twin_init():
+    """A CpuTwins worker's start: this script's port namespace, on three
+    intra-op threads (two workers and the card's host thread share the
+    card machine's eight cores)."""
+    import torch
+    torch.set_num_threads(3)
+    _TWIN.update(torch=torch, M=port_modules())
+
+
+def _twin_call(name: str, args, kw, item):
+    out = globals()[name](_TWIN["torch"], _TWIN["M"], *args, **kw)
+    return out if item is None else out[item]
+
+
+class CpuTwins:
+    """Two spawned worker processes for the CPU runs the card's phases
+    are held to: they go on there while this process drives the card,
+    and never touch it. `submit(name, *args, item=None, **kw)` runs this
+    script's top-level function name(torch, M, *args, **kw) in a free
+    worker and returns a future of its result (of `result[item]` when
+    `item` is given). A worker imports this script by its module name
+    from the path it inherits. Leaving the `with` block stops them."""
+
+    def __init__(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        self._pool = ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_twin_init)
+
+    def submit(self, name: str, *args, item=None, **kw):
+        return self._pool.submit(_twin_call, name, args, kw, item)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+
+def soak_phase(torch, M, card: str, device=None, seeds=SOAK_SEEDS,
+               clients: int = SOAK_CLIENTS,
+               client_ticks: int = SOAK_CLIENT_TICKS, twins=None) -> dict:
+    """Phase 19: scripts/soak.py's sessions other than federation on
+    `device`, at the soak's defaults for every seed in `seeds`, plus one
+    service session of `clients` tenants over `client_ticks` ticks
+    (`--service --clients 1000`) serving its scrape endpoint, and the
+    sharded session's 8-shard leg again with AMTPU_PARALLEL_LANES=1. On
+    the card every session's CPU run goes to `twins` (a CpuTwins) before
+    the card's runs start, and each card session must end in its CPU
+    run's state (`_soak_state`). Raises on the first failure. The kernel
+    counts are set to 0 before each card session and read after it."""
+    cuda = torch.device(device or "cuda").type == "cuda"
+    count, launches, shapes, by_part = part_counts(
+        M, _sync_of(torch, device))
+    specs = [(f"{p}/{s}", p, s, {}) for p in SOAK_SESSIONS for s in seeds]
+    specs.append((f"service/0@{clients}", "service", 0,
+                  {"n_clients": clients, "n_ticks": client_ticks}))
+    wants = {part: twins.submit("soak_twin", p, s, **kw)
+             for part, p, s, kw in specs} if cuda else {}
+    t_phase = time.perf_counter()
+    out = {"seeds": list(seeds), "clients": clients, "sessions": {}}
+    with M.obs.tracing():
+        for part, profile, seed, kw in specs:
+            card_kw = dict(kw, scrape=True) if "n_clients" in kw else kw
+            rec = count(part, lambda: _soak_run(torch, M, device, profile,
+                                                seed, **card_kw))
+            want, cpu_s = wants[part].result() if cuda else (
+                _soak_state(rec), None)
+            if _soak_state(rec) != want:
+                raise AssertionError(f"19 {part}: the card's final state "
+                                     "differs from the CPU run's")
+            row = {"wall_s": rec["wall_s"], "cpu_s": cpu_s,
+                   "events": rec["events"], "launches": by_part[part]}
+            m = rec.get("metrics", {})
+            if profile == "service":
+                row.update({k: m[k] for k in (
+                    "n_clients", "killed", "rejoined", "orphan_rejoins",
+                    "evictions", "shed_total", "deferrals",
+                    "max_starved_streak", "peak_inbox")},
+                    scrape={k: v for k, v in m.items()
+                            if k.startswith("scrape_")})
+            if profile == "sharded":
+                row["migrations"] = m["migrations"]
+                workers = count(f"{part}+workers", lambda: _soak_run(
+                    torch, M, device, profile, seed, shard_counts=(8,),
+                    parallel_lanes="1"))
+                if (workers["captures"], workers["texts"]) != (
+                        rec["captures"], rec["texts"]):
+                    raise AssertionError(f"19 {part}: the 8-shard leg "
+                                         "with lane workers differs")
+                row["workers"] = {"wall_s": workers["wall_s"],
+                                  "lane_executor": workers["metrics"][
+                                      "lane_executor"],
+                                  "launches": by_part[f"{part}+workers"]}
+            if profile == "residency":
+                row.update(budget_bytes=m["budget_bytes"],
+                           peak_device_bytes=m["gauge_peak_bytes"],
+                           cuda_max_memory_allocated=rec[
+                               "cuda_max_memory_allocated"],
+                           cuda_allocated_at_reset=rec[
+                               "cuda_allocated_at_reset"],
+                           page_ins=m["page_ins"], page_outs=m["page_outs"],
+                           hit_rate=m["hit_rate"])
+            out["sessions"][part] = row
+            log(f"19 {part} ({card}): {rec['wall_s']:.2f} s (CPU run "
+                f"{cpu_s} s), equal to the CPU run; launches "
+                f"{by_part[part]}; events {rec['events']}")
+    if cuda and not launches["multi_scan"]:
+        raise AssertionError(f"19: multi_scan missed the soak: {launches}")
+    out.update(launches=launches, shapes=shapes,
+               wall_s=time.perf_counter() - t_phase)
+    log(f"soak phase launches: {launches}; phase {out['wall_s']:.2f} s "
+        f"({card})")
+    log("soak record: " + json.dumps(dict(out, shapes={
+        k: {"x".join(map(str, sh)): n for sh, n in v.items()}
+        for k, v in shapes.items()})))
+    return out
+
+
+# --- the cold text-planning population (bench.py cfg12t / cfg19) -----------
+
+PLAN_DOCS = 512                # 20: bench.py measure_text_prepare (cfg12t)
+PLAN_CAP = 1024                # and measure_learned_index (cfg19): 512 text
+PLAN_SEED_OPS = 64             # docs at capacity 1,024, a 64-op seed round,
+PLAN_ROUNDS = 8                # then 2 warm-up and 5 timed streams of 8
+PLAN_OPS = 8                   # rounds of 8 ops a doc
+PLAN_WARMUP = 2
+PLAN_REPS = 5
+PLAN_TERMS = ("detect_runs", "index_merge", "rank_resolve", "admission",
+              "cross_doc")
+
+
+def plan_streams(doc_ids, n_rounds: int, ops: int, n_streams: int) -> list:
+    """bench.py measure_text_prepare's streams after its seed round:
+    stream r is n_rounds rounds of `_sharded_text_round`, each appending
+    an ops-op run to every doc."""
+    streams = []
+    for rep in range(n_streams):
+        seq0 = 2 + rep * n_rounds
+        base = 33 + (seq0 - 2) * (ops // 2)
+        streams.append([stack_text_round(doc_ids, seq0 + r,
+                                         base + (ops // 2) * r, ops)
+                        for r in range(n_rounds)])
+    return streams
+
+
+def _plan_terms(M) -> dict:
+    aggs = M.obs.telemetry().span_aggregates()
+    return {name: aggs.get(("plan", name), {}).get("total_ns", 0)
+            for name in PLAN_TERMS}
+
+
+def plan_run(torch, M, device, n_docs: int = PLAN_DOCS,
+             n_rounds: int = PLAN_ROUNDS, ops: int = PLAN_OPS,
+             warmup: int = PLAN_WARMUP, reps: int = PLAN_REPS,
+             profile: bool = False) -> dict:
+    """cfg12t's cross_doc leg (cfg19's production leg) on `device`: the
+    seed round, then warmup + reps streams through `apply_stacked`, each
+    round stacked within its budget, each stream timed to a sync and its
+    garbage collection held off. Returns the admitted ops/s of the timed
+    streams, the stacked counters, the plan span terms over every stream,
+    the learned sites' statistics and the final texts. With `profile`,
+    one more stream runs under torch.profiler after the texts are read
+    (its busy share)."""
+    import gc
+    sync = _sync_of(torch, device)
+    doc_ids = [f"tp-{i:05d}" for i in range(n_docs)]
+    M.learned.reset_stats()
+    docs = {d: M.DeviceTextDoc(d, capacity=PLAN_CAP, device=device)
+            for d in doc_ids}
+    seed = stack_text_round(doc_ids, 1, 1, PLAN_SEED_OPS)
+    st = M.stacked.apply_stacked([(docs[k], v) for k, v in seed.items()])
+    _check(st, "20: the seed round fell off the stacked path")
+    streams = plan_streams(doc_ids, n_rounds, ops,
+                           warmup + reps + int(profile))
+    rates, merges, plans, shared = [], 0, 0, 0
+    terms0 = _plan_terms(M)
+
+    def stream(rounds):
+        nonlocal merges, plans, shared
+        admitted = 0
+        for chunk in rounds:
+            st = M.stacked.apply_stacked([(docs[k], v)
+                                          for k, v in chunk.items()])
+            _check(st, "20: a round fell off the stacked path")
+            M.stacked.assert_round_budget(st)
+            merges += st["index_merges"]
+            plans += st["text_plans"]
+            shared += (st.get("cross_doc") or {}).get("sched_shared", 0)
+            admitted += sum(len(c["ops"]) for v in chunk.values()
+                            for c in v)
+        sync()
+        return admitted
+
+    gc_was = gc.isenabled()
+    try:
+        for rounds in streams[:warmup + reps]:
+            gc.collect()
+            gc.disable()
+            t0 = time.perf_counter()
+            admitted = stream(rounds)
+            rates.append(admitted / (time.perf_counter() - t0))
+            if gc_was:
+                gc.enable()
+    finally:
+        if gc_was:
+            gc.enable()
+    terms = {k: (v - terms0[k]) / 1e9 for k, v in _plan_terms(M).items()}
+    sites = M.learned.stats_snapshot()
+    texts = {k: d.text() for k, d in docs.items()}
+    out = {"ops_per_s": rates[warmup:], "index_merges": merges,
+           "text_plans": plans, "sched_shared": shared,
+           "plan_terms_s": terms, "sites": sites,
+           "texts_sha256": _digest(json.dumps(texts, sort_keys=True)
+                                   .encode())}
+    if profile:
+        wall, dev_us, n_ops, _, _ = _profiled(
+            torch, True, lambda: stream(streams[-1]))
+        out["profile"] = {"wall_s": wall, "device_s": dev_us / 1e6,
+                          "device_ops": n_ops,
+                          "busy_share": dev_us / 1e6 / wall}
+    return out
+
+
+def plan_twin(torch, M, **sizes) -> dict:
+    """Phase 20's CPU run: what the card's run must share with it, and
+    its seconds."""
+    t = time.perf_counter()
+    with M.obs.tracing():
+        rec = plan_run(torch, M, "cpu", **sizes)
+    return dict({k: rec[k] for k in ("texts_sha256", "index_merges",
+                                     "text_plans", "sched_shared")},
+                cpu_s=time.perf_counter() - t)
+
+
+def plan_phase(torch, M, card: str, device=None, profile: bool = False,
+               cpu_run=None, **sizes) -> dict:
+    """Phase 20: bench.py cfg12t/cfg19's 512-document cold planning
+    population on `device` (`plan_run`), with bench.py's in-run checks
+    (every apply stacked within its budget, one index merge per planned
+    text round, a shared cross-doc schedule) and cfg19's that the port
+    can make (the cross_doc_seed and range_index sites verified model
+    joins, no site demoted). On the card `cpu_run` is the future of the
+    same stream's CPU run (`plan_twin`, submitted to a CpuTwins before
+    phase 19 so that it runs beside that phase), whose final texts and
+    stacked counters the card's must equal. The kernel counts are set to
+    0 before the card's run and read after it."""
+    cuda = torch.device(device or "cuda").type == "cuda"
+    count, launches, shapes, _ = part_counts(M, _sync_of(torch, device))
+    t_phase = time.perf_counter()
+    with M.obs.tracing():
+        rec = count("20", lambda: plan_run(torch, M, device,
+                                           profile=profile, **sizes))
+    _check(rec["index_merges"] == rec["text_plans"],
+           f"20: {rec['index_merges']} index merges for "
+           f"{rec['text_plans']} planned text rounds")
+    _check(rec["sched_shared"] > 0,
+           "20: the cross-doc planner never shared a schedule")
+    for site in ("cross_doc_seed", "range_index"):
+        _check(rec["sites"][site]["hits"] > 0,
+               f"20: the learned site {site} never engaged: {rec['sites']}")
+    demotions = sum(v["demotions"] for v in rec["sites"].values())
+    _check(demotions == 0, f"20: a learned site demoted: {rec['sites']}")
+    if cuda:
+        _check(launches["multi_scan"] > 0,
+               f"20: multi_scan missed the stacked rounds: {launches}")
+        want = cpu_run.result()
+        rec["cpu_s"] = want["cpu_s"]
+        _check(want["texts_sha256"] == rec["texts_sha256"],
+               "20: the card's texts differ from the CPU run's")
+        _check((want["index_merges"], want["text_plans"],
+                want["sched_shared"]) == (rec["index_merges"],
+                                          rec["text_plans"],
+                                          rec["sched_shared"]),
+               "20: the card's stacked counters differ from the CPU run's")
+    rates = rec["ops_per_s"]
+    rec.update(launches=launches, shapes=shapes,
+               ops_per_s_spread=_spread(rates),
+               wall_s=time.perf_counter() - t_phase)
+    log(f"20 cold planning ({card}): {len(rates)} timed streams, admitted "
+        f"ops/s median {rec['ops_per_s_spread']['median']:.0f} "
+        f"({min(rates):.0f}-{max(rates):.0f}); {rec['text_plans']} "
+        f"planned text rounds, {rec['index_merges']} index merges; plan "
+        f"terms {rec['plan_terms_s']}; launches {launches}; phase "
+        f"{rec['wall_s']:.2f} s")
+    log("plan record: " + json.dumps(dict(rec, shapes={
+        k: {"x".join(map(str, sh)): n for sh, n in v.items()}
+        for k, v in shapes.items()})))
+    return rec
+
+
 def _sharded_library(torch, chain, has, ne, n: int):
     """One PyTorch program's form of the sharded scans: per shard the
     library scans (`torch.cumsum` x 2, `torch.cummax`) on its precomputed
@@ -5382,6 +6890,7 @@ def port_modules():
                                             MapChangeBatch,
                                             PipelinedIngestor, accounting,
                                             runs, stacked)
+    from automerge_tpu_torch.engine import learned_index
     from automerge_tpu_torch.engine.columnar import TextChangeBatch
     from automerge_tpu_torch.engine.text_doc import DeviceTextDoc
     from automerge_tpu_torch.obs import device_truth, export, lineage, prom
@@ -5390,6 +6899,7 @@ def port_modules():
     from automerge_tpu_torch.parallel import _dryrun
     from automerge_tpu_torch.parallel import mesh as pmesh
     from automerge_tpu_torch.shard import audit
+    from automerge_tpu_torch.shard import parallel as lanes
     return SimpleNamespace(
         C=_common, native=native, obs=obs, ckpt=checkpoint, uuid=_uuid,
         dt=device_truth, export=export, lineage=lineage, prom=prom,
@@ -5400,7 +6910,8 @@ def port_modules():
         stacked=stacked, S=scan_kernels, bucket=bucket, am=am,
         device_backend=device_backend, shard=shard, residency=residency,
         pmesh=pmesh, dryrun=_dryrun, audit=audit, service=service,
-        federation=federation, res=resilience)
+        federation=federation, res=resilience, lanes=lanes,
+        learned=learned_index)
 
 
 def main() -> int:
@@ -5423,12 +6934,23 @@ def main() -> int:
                     help="only build the kernels and run phase 18 (the "
                          "JAX package's remaining workloads), printing "
                          "its record as the last line")
+    ap.add_argument("--soak", action="store_true",
+                    help="only build the kernels and run phases 19-20 (the "
+                         "soak campaign and the cold planning population), "
+                         "printing their record as the last line")
     ap.add_argument("--wrapper-host", metavar="ROOT", default=None,
                     help="only time the host work per call of the "
                          "segment-scan wrappers of the package under ROOT "
                          "(this checkout's or another's) and print it as "
                          "the last line")
     args = ap.parse_args()
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        # one string-hash order for this process and the CpuTwins worker
+        # it spawns: the order of the sync hub's sets reaches a service
+        # session's schedule, so the card's runs and their CPU runs must
+        # iterate them alike
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5482,9 +7004,29 @@ def main() -> int:
         print(json.dumps({k: v for k, v in rec.items() if k != "shapes"}),
               flush=True)
         return 0
+    if args.soak:
+        with ThreadPoolExecutor(2) as ex:
+            native_build = ex.submit(M.native.load)
+            S.build()
+            native_build.result()
+        with CpuTwins() as twins:
+            plan_cpu = twins.submit("plan_twin")
+            rec = {"soak": soak_phase(torch, M, card, twins=twins),
+                   "plan": plan_phase(torch, M, card, cpu_run=plan_cpu,
+                                      profile=bool(args.profile))}
+        print(card, flush=True)
+        print(json.dumps({p: {k: v for k, v in r.items() if k != "shapes"}
+                          for p, r in rec.items()}), flush=True)
+        return 0
 
     # 2. build: the CUDA kernels (nvcc) and the host codec (g++), started
     # together
+    t_run = time.perf_counter()
+    ends = {}
+
+    def phase_done(label):
+        ends[label] = round(time.perf_counter() - t_run, 1)
+        log(f"phase {label} done {ends[label]} s into the run")
 
     def timed(fn):
         t = time.perf_counter()
@@ -5503,11 +7045,15 @@ def main() -> int:
         if "registers" in ln or "Compiling entry" in ln:
             log(f"ptxas: {ln.strip()}")
 
+    phase_done("2")
+
     # 3. kernels vs plain, and one eager call of each at the merge shapes
     # (the device-time readings, by CUDA graphs, come after the paths)
     check_kernels(torch, S)
     eager = time_eager_merge(torch, S)
     n_expect = BASE_LEN + N_ACTORS * (OPS_PER_CHANGE // 2)
+
+    phase_done("3")
 
     # 4. main path at full width
     heals = heal_watch(logging)
@@ -5591,13 +7137,19 @@ def main() -> int:
         raise AssertionError(f"segment mirror healed: {heals.records}")
     del doc, cpu_doc
 
+    phase_done("4-6")
+
     # 6a. the streaming ring: bench.py --pipeline's stream at full width
     ring = ring_phase(torch, M, card)
     if any("diverged" in m for m in heals.records):
         raise AssertionError(f"segment mirror healed: {heals.records}")
 
+    phase_done("6a")
+
     # 6b. a 1,000,000-key map document: fast-path and slow-path rounds
     map_phase(torch, M, card)
+
+    phase_done("6b")
 
     # 8. the multi-document tier (it runs before phase 7, which times the
     # kernels at every shape the paths launched): 8a the stacked executor
@@ -5623,6 +7175,8 @@ def main() -> int:
     stacked_launches = {k: st_a["launches"][k] + st_b["launches"][k]
                         for k in S.launches}
 
+    phase_done("8")
+
     # 9. the public API on the card (before phase 7 too): api-a cfg4's
     # trellis merge at 1,000 actors, api-b cfg7's interactive latency on a
     # 100,000-char text, api-c one graduation
@@ -5632,55 +7186,93 @@ def main() -> int:
                           for sh in set(st_a["shapes"][k])
                           | set(st_b["shapes"][k])} for k in S.launches}
 
+    phase_done("9")
+
     # 12. the checkpoint tier (before phase 7 too): the engine cold start
     # at bench.py measure_restore's sizes under obs.tracing(), the API's
     # checkpoint forms on api-b's document, the cfg5f ring under captures
     ckpt = ckpt_phase(torch, M, card,
                       out_dir=os.path.join(here, "chiprun_out"))
 
-    # 13. the sync tier (before phase 7 too): sync-a cfg9's fan-out to 20
-    # peers on cfg7's text, a reconnect and a late full-history join;
-    # sync-b a 20-peer join storm served from one snapshot; sync-c two
-    # replicas under cross-region WAN chaos
-    sync = sync_phase(torch, M, card)
+    phase_done("12")
 
-    # 14. the sharded serving tier (before phase 7 too): shard-a cfg12's
-    # 5,120 map and 512 text docs on 8 lanes (streams) of the card, with
-    # the workers, sequentially and on one lane; shard-b the router's
-    # park/drain, a forced and a rebalancer migration; shard-c cfg18
-    # through the pager
-    shard_rec = shard_phase(torch, M, card)
+    # the CPU runs of phases 13, 16, 17, 19 and 20 go on in two worker
+    # processes while this one drives the card
+    with CpuTwins() as twins:
+        # 13. the sync tier (before phase 7 too): sync-a cfg9's fan-out to 20
+        # peers on cfg7's text, a reconnect and a late full-history join;
+        # sync-b a 20-peer join storm served from one snapshot; sync-c two
+        # replicas under cross-region WAN chaos
+        sync = sync_phase(torch, M, card, twins=twins)
 
-    # 15. the mesh path (before phase 7 too): 15a the kernel pair checked
-    # over virtual shards of the card, 15b the headline document (phase
-    # 5's) materialized elem-sharded over 8 shards, 15c the cfg3 DocSet
-    # on a (2, 4) mesh and on the cards, 15d the dry run and the audit
-    mesh_rec = mesh_phase(torch, M, card, doc2, sha(r["text"]))
-    del doc2
+        phase_done("13")
 
-    # 7 (first part). one kernel per call, before phases 16-17: after
-    # 16a's population a profiler session loses device events (it saw no
-    # activity at all for an fs_totals call that ran), and after phase
-    # 7's CUDA graph replays too; a session left behind slows later host
-    # launches, which phase 15's ten sessions already do
-    per_call = check_kernels_per_call(torch, S)
+        # 14. the sharded serving tier (before phase 7 too): shard-a cfg12's
+        # 5,120 map and 512 text docs on 8 lanes (streams) of the card, with
+        # the workers, sequentially and on one lane; shard-b the router's
+        # park/drain, a forced and a rebalancer migration; shard-c cfg18
+        # through the pager
+        shard_rec = shard_phase(torch, M, card)
 
-    # 16. the service tier (before phase 7 too): 16a cfg11 at its
-    # defaults, 16b the same service on rooms of cfg7's text, 16c 16a on
-    # 8 lanes (streams) with the pager, sequential and pipelined ticks,
-    # 16d the loopback scrape endpoint
-    svc_rec = svc_phase(torch, M, card)
+        phase_done("14")
 
-    # 17. the federation (before phase 7 too): scripts/soak.py
-    # session_federation at its defaults, every region's rooms on the card
-    fed_rec = fed_phase(torch, M, card)
+        # 15. the mesh path (before phase 7 too): 15a the kernel pair checked
+        # over virtual shards of the card, 15b the headline document (phase
+        # 5's) materialized elem-sharded over 8 shards, 15c the cfg3 DocSet on
+        # a (2, 4) mesh and on the cards, 15d the dry run and the audit
+        mesh_rec = mesh_phase(torch, M, card, doc2, sha(r["text"]))
+        del doc2
 
-    # 18. the JAX package's remaining workloads (before phase 7 too): 18a
-    # cfg5b residual-heavy and 18b cfg5c two causal rounds at the
-    # headline's width, 18c cfg6 conflict-heavy, 18d cfg2's shared
-    # counter, 18e cfg10 save/load, 18f cfg7b nested edits under a
-    # 100,000-key root; each against a CPU run
-    adv_rec = adv_phase(torch, M, card, clean_commit_s=r["commit_s"])
+        phase_done("15")
+
+        # 7 (first part). one kernel per call, before phases 16-17: after 16a's
+        # population a profiler session loses device events (it saw no activity
+        # at all for an fs_totals call that ran), and after phase 7's CUDA
+        # graph replays too; a session left behind slows later host launches,
+        # which phase 15's ten sessions already do
+        per_call = check_kernels_per_call(torch, S)
+
+        phase_done("7a")
+
+        # 16. the service tier (before phase 7 too): 16a cfg11 at its defaults,
+        # 16b the same service on rooms of cfg7's text, 16c 16a on 8 lanes
+        # (streams) with the pager, sequential and pipelined ticks, 16d the
+        # loopback scrape endpoint
+        svc_rec = svc_phase(torch, M, card, twins=twins)
+
+        phase_done("16")
+
+        # 17. the federation (before phase 7 too): scripts/soak.py
+        # session_federation at its defaults, every region's rooms on the card
+        fed_rec = fed_phase(torch, M, card, twins=twins)
+
+        phase_done("17")
+
+        # 18. the JAX package's remaining workloads (before phase 7 too): 18a
+        # cfg5b residual-heavy and 18b cfg5c two causal rounds at the
+        # headline's width, 18c cfg6 conflict-heavy, 18d cfg2's shared counter,
+        # 18e cfg10 save/load, 18f cfg7b nested edits under a 100,000-key root;
+        # each against a CPU run
+        adv_rec = adv_phase(torch, M, card, clean_commit_s=r["commit_s"])
+
+        phase_done("18")
+
+        # 19. the soak campaign (before phase 7 too): scripts/soak.py's nine
+        # sessions other than federation at seeds 0-2 and a 1,000-client
+        # service session, each against the same seed on the CPU; phase
+        # 20's CPU run goes to a worker now and runs beside it
+        plan_cpu = twins.submit("plan_twin")
+        soak_rec = soak_phase(torch, M, card, twins=twins)
+
+        phase_done("19")
+
+        # 20. the cold text-planning population (before phase 7 too): bench.py
+        # cfg12t/cfg19's 512 documents through the cross-doc planner, the batch
+        # index and the learned index, against a CPU run
+        plan_rec = plan_phase(torch, M, card, cpu_run=plan_cpu,
+                              profile=bool(args.profile))
+
+    phase_done("20")
 
     # 7. kernel times at every shape the driven paths launched with
     shapes_by_path = {"main": main_shapes, "self_contained": sc_shapes,
@@ -5691,7 +7283,8 @@ def main() -> int:
                       "mesh": mesh_rec["shapes"],
                       "service": svc_rec["shapes"],
                       "federation": fed_rec["shapes"],
-                      "adversarial": adv_rec["shapes"]}
+                      "adversarial": adv_rec["shapes"],
+                      "soak": soak_rec["shapes"], "plan": plan_rec["shapes"]}
     log(f"launches by shape on the driven paths: {shapes_by_path}")
     shapes = {k: set().union(*(p[k] for p in shapes_by_path.values()))
               for k in S.launches}
@@ -5708,6 +7301,8 @@ def main() -> int:
         ((DOCSET_DOCS, M.bucket(DOCSET_ACTORS * DOCSET_CHARS + 64)),
          MESH_DOCSET), ((4, 384), (2, 4))])        # the last: the dry run
     host = wrapper_host_us(torch, S)
+
+    phase_done("7")
 
     # 10. optional profiles: the headline commit, the multi-document
     # tier, one api-a merge
@@ -5729,7 +7324,8 @@ def main() -> int:
                "mesh": mesh_rec["launches"],
                "service": svc_rec["launches"],
                "federation": fed_rec["launches"],
-               "adversarial": adv_rec["launches"]}
+               "adversarial": adv_rec["launches"],
+               "soak": soak_rec["launches"], "plan": plan_rec["launches"]}
     kernels = []
     for name, replaces, path in (
             ("multi_scan", "automerge_tpu/ops/scan_pallas.py:204", "main"),
@@ -5781,6 +7377,7 @@ def main() -> int:
                 p: {"x".join(map(str, sh)): n
                     for sh, n in d.get(name, {}).items()}
                 for p, d in shapes_by_path.items()}})
+    log(f"phase end times (s into the run): {ends}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

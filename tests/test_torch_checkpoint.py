@@ -62,6 +62,7 @@ from automerge_tpu_torch.engine import DeviceTextDoc as TDoc
 from automerge_tpu_torch.engine import PipelinedIngestor
 from automerge_tpu_torch.engine import TextChangeBatch as TBatch
 from automerge_tpu_torch.resilience import CheckpointError, ProtocolError
+from test_torch_soak_docs import threads_checked
 
 CPU = T.backend.backend_for("cpu")
 KEYS = TDoc._TABLE_KEYS
@@ -75,6 +76,13 @@ def pinned_uuids():
     yield
     j_uuid.reset()
     t_uuid.reset()
+
+
+@pytest.fixture(autouse=True)
+def no_leaked_threads():
+    """A test that leaves a new live thread behind fails, naming it."""
+    with threads_checked():
+        yield
 
 
 def opts(am, actor):

@@ -42,6 +42,7 @@ from automerge_tpu_torch.obs import device_truth as T_dt
 from automerge_tpu_torch.obs.telemetry import Telemetry as TTelemetry
 from automerge_tpu_torch.ops import scan_kernels as S
 from test_shard import chaotic_stream, map_change, text_change
+from test_torch_soak_docs import threads_checked
 
 CPU = torch.device("cpu")
 
@@ -67,6 +68,13 @@ def same(run):
 @pytest.fixture(autouse=True)
 def _small_gate(monkeypatch):
     monkeypatch.setenv("AMTPU_STACKED_MIN_OPS", "1")
+
+
+@pytest.fixture(autouse=True)
+def no_leaked_threads():
+    """A test that leaves a new live thread behind fails, naming it."""
+    with threads_checked():
+        yield
 
 
 # ---------------------------------------------------------------------------

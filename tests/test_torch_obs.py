@@ -45,6 +45,7 @@ from automerge_tpu_torch.obs.export import (TraceValidationError,
 from automerge_tpu_torch.obs.lineage import LineageLedger, sample_key
 from automerge_tpu_torch.obs.recorder import FlightRecorder
 from automerge_tpu_torch.ops import scan_kernels as S
+from test_torch_soak_docs import threads_checked
 
 PORT_ROOT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "automerge_tpu_torch")
@@ -55,6 +56,13 @@ LEDGERS = pytest.mark.parametrize("led_mod", [j_lineage, lineage],
 def as_port(batch):
     return TBatch(**{k: getattr(batch, k)
                      for k in batch.__dataclass_fields__})
+
+
+@pytest.fixture(autouse=True)
+def no_leaked_threads():
+    """A test that leaves a new live thread behind fails, naming it."""
+    with threads_checked():
+        yield
 
 
 @pytest.fixture(autouse=True)

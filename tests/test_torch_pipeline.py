@@ -28,8 +28,16 @@ from automerge_tpu_torch.engine import PipelinedIngestor
 from automerge_tpu_torch.engine import TextChangeBatch as TBatch
 from automerge_tpu_torch.ops import fused_round as F
 from automerge_tpu_torch.ops import ingest as I
+from test_torch_soak_docs import threads_checked
 
 KEYS = TDoc._TABLE_KEYS
+
+
+@pytest.fixture(autouse=True)
+def no_leaked_threads():
+    """A test that leaves a new live thread behind fails, naming it."""
+    with threads_checked():
+        yield
 
 
 def as_port(batch):

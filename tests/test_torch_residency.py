@@ -45,17 +45,18 @@ from automerge_tpu_torch.obs import device_truth as T_dt
 from automerge_tpu_torch.obs import lineage as T_lineage
 from automerge_tpu_torch.obs import prom as T_prom
 from test_residency import doc_stream, text_change
+from test_torch_soak_docs import threads_checked
 
 CPU = torch.device("cpu")
 
 J = SimpleNamespace(
     name="jax", res=JRES, shard=JSH, dt=J_dt, acct=J_acct,
     lineage=J_lineage, prom=J_prom,
-    mesh=lambda **kw: JSH.ShardedDocSet(**kw))
+    mesh=lambda **kw: _opened(JSH.ShardedDocSet(**kw)))
 T = SimpleNamespace(
     name="port", res=TRES, shard=TSH, dt=T_dt, acct=T_acct,
     lineage=T_lineage, prom=T_prom,
-    mesh=lambda **kw: TSH.ShardedDocSet(devices=[CPU], **kw))
+    mesh=lambda **kw: _opened(TSH.ShardedDocSet(devices=[CPU], **kw)))
 
 
 def same(run):
@@ -79,6 +80,26 @@ def _fresh_gauges():
     yield
     for P in (J, T):
         P.dt.REGISTRY.clear_session()
+
+
+#: every mesh a test opened through `J.mesh` / `T.mesh`
+_OPEN = []
+
+
+def _opened(mesh):
+    _OPEN.append(mesh)
+    return mesh
+
+
+@pytest.fixture(autouse=True)
+def no_leaked_threads():
+    """Every mesh a test opened is closed after it (the JAX package's
+    lanes on its virtual devices run worker threads), and a test that
+    still leaves a new live thread behind fails, naming it."""
+    with threads_checked():
+        yield
+        while _OPEN:
+            _OPEN.pop().close()
 
 
 def build_mesh(P, n_shards=2, budget=0, spill_dir=None, capacity=256,

@@ -76,6 +76,7 @@ import automerge_tpu as J
 import automerge_tpu_torch as T
 from automerge_tpu import _uuid as j_uuid
 from automerge_tpu_torch import _uuid as t_uuid
+from test_torch_soak_docs import threads_checked
 
 CPU = T.backend.backend_for("cpu")
 ROOT_DIR = Path(__file__).resolve().parent.parent
@@ -159,6 +160,13 @@ def _isolated():
         P.lineage.disable()
     j_uuid.reset()
     t_uuid.reset()
+
+
+@pytest.fixture(autouse=True)
+def no_leaked_threads():
+    """A test that leaves a new live thread behind fails, naming it."""
+    with threads_checked():
+        yield
 
 
 def both(fn):

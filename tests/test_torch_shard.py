@@ -39,16 +39,17 @@ from automerge_tpu.obs import lineage as J_lineage
 from automerge_tpu_torch.engine import stacked as T_stacked
 from automerge_tpu_torch.obs import lineage as T_lineage
 from test_shard import chaotic_stream, map_change, text_change
+from test_torch_soak_docs import threads_checked
 
 CPU = torch.device("cpu")
 
 J = SimpleNamespace(
     name="jax", shard=JSH, stacked=J_stacked, lineage=J_lineage,
-    mesh=lambda **kw: JSH.ShardedDocSet(**kw),
+    mesh=lambda **kw: _opened(JSH.ShardedDocSet(**kw)),
     lane=lambda i, **kw: JSH.ShardLane(i, **kw))
 T = SimpleNamespace(
     name="port", shard=TSH, stacked=T_stacked, lineage=T_lineage,
-    mesh=lambda **kw: TSH.ShardedDocSet(devices=[CPU], **kw),
+    mesh=lambda **kw: _opened(TSH.ShardedDocSet(devices=[CPU], **kw)),
     lane=lambda i, **kw: TSH.ShardLane(i, device=CPU, **kw))
 
 
@@ -64,6 +65,26 @@ def same(run):
 def _small_gate(monkeypatch):
     """Engage the stacked path at test scale on both packages."""
     monkeypatch.setenv("AMTPU_STACKED_MIN_OPS", "1")
+
+
+#: every mesh a test opened through `J.mesh` / `T.mesh`
+_OPEN = []
+
+
+def _opened(mesh):
+    _OPEN.append(mesh)
+    return mesh
+
+
+@pytest.fixture(autouse=True)
+def no_leaked_threads():
+    """Every mesh a test opened is closed after it (the JAX package's
+    lanes on its virtual devices run worker threads), and a test that
+    still leaves a new live thread behind fails, naming it."""
+    with threads_checked():
+        yield
+        while _OPEN:
+            _OPEN.pop().close()
 
 
 def mesh_state(mesh, docs) -> dict:
