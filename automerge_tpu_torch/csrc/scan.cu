@@ -19,11 +19,11 @@
 // at 3.35 TB/s, against a few microseconds to launch and drain a grid, so
 // there the design counts device operations per call and idle lanes.
 //
-// multi_scan, and the segment scans' look-back form: one single-pass
-// launch, a chained scan with decoupled look-back (Merrill & Garland,
-// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA
-// 2016). The TPU kernels carry their running totals across a grid that
-// runs in order; Hopper blocks run in no order, so each block here
+// The look-back form of every kernel here: one single-pass launch, a
+// chained scan with decoupled look-back (Merrill & Garland, "Single-pass
+// Parallel Prefix Scan with Decoupled Look-back", NVIDIA 2016). The TPU
+// kernels carry their running totals across a grid that runs in order;
+// Hopper blocks run in no order, so each block here
 //   1. takes its tile from a ticket (an atomic counter in the scratch), so
 //      every tile before it has already started and the look-back below
 //      never waits on a block that was never scheduled;
@@ -43,33 +43,46 @@
 //      inside each warp, each lane fetching the masks and prefix of the
 //      lane whose slots it stores), so each warp stores whole contiguous
 //      int4 vectors.
-// A status word is one 64-bit {flag, value}, written and read whole with
-// ld/st.relaxed.gpu, so a reader never sees a flag without its value. Sums
+// A status word is one 64-bit {tag, value}, written and read whole with
+// ld/st.relaxed.gpu, so a reader never sees a tag without its value. Sums
 // run in unsigned arithmetic (wrap-around defined, equal to
 // torch.cumsum(..., dtype=torch.int32)); the max of the segment heads has
 // identity 0 because its candidates are global slot numbers >= 1, or 0.
-// multi_scan's scratch is per call, zeroed by a memset before its launch.
 //
-// The segment scans take one column or (rows, n) matrices, every row
-// scanned on its own with its own element count (the DocSet's per-document
-// materialization, a shard's block of rows). The host picks one of three
-// forms from the row length n (ops/scan_kernels.py fs_geometry; the entry
-// points refuse another):
-//   warp form,     n <= kFsWarpRow (1,024 = 32 lanes x one 32-slot mask):
-//                  one warp a row, kFsWarps (8) rows a 256-thread block; a
-//                  warp scan, then the shuffle transpose of step 5. No
-//                  ticket, no look-back, no shared memory, no scratch.
-//   block form,    n <= kFsTile (8,192): one block a row, the tile steps
+// Both kernels take (rows, n) matrices, every row scanned on its own
+// (multi_scan's (K, N) channels; for the segment scans one column or the
+// DocSet's per-document rows, each with its own element count, a shard's
+// block of rows). The host picks one of three forms from the row length n
+// (ops/scan_kernels.py ms_geometry and fs_geometry; the entry points
+// refuse another):
+//   warp form,     n <= 1,024 (kMsWarpRow = 32 lanes x kMsItems int32;
+//                  kFsWarpRow = 32 lanes x one 32-slot mask): one warp a
+//                  row, 8 rows a 256-thread block. No ticket, no
+//                  look-back, no shared memory, no scratch. The segment
+//                  scans' lane holds 32 consecutive slots as a mask, scans
+//                  by shuffles and stores by the transpose of step 5.
+//                  multi_scan's warp scans its row in striped rounds of
+//                  128 columns instead: in round j lane L loads the int4 of
+//                  columns 4 (32 j + L) .. + 3, scans its 4 values
+//                  serially and the lane totals by shuffles, adds the
+//                  carry of the rounds before and stores the int4 where it
+//                  loaded it, so every load and store instruction of the
+//                  warp covers 512 contiguous bytes. 32 int32 a lane do not
+//                  fold into one word as 32 bools do, and a transpose by
+//                  shuffles would index registers by lane. A row of 256
+//                  columns takes 2 rounds, all loads issued before the
+//                  first scan.
+//   block form,    n <= the tile (8,192): one block a row, the tile steps
 //                  2-5 above without the ticket and the look-back. No
 //                  scratch.
-//   look-back form, longer rows: tpr = ceil(n / kFsTile) tiles a row, the
+//   look-back form, longer rows: tpr = ceil(n / tile) tiles a row, the
 //                  ticket running row after row, the look-back inside the
 //                  row. The scratch below.
-// Before, every row took at least one 8,192-slot tile with a ticket and a
-// look-back: 97.7% of each block's slots were padding at the per-shard
-// (500, 192) of the mesh DocSet. A small launch is bound by its latency:
-// each form issues its count, carry-in and column loads together before
-// it uses any of them.
+// A short row in a tile of its own would idle most of a block (97% of
+// the slots at the mesh DocSet's per-shard (500, 192) and of the lanes at
+// the (6, 256) per-object rounds) and pay a ticket and a look-back. A
+// small launch is bound by its latency: each form issues its count,
+// carry-in and column loads together before it uses any of them.
 //
 // The sharded form (an element column cut into shards, each scanned at its
 // own global base) is reduce, exchange, then scan. fs_totals reduces one
@@ -88,25 +101,40 @@
 // and writes the three int32 columns once: 16 bytes a slot against the 14
 // of one pass, plus 12 bytes a row and shard of totals.
 //
-// The segment scans' scratch persists across launches: one buffer per
-// (device, stream), owned by ops/scan_kernels.py, zeroed once when it is
-// allocated, laid out as int64 words [header: ticket, arrivals, epoch]
-// [one u32 counter a row] [status words]. Every launch is one kernel and
-// nothing else (no memset, no fill), and all state from one launch to the
-// next lives on the device, so a replayed CUDA graph stays right:
+// The look-back scratch persists across launches: one buffer per (device,
+// stream, kernel family: multi_scan, or the segment scans), owned by
+// ops/scan_kernels.py, zeroed once when it is allocated, laid out as two
+// int64 header words, [one u32 counter a row, for fs_totals], [status
+// words]. Every launch is one kernel and nothing else (no memset, no
+// fill), and all state from one launch to the next lives on the device,
+// so a replayed CUDA graph stays right:
 //   - the ticket and every counter reset themselves: atomicInc(c, k - 1)
 //     wraps to 0 on the k-th increment, and a launch takes exactly k;
 //   - a status word carries the launch's tag (epoch + 1) in its upper
-//     half. Blocks read the epoch when they take their ticket; the last
-//     block of the launch to arrive (a second self-resetting counter,
-//     counted after each block's look-back) advances it. A word left by an
-//     earlier launch carries an older tag and never reads as published.
-//     The tag runs 1 .. 2^32 - 1; when the next tag would wrap to 0 the
-//     last block first clears every status word of the buffer, so a stale
-//     word can never carry a live tag: wrap-around is excluded, not made
-//     unlikely;
+//     half (fs_scan: the tag, with an aggregate and a prefix triple a
+//     tile; multi_scan: tag << 1, its low bit set for an inclusive prefix,
+//     one word a tile). Blocks read the epoch when they take their ticket.
+//     A word left by an earlier launch carries an older tag and never
+//     reads as published;
+//   - fs_scan's header is u32 {ticket, arrivals, epoch}: the last block of
+//     the launch to arrive (a second self-resetting counter, counted after
+//     each block's look-back: a fence and an atomic a block) advances the
+//     epoch. multi_scan's is one u64 {epoch, ticket} that one 64-bit
+//     atomic draws from, and the launch's last draw advances the epoch and
+//     resets the ticket in one store: it counts no arrivals (a trial that
+//     did slowed its merge shape by a few percent) but in the launch whose
+//     tag is the last;
+//   - the tag runs 1 .. 2^32 - 1 (multi_scan 1 .. 2^31 - 1); the launch
+//     whose next tag would wrap to 0 counts arrivals, and its last block
+//     clears every status word of the buffer before the epoch starts again
+//     at 0, so a stale word can never carry a live tag: wrap-around is
+//     excluded, not made unlikely;
 //   - fs_totals' partials keep upper halves of 0, which no tag equals.
-// Launches on one stream run one after another, so they share its scratch
+// The two families tag their words differently, so each keeps its own
+// buffer: a multi_scan launch between two fs_scan launches on one stream
+// (a commit's expansion, then its self-contained read) leaves no epoch or
+// word that an fs_scan reads.
+// Launches on one stream run one after another, so they share its buffers
 // safely; two streams never share one. A graph replays its kernels with
 // the scratch of the stream that captured it, so it must not run while
 // other work on that stream does. The buffer grows (a new zeroed one) when
@@ -117,10 +145,10 @@
 //
 // Inputs the 16-byte path cannot take (multi_scan with N % 4 != 0, so that
 // a row does not start on 16 bytes; any pointer off 16-byte alignment,
-// such as a bool view t[1:]; bool rows of a length off a multiple of 16)
-// take a scalar path inside the same kernel, chosen by the entry point
-// from the pointers and lengths. The ragged edge of a row is masked on
-// either path, in every form.
+// such as a bool view t[1:] or an int32 view 4 bytes in; bool rows of a
+// length off a multiple of 16) take a scalar path inside the same kernel,
+// chosen by the entry point from the pointers and lengths. The ragged edge
+// of a row is masked on either path, in every form.
 //
 // Sizes, from one run of scripts/sweep_scan_tiles.py at the merge shapes
 // on an H100 80GB HBM3 at 700 W, each call reading its input from HBM
@@ -135,7 +163,10 @@
 // 0.044 ms. With the shuffle transpose the look-back form takes 48
 // registers and 116 bytes of shared memory (5 blocks per SM), the other
 // forms 40 (ptxas -v); chip_smoke.py's phase 7 reads it at 0.0384 ms on
-// the same card. Evict-first 16-byte stores (__stcs) beat plain ones in
+// the same card. multi_scan's forms (ptxas -v): the look-back 64
+// registers and 32,812 bytes of shared memory (4 blocks per SM, as the
+// single form had), the block form 76 registers, the warp form 47 and no
+// shared memory. Evict-first 16-byte stores (__stcs) beat plain ones in
 // both kernels (0.129 vs 0.133 ms, 0.038 vs 0.039 ms). TMA bulk copies
 // were not taken: the plain 16-byte loads already pass half the bound.
 //
@@ -152,18 +183,20 @@ typedef unsigned long long u64;
 constexpr int kMsThreads = 256;
 constexpr int kMsItems = 32;                      // int32 per thread
 constexpr int kMsTile = kMsThreads * kMsItems;    // columns per tile
+constexpr int kMsWarps = kMsThreads / 32;
+constexpr int kMsWarpRow = 32 * kMsItems;         // columns of a warp-form row
+constexpr int kMsStatusWords = 1;                 // status words per tile
 constexpr int kFsThreads = 256;
 constexpr int kFsItems = 32;                      // slots per thread: one mask
 constexpr int kFsTile = kFsThreads * kFsItems;    // slots per tile
 constexpr int kFsWords = 6;                       // status words per tile
 constexpr int kFsWarps = kFsThreads / 32;
 constexpr int kFsWarpRow = 32 * kFsItems;         // slots of a warp-form row
-constexpr int kFsHeaderWords = 2;                 // ticket, arrivals, epoch
+constexpr int kHeaderWords = 2;                   // ticket, arrivals, epoch
 constexpr int kWarpForm = 0, kBlockForm = 1, kLookbackForm = 2;
 constexpr unsigned kEpochWrap = 0xffffffffu;      // an epoch never stored
+constexpr unsigned kMsTagMax = 0x7fffffffu;       // (tag << 1) | 1 fits u32
 constexpr unsigned kFull = 0xffffffffu;
-constexpr u64 kFlagA = 1ull << 32;                // aggregate published
-constexpr u64 kFlagP = 2ull << 32;                // inclusive prefix published
 
 static_assert(kMsItems % 4 == 0 && kMsItems >= 4 && kMsItems <= 32,
               "multi_scan items per thread: a multiple of 4, at most 32");
@@ -172,7 +205,8 @@ static_assert(kMsThreads % 32 == 0 && kFsThreads % 32 == 0,
 static_assert(kMsThreads / 32 <= 32 && kFsThreads / 32 <= 32,
               "one warp scans the warp totals");
 static_assert(kFsItems == 32, "one 32-bit mask per column per thread");
-static_assert(kFsWarpRow <= kFsTile, "a warp-form row fits a tile");
+static_assert(kFsWarpRow <= kFsTile && kMsWarpRow <= kMsTile,
+              "a warp-form row fits a tile");
 
 // ------------------------------------------------------------------ helpers
 
@@ -191,6 +225,89 @@ __device__ __forceinline__ u64 ld_status(const u64* p) {
 // A 16-byte evict-first store of results no kernel here reads again.
 __device__ __forceinline__ void store4(int* p, int4 v) {
   __stcs(reinterpret_cast<int4*>(p), v);
+}
+
+// The 4 int32 of w to out[e .. e + 3], those below n: one 16-byte store
+// when the caller allows it (vec_out) and all 4 are in the row.
+__device__ __forceinline__ void store_int4(int* out, int e, int n,
+                                           int vec_out, int4 w) {
+  if (vec_out && e + 4 <= n) {
+    store4(out + e, w);
+  } else {
+    if (e < n) out[e] = w.x;
+    if (e + 1 < n) out[e + 1] = w.y;
+    if (e + 2 < n) out[e + 2] = w.z;
+    if (e + 3 < n) out[e + 3] = w.w;
+  }
+}
+
+// The 4 int32 at in[e .. e + 3], 0 past n: one 16-byte load when allowed.
+__device__ __forceinline__ int4 load_int4(const int* in, int e, int n,
+                                          int vec_in) {
+  if (vec_in && e + 4 <= n)
+    return __ldg(reinterpret_cast<const int4*>(in + e));
+  int4 v;
+  v.x = e < n ? in[e] : 0;
+  v.y = e + 1 < n ? in[e + 1] : 0;
+  v.z = e + 2 < n ? in[e + 2] : 0;
+  v.w = e + 3 < n ? in[e + 3] : 0;
+  return v;
+}
+
+__device__ __forceinline__ unsigned ld_u32(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_u32(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// One block of a look-back launch is done with the status words: true in
+// the thread of the launch's last block to say so (the counter wraps to 0
+// behind it), once every block's words are visible. Run by one thread a
+// block, after the block's look-back.
+__device__ bool last_to_arrive(unsigned* counter) {
+  __threadfence();
+  if (atomicInc(counter, gridDim.x - 1) != gridDim.x - 1) return false;
+  __threadfence();
+  return true;
+}
+
+__device__ void clear_words(u64* words, long long n) {
+  for (long long k = 0; k < n; ++k) st_status(words + k, 0ull);
+}
+
+// fs_scan's epoch: the last block to arrive (counter hdr[1]) advances the
+// epoch hdr[2], so the next launch on this scratch tags its words anew;
+// when the next epoch would be kEpochWrap it first clears every status
+// word and starts again from 0, so a stale word never carries a live tag.
+__device__ void arrive(unsigned* hdr, u64* words, long long word_cap) {
+  if (!last_to_arrive(hdr + 1)) return;
+  unsigned next = ld_u32(hdr + 2) + 1u;
+  if (next == kEpochWrap) {
+    clear_words(words, word_cap);
+    next = 0;
+  }
+  st_u32(hdr + 2, next);
+}
+
+// fs_scan's ticket (the tile this block scans, in the order blocks
+// started; hdr[0] resets itself after the launch's last block) and the
+// launch's tag, epoch + 1, both in every thread.
+__device__ __forceinline__ void take_ticket(unsigned* hdr, int* sh_tile,
+                                            unsigned* sh_tag, int* tile,
+                                            unsigned* tag) {
+  if (threadIdx.x == 0) {
+    *sh_tile = static_cast<int>(atomicInc(hdr, gridDim.x - 1));
+    *sh_tag = ld_u32(hdr + 2) + 1u;
+  }
+  __syncthreads();
+  *tile = *sh_tile;
+  *tag = *sh_tag;
 }
 
 // Shared-memory index of int4 vector q: XOR the low three bits with the
@@ -230,133 +347,207 @@ __device__ __forceinline__ unsigned warp_max(unsigned v) {
   return v;
 }
 
-// Ticket: the tile this block scans, in the order blocks started.
-__device__ __forceinline__ int take_ticket(unsigned* ticket, int* sh) {
-  if (threadIdx.x == 0) *sh = static_cast<int>(atomicAdd(ticket, 1u));
-  __syncthreads();
-  return *sh;
-}
-
 // ---------------------------------------------------------------- multi_scan
 
+// Everything one multi_scan launch reads.
+struct MsArgs {
+  const int* x;
+  int* y;
+  int n, tpr, rows;            // row length, tiles per row, rows
+  int vec_in, vec_out;         // 16-byte loads / stores allowed
+  u64* hdr;                    // look-back scratch: {epoch, ticket}, arrivals
+  u64* words;                  // look-back scratch: one status word a tile
+  long long word_cap;
+};
+
 // Decoupled look-back of one row, run by one whole warp. `st` is the row's
-// status words, `idx` this tile's index in the row, `agg` its aggregate.
-// Returns the sum of every tile before it in the row.
-__device__ unsigned lookback_sum(u64* st, int idx, unsigned agg, int lane) {
+// status words, `idx` this tile's index in the row, `agg` its aggregate,
+// `tag` this launch's. A word's upper half is (tag << 1) | P: P set for an
+// inclusive prefix, clear for an aggregate. Returns the sum of every tile
+// before it in the row.
+__device__ unsigned lookback_sum(u64* st, int idx, unsigned agg, int lane,
+                                 unsigned tag) {
+  const u64 flag_a = static_cast<u64>(tag << 1) << 32;
+  const u64 flag_p = flag_a | (1ull << 32);
   if (idx == 0) {
-    if (lane == 0) st_status(st, kFlagP | agg);
+    if (lane == 0) st_status(st, flag_p | agg);
     return 0;
   }
-  if (lane == 0) st_status(st + idx, kFlagA | agg);
+  if (lane == 0) st_status(st + idx, flag_a | agg);
   unsigned excl = 0;
   for (int p = idx - 1 - lane;; p -= 32) {
-    u64 s = kFlagP;                            // before the row: P, value 0
+    u64 s = flag_p;                            // before the row: P, value 0
     if (p >= 0) {
       do {
         s = ld_status(st + p);
-      } while ((s >> 32) == 0);
+      } while (static_cast<unsigned>(s >> 33) != tag);
     }
-    const unsigned pm = __ballot_sync(kFull, (s >> 32) == (kFlagP >> 32));
+    const unsigned pm = __ballot_sync(kFull, (s >> 32) & 1u);
     const int last = pm ? __ffs(pm) - 1 : 31;  // nearest tile with P
     excl += warp_sum(lane <= last ? static_cast<unsigned>(s) : 0u);
     if (pm) break;
   }
-  if (lane == 0) st_status(st + idx, kFlagP | (excl + agg));
+  if (lane == 0) st_status(st + idx, flag_p | (excl + agg));
   return excl;
 }
 
-__global__ void __launch_bounds__(kMsThreads)
-ms_scan(const int* __restrict__ x, int* __restrict__ y, int n, int tpr,
-        int vec_in, int vec_out, unsigned* ticket, u64* status) {
-  constexpr int kWarps = kMsThreads / 32;
+// multi_scan's look-back header is one u64 {epoch (upper half), ticket},
+// then a u32 arrival counter. One 64-bit atomic gives a block its ticket
+// (its tile, in the order blocks started) and the launch's tag, epoch + 1,
+// both in every thread. The launch's last draw sets the header to ticket 0
+// under the next epoch: every block of the launch already holds its tag,
+// and the next launch starts only after this one has ended. So a launch
+// pays one atomic a block, no fence, and no arrival, except the launch
+// whose tag is kMsTagMax: its last block to arrive clears every status
+// word and sets the header to 0 (ms_scan), so the tags start again at 1
+// and no stale word carries one.
+__device__ __forceinline__ void ms_take_ticket(u64* hdr, int* sh_tile,
+                                               unsigned* sh_tag, int* tile,
+                                               unsigned* tag) {
+  if (threadIdx.x == 0) {
+    const u64 old = atomicAdd(hdr, 1ull);
+    const unsigned ticket = static_cast<unsigned>(old);
+    const unsigned launch_tag = static_cast<unsigned>(old >> 32) + 1u;
+    *sh_tile = static_cast<int>(ticket);
+    *sh_tag = launch_tag;
+    if (ticket == gridDim.x - 1 && launch_tag != kMsTagMax)
+      st_status(hdr, static_cast<u64>(launch_tag) << 32);
+  }
+  __syncthreads();
+  *tile = *sh_tile;
+  *tag = *sh_tag;
+}
+
+// One row of at most kMsWarpRow columns, scanned by one warp in striped
+// rounds of 128 columns: lane L of round j holds columns 4 (32 j + L) ..
+// + 3. Every round's loads are issued first; a round past the row's end
+// loads and stores nothing (the test is the same for the whole warp).
+__device__ __forceinline__ void ms_warp_row(const MsArgs& a, int row,
+                                            int lane) {
+  constexpr int kRounds = kMsItems / 4;
+  const size_t off = static_cast<size_t>(row) * a.n;
+  const int* xr = a.x + off;
+  int* yr = a.y + off;
+  int4 v[kRounds];
+#pragma unroll
+  for (int j = 0; j < kRounds; ++j)
+    if (128 * j < a.n) v[j] = load_int4(xr, 4 * (32 * j + lane), a.n,
+                                        a.vec_in);
+  unsigned carry = 0;                          // the rounds before
+#pragma unroll
+  for (int j = 0; j < kRounds; ++j) {
+    if (128 * j >= a.n) break;
+    const unsigned s0 = v[j].x, s1 = s0 + v[j].y, s2 = s1 + v[j].z,
+                   s3 = s2 + v[j].w;
+    const unsigned incl = warp_incl_sum(s3, lane);
+    const unsigned add = carry + incl - s3;
+    int4 w;
+    w.x = static_cast<int>(s0 + add);
+    w.y = static_cast<int>(s1 + add);
+    w.z = static_cast<int>(s2 + add);
+    w.w = static_cast<int>(s3 + add);
+    store_int4(yr, 4 * (32 * j + lane), a.n, a.vec_out, w);
+    carry += __shfl_sync(kFull, incl, 31);
+  }
+}
+
+// The inclusive prefix sums of `rows` rows of n int32, each on its own.
+// kWarpForm: one warp a row (n <= kMsWarpRow), kMsWarps rows a block.
+// kBlockForm: one block a row (n <= kMsTile). kLookbackForm: tpr tiles a
+// row, taken from the self-resetting ticket row after row, the look-back
+// inside the row.
+template <int kForm>
+__global__ void __launch_bounds__(kMsThreads) ms_scan(MsArgs a) {
   constexpr int kVecs = kMsItems / 4;            // int4 per thread
-  __shared__ int4 sh_v[kMsTile / 4];
-  __shared__ unsigned sh_w[kWarps];
-  __shared__ int sh_tile;
-  __shared__ unsigned sh_prefix;
   const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
 
-  const int tile = take_ticket(ticket, &sh_tile);
-  const int row = tile / tpr;
-  const int ct = tile - row * tpr;               // tile index in the row
-  const int c0 = ct * kMsTile;
-  const size_t off = static_cast<size_t>(row) * n + c0;
-  const int* xr = x + off;
-  int* yr = y + off;
-  const int valid = min(kMsTile, n - c0);
+  if constexpr (kForm == kWarpForm) {
+    const int row = blockIdx.x * kMsWarps + wid;
+    if (row >= a.rows) return;                   // the whole warp leaves
+    ms_warp_row(a, row, lane);
+  } else {
+    __shared__ int4 sh_v[kMsTile / 4];
+    __shared__ unsigned sh_w[kMsWarps];
+    __shared__ int sh_tile;
+    __shared__ unsigned sh_tag;
+    __shared__ unsigned sh_prefix;
+    int tile = blockIdx.x;
+    unsigned tag = 0;
+    if constexpr (kForm == kLookbackForm)
+      ms_take_ticket(a.hdr, &sh_tile, &sh_tag, &tile, &tag);
+    const int row = tile / a.tpr;
+    const int ct = tile - row * a.tpr;           // tile index in the row
+    const int c0 = ct * kMsTile;
+    const size_t off = static_cast<size_t>(row) * a.n + c0;
+    const int* xr = a.x + off;
+    int* yr = a.y + off;
+    const int valid = min(kMsTile, a.n - c0);
 
-  // striped loads: vector q = j * threads + t covers columns 4q .. 4q + 3
-  int4 v[kVecs];
+    // striped loads: vector q = j * threads + t covers columns 4q .. 4q + 3
+    int4 v[kVecs];
 #pragma unroll
-  for (int j = 0; j < kVecs; ++j) {
-    const int e = 4 * (j * kMsThreads + t);
-    if (vec_in && e + 4 <= valid) {
-      v[j] = __ldg(reinterpret_cast<const int4*>(xr + e));
-    } else {
-      v[j].x = e < valid ? xr[e] : 0;
-      v[j].y = e + 1 < valid ? xr[e + 1] : 0;
-      v[j].z = e + 2 < valid ? xr[e + 2] : 0;
-      v[j].w = e + 3 < valid ? xr[e + 3] : 0;
+    for (int j = 0; j < kVecs; ++j)
+      v[j] = load_int4(xr, 4 * (j * kMsThreads + t), valid, a.vec_in);
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) sh_v[swz(j * kMsThreads + t)] = v[j];
+    __syncthreads();
+
+    // blocked: this thread's kMsItems consecutive columns, scanned serially
+    unsigned s[kMsItems];
+#pragma unroll
+    for (int m = 0; m < kVecs; ++m) {
+      const int4 w = sh_v[swz(t * kVecs + m)];
+      s[4 * m] = w.x;
+      s[4 * m + 1] = w.y;
+      s[4 * m + 2] = w.z;
+      s[4 * m + 3] = w.w;
     }
-  }
 #pragma unroll
-  for (int j = 0; j < kVecs; ++j) sh_v[swz(j * kMsThreads + t)] = v[j];
-  __syncthreads();
+    for (int k = 1; k < kMsItems; ++k) s[k] += s[k - 1];
+    const unsigned total = s[kMsItems - 1];
 
-  // blocked: this thread's kMsItems consecutive columns, scanned serially
-  unsigned a[kMsItems];
+    const unsigned incl = warp_incl_sum(total, lane);
+    if (lane == 31) sh_w[wid] = incl;
+    __syncthreads();
+    unsigned woff = 0, agg = 0;
 #pragma unroll
-  for (int m = 0; m < kVecs; ++m) {
-    const int4 w = sh_v[swz(t * kVecs + m)];
-    a[4 * m] = w.x;
-    a[4 * m + 1] = w.y;
-    a[4 * m + 2] = w.z;
-    a[4 * m + 3] = w.w;
-  }
-#pragma unroll
-  for (int k = 1; k < kMsItems; ++k) a[k] += a[k - 1];
-  const unsigned total = a[kMsItems - 1];
-
-  const unsigned incl = warp_incl_sum(total, lane);
-  if (lane == 31) sh_w[wid] = incl;
-  __syncthreads();
-  unsigned woff = 0, agg = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const unsigned s = sh_w[w];
-    woff += w < wid ? s : 0u;
-    agg += s;
-  }
-  if (wid == 0) {
-    const unsigned pre = lookback_sum(status + static_cast<size_t>(row) * tpr,
-                                      ct, agg, lane);
-    if (lane == 0) sh_prefix = pre;
-  }
-  __syncthreads();
-  const unsigned add = sh_prefix + woff + incl - total;
+    for (int w = 0; w < kMsWarps; ++w) {
+      const unsigned sw = sh_w[w];
+      woff += w < wid ? sw : 0u;
+      agg += sw;
+    }
+    unsigned pre = 0;
+    if constexpr (kForm == kLookbackForm) {
+      if (wid == 0) {
+        const unsigned p = lookback_sum(
+            a.words + static_cast<size_t>(row) * a.tpr * kMsStatusWords, ct,
+            agg, lane, tag);
+        if (lane == 0) sh_prefix = p;
+      }
+      __syncthreads();
+      if (tag == kMsTagMax && t == 0 &&
+          last_to_arrive(reinterpret_cast<unsigned*>(a.hdr + 1))) {
+        clear_words(a.words, a.word_cap);
+        st_status(a.hdr, 0ull);
+      }
+      pre = sh_prefix;
+    }
+    const unsigned add = pre + woff + incl - total;
 
 #pragma unroll
-  for (int m = 0; m < kVecs; ++m) {
-    int4 w;
-    w.x = static_cast<int>(a[4 * m] + add);
-    w.y = static_cast<int>(a[4 * m + 1] + add);
-    w.z = static_cast<int>(a[4 * m + 2] + add);
-    w.w = static_cast<int>(a[4 * m + 3] + add);
-    sh_v[swz(t * kVecs + m)] = w;
-  }
-  __syncthreads();
+    for (int m = 0; m < kVecs; ++m) {
+      int4 w;
+      w.x = static_cast<int>(s[4 * m] + add);
+      w.y = static_cast<int>(s[4 * m + 1] + add);
+      w.z = static_cast<int>(s[4 * m + 2] + add);
+      w.w = static_cast<int>(s[4 * m + 3] + add);
+      sh_v[swz(t * kVecs + m)] = w;
+    }
+    __syncthreads();
 #pragma unroll
-  for (int j = 0; j < kVecs; ++j) {
-    const int q = j * kMsThreads + t;
-    const int e = 4 * q;
-    const int4 w = sh_v[swz(q)];
-    if (vec_out && e + 4 <= valid) {
-      store4(yr + e, w);
-    } else {
-      if (e < valid) yr[e] = w.x;
-      if (e + 1 < valid) yr[e + 1] = w.y;
-      if (e + 2 < valid) yr[e + 2] = w.z;
-      if (e + 3 < valid) yr[e + 3] = w.w;
+    for (int j = 0; j < kVecs; ++j) {
+      const int q = j * kMsThreads + t;
+      store_int4(yr, 4 * q, valid, a.vec_out, sh_v[swz(q)]);
     }
   }
 }
@@ -390,18 +581,6 @@ __device__ __forceinline__ Tri shfl_up1(Tri v, int lane) {
 
 __device__ __forceinline__ unsigned tri_get(Tri v, int c) {
   return c == 0 ? v.rank : (c == 1 ? v.head : v.vis);
-}
-
-__device__ __forceinline__ unsigned ld_u32(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_u32(unsigned* p, unsigned v) {
-  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
 }
 
 // Everything one segment-scan launch reads: the columns, the counts, the
@@ -501,23 +680,6 @@ __device__ Tri lookback_tri(u64* st, int idx, Tri agg, Tri cin, int lane,
   return excl;
 }
 
-// One block of a look-back launch is done with the status words. The last
-// block to arrive (the counter wraps to 0 behind it) advances the epoch, so
-// the next launch on this scratch tags its words anew; when the next tag
-// would wrap to 0 it first clears every status word, so a stale word never
-// carries a live tag. Run by one thread, after the block's look-back.
-__device__ void arrive(const FsArgs& a) {
-  __threadfence();
-  if (atomicInc(a.hdr + 1, gridDim.x - 1) != gridDim.x - 1) return;
-  __threadfence();
-  unsigned next = ld_u32(a.hdr + 2) + 1u;
-  if (next == kEpochWrap) {
-    for (long long k = 0; k < a.word_cap; ++k) st_status(a.words + k, 0ull);
-    next = 0;
-  }
-  st_u32(a.hdr + 2, next);
-}
-
 // 4 bools (bytes) of one word -> 4 bits, byte 0 to bit 0.
 __device__ __forceinline__ unsigned nibble(unsigned w) {
   return ((__vcmpne4(w, 0u) & 0x01010101u) * 0x10204080u) >> 28;
@@ -547,18 +709,6 @@ __device__ __forceinline__ void scan_values(unsigned sm, unsigned vm,
   *h = static_cast<int>(max(
       upto ? static_cast<unsigned>(f0 + 31 - __clz(upto)) : 0u, start.head));
   *v = static_cast<int>(start.vis + __popc(vm & ((2u << k) - 1u)));
-}
-
-__device__ __forceinline__ void store_int4(int* out, int e, int n,
-                                           int vec_out, int4 w) {
-  if (vec_out && e + 4 <= n) {
-    store4(out + e, w);
-  } else {
-    if (e < n) out[e] = w.x;
-    if (e + 1 < n) out[e + 1] = w.y;
-    if (e + 2 < n) out[e + 2] = w.z;
-    if (e + 3 < n) out[e + 3] = w.w;
-  }
 }
 
 // The three output columns of one warp's 32 x 32 slots from w0 on (lane l
@@ -706,14 +856,10 @@ __global__ void __launch_bounds__(kFsThreads) fs_scan(FsArgs a) {
     int row = blockIdx.x, ct = 0;
     unsigned tag = 0;
     if constexpr (kForm == kLookbackForm) {
-      if (t == 0) {
-        sh_tile = static_cast<int>(atomicInc(a.hdr, gridDim.x - 1));
-        sh_tag = ld_u32(a.hdr + 2) + 1u;
-      }
-      __syncthreads();
-      row = sh_tile / a.tpr;
-      ct = sh_tile - row * a.tpr;
-      tag = sh_tag;
+      int tile;
+      take_ticket(a.hdr, &sh_tile, &sh_tag, &tile, &tag);
+      row = tile / a.tpr;
+      ct = tile - row * a.tpr;
     }
     const size_t roff = static_cast<size_t>(row) * a.n;
     const int s0 = ct * kFsTile;                 // first slot of the tile
@@ -738,7 +884,7 @@ __global__ void __launch_bounds__(kFsThreads) fs_scan(FsArgs a) {
     }
     __syncthreads();
     if constexpr (kForm == kLookbackForm) {
-      if (t == 0) arrive(a);
+      if (t == 0) arrive(a.hdr, a.words, a.word_cap);
     }
     store_scans(a, roff, s0 + wid * 32 * kFsItems, lane, sm, vm,
                 combine(sh_prefix, ex));
@@ -816,10 +962,21 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// The form a row of n slots takes (the host chooses the same).
+// The form a row of n slots (columns) takes (the host chooses the same).
 inline int fs_form_of(int n) {
   return n <= kFsWarpRow ? kWarpForm : (n <= kFsTile ? kBlockForm
                                                      : kLookbackForm);
+}
+
+inline int ms_form_of(int n) {
+  return n <= kMsWarpRow ? kWarpForm : (n <= kMsTile ? kBlockForm
+                                                     : kLookbackForm);
+}
+
+// Where a look-back scratch of `counter_cap` row counters keeps its
+// status words.
+inline u64* status_words(void* scratch, int counter_cap) {
+  return static_cast<u64*>(scratch) + kHeaderWords + (counter_cap + 1) / 2;
 }
 
 // The launch's arguments; returns false when the scratch cannot hold what
@@ -848,8 +1005,7 @@ bool fs_args(FsArgs* a, const void* chain, const void* has, int rows, int n,
       return false;
     a->hdr = static_cast<unsigned*>(scratch);
     a->row_done = a->hdr + 4;
-    a->words = static_cast<u64*>(scratch) + kFsHeaderWords +
-               (counter_cap + 1) / 2;
+    a->words = status_words(scratch, counter_cap);
     a->word_cap = word_cap;
   }
   return true;
@@ -864,34 +1020,57 @@ unsigned fs_blocks(int form, int rows, int tpr) {
 
 extern "C" {
 
-// Columns of one multi_scan tile and slots of one segment-scan tile; the
-// caller sizes multi_scan's scratch from them (8 bytes for the ticket plus
-// 8 per tile). The segment scans' forms: rows of at most
+// Columns of one multi_scan tile and slots of one segment-scan tile, and
+// the longest warp-form rows: rows of at most amt_ms_warp_row() columns or
 // amt_fs_warp_row() slots take a warp each, rows of at most a tile a block
-// each, longer rows the look-back (amt_fs_form).
+// each, longer rows the look-back (amt_ms_form, amt_fs_form).
 int amt_multi_scan_tile() { return kMsTile; }
 int amt_fused_scan_tile() { return kFsTile; }
+int amt_ms_warp_row() { return kMsWarpRow; }
 int amt_fs_warp_row() { return kFsWarpRow; }
+int amt_ms_form(int n) { return ms_form_of(n); }
 int amt_fs_form(int n) { return fs_form_of(n); }
 
-// y[k, :] = inclusive prefix sum of x[k, :], int32 (K, N) row-major.
-// scratch: at least 8 * (1 + K * ceil(N / tile)) bytes, 8-byte aligned.
-int amt_multi_scan(const void* x, void* y, void* scratch,
-                   long long scratch_bytes, int k, int n, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tpr = num_tiles(n, kMsTile);
-  const long long tiles = static_cast<long long>(k) * tpr;
-  const long long need = 8 * (1 + tiles);
-  if (scratch_bytes < need || tiles > 0x7fffffffLL)
+// y[r, :] = inclusive prefix sum of x[r, :], int32 (rows, n) row-major, in
+// form `form` (amt_ms_form(n); anything else is refused). The look-back
+// form needs the persistent scratch: int64 words [2 header]
+// [ceil(counter_cap / 2) counters, unused here][word_cap status words],
+// zeroed once when it was allocated, with word_cap >= rows * ceil(n /
+// tile); the other forms take none (null). One launch, nothing else on
+// the stream.
+int amt_multi_scan(const void* x, void* y, int rows, int n, int form,
+                   void* scratch, int counter_cap, long long word_cap,
+                   void* stream) {
+  if (rows <= 0 || n <= 0 || form != ms_form_of(n))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaMemsetAsync(scratch, 0, need, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  u64* words = static_cast<u64*>(scratch);
-  const int vec_in = n % 4 == 0 && aligned16(x);
-  const int vec_out = n % 4 == 0 && aligned16(y);
-  ms_scan<<<static_cast<unsigned>(tiles), kMsThreads, 0, s>>>(
-      static_cast<const int*>(x), static_cast<int*>(y), n, tpr, vec_in,
-      vec_out, reinterpret_cast<unsigned*>(words), words + 1);
+  const int tpr = num_tiles(n, kMsTile);
+  const long long tiles = static_cast<long long>(rows) * tpr;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  MsArgs a{};
+  a.x = static_cast<const int*>(x);
+  a.y = static_cast<int*>(y);
+  a.n = n;
+  a.tpr = tpr;
+  a.rows = rows;
+  // every row must start on 16 bytes too: a multiple of 4 columns
+  a.vec_in = n % 4 == 0 && aligned16(x);
+  a.vec_out = n % 4 == 0 && aligned16(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == kWarpForm) {
+    ms_scan<kWarpForm><<<(rows + kMsWarps - 1) / kMsWarps, kMsThreads, 0,
+                         s>>>(a);
+  } else if (form == kBlockForm) {
+    ms_scan<kBlockForm><<<rows, kMsThreads, 0, s>>>(a);
+  } else {
+    if (scratch == nullptr || counter_cap < 0 ||
+        word_cap < kMsStatusWords * tiles)
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.hdr = static_cast<u64*>(scratch);
+    a.words = status_words(scratch, counter_cap);
+    a.word_cap = word_cap;
+    ms_scan<kLookbackForm><<<static_cast<unsigned>(tiles), kMsThreads, 0,
+                             s>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,18 +33,18 @@ Counterpart of `automerge_tpu/ops/scan_pallas.py`:
 
 The kernels live in `csrc/scan.cu`; its head note says what bounds them
 on an H100 (bytes: 302 MB and 88 MB at the merge shapes; launches at
-short rows) and why the tile sizes are what they are. `multi_scan` is
-one single-pass launch (a chained scan with decoupled look-back over
-ticketed tiles, 16-byte loads and stores) after a memset of its scratch.
-The segment scans (`fused_segment_scans`, `fs_totals`, the carry-in
-scan) take one of three forms by row length, chosen here by
-`fs_geometry`: a warp a row up to 1,024 slots, a block a row up to
-8,192, the look-back beyond. Each of their calls is ONE kernel launch
-and no other device operation: an int count goes to the kernel by value,
-and the look-back form's scratch persists, one buffer per (device,
-stream) in `ScratchCache` (zeroed once when allocated; the kernels reset
-its ticket and counters and advance its epoch themselves, so CUDA graph
-replays stay right). The library is built with `nvcc` at first use into
+short rows) and why the tile sizes are what they are. Both kernel
+families take one of three forms by row length, chosen here by
+`ms_geometry` and `fs_geometry`: a warp a row up to 1,024 columns or
+slots, a block a row up to a tile (8,192), a single-pass chained scan
+with decoupled look-back over ticketed tiles beyond. Every call of every
+wrapper is ONE kernel launch and no other device operation: an int count
+goes to the kernel by value, and the look-back form's scratch persists,
+one buffer per (device, stream, family) in `ScratchCache` (zeroed once
+when allocated; the kernels reset its ticket and counters and advance its
+epoch themselves, so CUDA graph replays stay right; `multi_scan` and the
+segment scans tag their status words differently and so keep separate
+buffers). The library is built with `nvcc` at first use into
 `csrc/build/` and bound through ctypes.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain version,
@@ -84,6 +84,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: 64-bit status words per tile in the look-back scratch (csrc/scan.cu)
 MS_STATUS_WORDS = 1
 FS_STATUS_WORDS = 6
+#: the three forms of both kernel families (csrc/scan.cu), by row length
+FORMS = ("warp", "block", "lookback")
 
 #: launches per kernel since the last `reset_launches()`; the carry-in
 #: launches of `fs_scan` that the sharded form makes count under
@@ -120,12 +122,6 @@ def _count_launch(name: str, shape: tuple):
 
 def n_tiles(length: int, tile: int) -> int:
     return -(-length // tile)
-
-
-def scratch_words(tiles: int, words_per_tile: int) -> int:
-    """int64 words of a look-back scratch: one ticket counter, then the
-    status words of every tile."""
-    return 1 + tiles * words_per_tile
 
 
 def _nvcc() -> str:
@@ -177,12 +173,14 @@ def bind(path) -> ctypes.CDLL:
     for fn in (lib.amt_multi_scan_tile, lib.amt_fused_scan_tile):
         fn.argtypes = []
         fn.restype = ci
-    lib.amt_multi_scan.argtypes = [vp, vp, vp, cll, ci, ci, vp]
+    lib.amt_multi_scan.argtypes = [vp, vp, ci, ci, ci, vp, ci, cll, vp]
     lib.amt_multi_scan.restype = ci
-    lib.amt_fs_warp_row.argtypes = []
-    lib.amt_fs_warp_row.restype = ci
-    lib.amt_fs_form.argtypes = [ci]
-    lib.amt_fs_form.restype = ci
+    for fn in (lib.amt_ms_warp_row, lib.amt_fs_warp_row):
+        fn.argtypes = []
+        fn.restype = ci
+    for fn in (lib.amt_ms_form, lib.amt_fs_form):
+        fn.argtypes = [ci]
+        fn.restype = ci
     lib.amt_fused_segment_scans.argtypes = [
         vp, vp, ci, ci, vp, ci, cll, ci, vp, ci, ci, vp, ci, cll, vp, vp, vp,
         vp]
@@ -190,8 +188,9 @@ def bind(path) -> ctypes.CDLL:
     lib.amt_fs_totals.argtypes = [
         vp, vp, ci, ci, vp, ci, cll, ci, ci, vp, ci, cll, vp, vp]
     lib.amt_fs_totals.restype = ci
-    # the segment scans' form constants (fs_geometry's tile and
+    # the form constants (ms_geometry's and fs_geometry's tile and
     # warp_row), read once: a variant build may change them
+    lib.ms_consts = (lib.amt_multi_scan_tile(), lib.amt_ms_warp_row())
     lib.fs_consts = (lib.amt_fused_scan_tile(), lib.amt_fs_warp_row())
     return lib
 
@@ -223,15 +222,18 @@ def _check_cuda(name: str, t: torch.Tensor, dtype, ndim: int):
         raise ValueError(f"{name}: {t.numel()} elements exceed int32")
 
 
+def _check_kernel_input(name: str, t: torch.Tensor, dtype, ndim: int):
+    """A tensor a kernel takes; one test on the way through,
+    `_check_cuda` names what is wrong."""
+    if (not t.is_cuda or t.dtype != dtype or t.dim() != ndim
+            or not t.is_contiguous() or t.numel() > _I32_MAX):
+        _check_cuda(name, t, dtype, ndim)
+
+
 def _raise_on(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc} "
                            f"({torch.cuda.get_device_name()})")
-
-
-def _scratch(tiles: int, words_per_tile: int, device) -> torch.Tensor:
-    return torch.empty(scratch_words(tiles, words_per_tile),
-                       dtype=torch.int64, device=device)
 
 
 # ---------------------------------------------------------------- multi_scan
@@ -253,27 +255,57 @@ def _fs_cost(chain: torch.Tensor) -> tuple:
     return 14 * chain.numel() + 4 * rows, 3 * chain.numel()
 
 
+MS_TILE = 8192          # kMsTile: the longest block-form row, a tile
+MS_WARP_ROW = 1024      # kMsWarpRow: the longest warp-form row
+
+
+class ScanLaunch(NamedTuple):
+    """One scan launch: its form (an index into FORMS) and the persistent
+    scratch it needs (row counters and 64-bit words; 0 and 0 for none)."""
+    form: int
+    counters: int
+    words: int
+
+
+@functools.lru_cache(maxsize=4096)
+def ms_geometry(rows: int, n: int, tile: int = MS_TILE,
+                warp_row: int = MS_WARP_ROW) -> ScanLaunch:
+    """The `ms_scan` launch over `rows` rows of n columns (both >= 1): a
+    warp a row up to `warp_row` columns, a block a row up to `tile`, else
+    ceil(n / tile) tiles a row with the look-back (one status word a
+    tile). The entry point refuses any other form; the wrapper passes the
+    loaded library's constants."""
+    if rows < 1 or n < 1:
+        raise ValueError(f"no multi_scan launch over ({rows}, {n})")
+    if n <= warp_row:
+        return ScanLaunch(0, 0, 0)
+    if n <= tile:
+        return ScanLaunch(1, 0, 0)
+    return ScanLaunch(2, 0, MS_STATUS_WORDS * rows * n_tiles(n, tile))
+
+
 def multi_scan(x: torch.Tensor) -> torch.Tensor:
-    """Row-wise inclusive prefix sum of an int32 (K, N) matrix; any N."""
+    """Row-wise inclusive prefix sum of an int32 (K, N) matrix; any N.
+    One `ms_scan` launch on a CUDA tensor, in the form `ms_geometry`
+    gives for N, and no other device operation."""
     if x.device.type == "cpu":
         if _dt.ENABLED:
             _DT["multi_scan", "plain"].note(*_ms_cost(x))
         return multi_scan_plain(x)
-    _check_cuda("multi_scan", x, torch.int32, 2)
+    _check_kernel_input("multi_scan", x, torch.int32, 2)
     out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
     K, N = x.shape
-    lib = load()
-    with torch.cuda.device(x.device):
-        scratch = _scratch(K * n_tiles(N, lib.amt_multi_scan_tile()),
-                           MS_STATUS_WORDS, x.device)
-        rc = lib.amt_multi_scan(
-            x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            scratch.numel() * 8, K, N,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    if K == 0 or N == 0:
+        return out
+    lib = _LIB or load()
+    dev = x.device
+    geo = ms_geometry(K, N, *lib.ms_consts)
+    stream = _stream_handle(dev)
+    _, counters, words, sc = _scratch_entry("multi_scan", dev, stream, geo)
+    rc = _call(dev, lib.amt_multi_scan, x.data_ptr(), out.data_ptr(), K, N,
+               geo.form, sc, counters, words, stream)
     _raise_on(rc, "multi_scan")
-    _count_launch("multi_scan", tuple(x.shape))
+    _count_launch("multi_scan", (K, N))
     if _dt.ENABLED:
         _DT["multi_scan", "cuda"].note(*_ms_cost(x))
     return out
@@ -314,25 +346,14 @@ def _row_counts(n_elems, chain: torch.Tensor) -> torch.Tensor:
     return n_elems
 
 
-#: the segment scans' forms (csrc/scan.cu), by the row length n
-FS_FORMS = ("warp", "block", "lookback")
 FS_TILE = 8192          # kFsTile: the longest block-form row, a tile
 FS_WARP_ROW = 1024      # kFsWarpRow: the longest warp-form row
-FS_HEADER_WORDS = 2     # kFsHeaderWords: ticket, arrivals, epoch
-
-
-class FsLaunch(NamedTuple):
-    """One segment-scan launch: its form (an index into FS_FORMS) and the
-    persistent scratch it needs (row counters and 64-bit words; 0 and 0
-    for none)."""
-    form: int
-    counters: int
-    words: int
+HEADER_WORDS = 2        # kHeaderWords: a look-back scratch's header
 
 
 @functools.lru_cache(maxsize=4096)
 def fs_geometry(kernel: str, rows: int, n: int, tile: int = FS_TILE,
-                warp_row: int = FS_WARP_ROW) -> FsLaunch:
+                warp_row: int = FS_WARP_ROW) -> ScanLaunch:
     """The launch of `kernel` ("fs_scan" or "fs_totals") over `rows` rows
     of n slots (n >= 1): a warp a row up to `warp_row` slots, a block a
     row up to `tile`, else ceil(n / tile) tiles a row with the look-back
@@ -344,19 +365,20 @@ def fs_geometry(kernel: str, rows: int, n: int, tile: int = FS_TILE,
         raise ValueError(f"no segment-scan launch of {kernel} over "
                          f"({rows}, {n})")
     if n <= warp_row:
-        return FsLaunch(0, 0, 0)
+        return ScanLaunch(0, 0, 0)
     if n <= tile:
-        return FsLaunch(1, 0, 0)
+        return ScanLaunch(1, 0, 0)
     tiles = rows * n_tiles(n, tile)
     if kernel == "fs_scan":
-        return FsLaunch(2, 0, FS_STATUS_WORDS * tiles)
-    return FsLaunch(2, rows, 3 * tiles)
+        return ScanLaunch(2, 0, FS_STATUS_WORDS * tiles)
+    return ScanLaunch(2, rows, 3 * tiles)
 
 
 def fs_scratch_words(counters: int, words: int) -> int:
-    """int64 words of a segment-scan scratch holding `counters` u32 row
-    counters and `words` status words, after the header."""
-    return FS_HEADER_WORDS + -(-counters // 2) + words
+    """int64 words of a look-back scratch holding `counters` u32 row
+    counters and `words` status words, after the header (the layout of
+    both kernel families)."""
+    return HEADER_WORDS + -(-counters // 2) + words
 
 
 def _pow2(x: int) -> int:
@@ -369,22 +391,23 @@ def _zeroed_words(n: int, device) -> torch.Tensor:
 
 
 class ScratchCache:
-    """The segment scans' persistent scratch: one buffer per (device,
-    stream), zeroed once when it is allocated (`alloc(n_words, device)`,
-    on that stream), grown to the next power of two of what a launch
-    needs, never shared between two streams. The kernels keep the
-    buffer's state (ticket, counters, epoch) right from one launch to the
-    next on the device, so a launch does no memset and a replayed CUDA
-    graph stays right. Growing keeps the outgrown buffer (`retired`): a
-    graph captured with it may still replay its pointer. Growing inside a
-    capture raises (its allocation and zeroing would land in the graph):
-    launch once on the capturing stream before capture."""
+    """The look-back form's persistent scratch: one buffer per key
+    ((device, stream, kernel family) in the wrappers), zeroed once when it
+    is allocated (`alloc(n_words, device)`, on that stream), grown to the
+    next power of two of what a launch needs, never shared between two
+    streams or two families. The kernels keep the buffer's state (ticket,
+    counters, epoch) right from one launch to the next on the device, so
+    a launch does no memset and a replayed CUDA graph stays right.
+    Growing keeps the outgrown buffer (`retired`): a graph captured with
+    it may still replay its pointer. Growing inside a capture raises (its
+    allocation and zeroing would land in the graph): launch once on the
+    capturing stream before capture."""
 
     def __init__(self, alloc=None, capturing=None):
         self._alloc = alloc or _zeroed_words
         self._capturing = capturing or torch.cuda.is_current_stream_capturing
         self._lock = threading.Lock()
-        #: (device index, stream handle) -> (buffer, counters, words, ptr)
+        #: key -> (buffer, counters, words, ptr)
         self.buffers = {}
         self.retired = []
 
@@ -395,7 +418,7 @@ class ScratchCache:
                 return have
             if self._capturing():
                 raise RuntimeError(
-                    "segment scans: the scratch of this stream must be "
+                    "scan kernels: the scratch of this stream must be "
                     "sized before a CUDA graph captures it (launch once on "
                     "the capturing stream first)")
             if have is not None:
@@ -421,19 +444,14 @@ def _stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _check_fs(name: str, what: str, t: torch.Tensor, ndim: int):
-    """A bool column (or rows) the kernels take; one test on the way
-    through, `_check_cuda` names what is wrong."""
-    if (not t.is_cuda or t.dtype != torch.bool or t.dim() != ndim
-            or not t.is_contiguous() or t.numel() > _I32_MAX):
-        _check_cuda(f"{name} {what}", t, torch.bool, ndim)
 
 
 def _fs_columns(name: str, chain, has_value) -> bool:
     """Check the CUDA columns of the segment-scan kernels; True for rows."""
     rows = chain.dim() == 2
-    _check_fs(name, "chain", chain, 2 if rows else 1)
-    _check_fs(name, "has_value", has_value, 2 if rows else 1)
+    _check_kernel_input(f"{name} chain", chain, torch.bool, 2 if rows else 1)
+    _check_kernel_input(f"{name} has_value", has_value, torch.bool,
+                        2 if rows else 1)
     if has_value.shape != chain.shape:
         raise ValueError(f"{name}: chain and has_value differ "
                          f"in shape ({tuple(chain.shape)} vs "
@@ -460,14 +478,22 @@ def _fs_counts(name: str, chain, n_elems, rows: bool) -> tuple:
     return n_elems.data_ptr(), 0, 0
 
 
+def _scratch_entry(family: str, dev, stream: int, geo: ScanLaunch) -> tuple:
+    """The scratch entry (buffer, counters, words, pointer) of one launch
+    of `family` ("multi_scan", or "fs" for `fs_scan` and `fs_totals`) on
+    `stream`: its persistent buffer in the look-back form, none else."""
+    if geo.counters or geo.words:
+        return _SCRATCH.get((dev.index, stream, family), dev, geo.counters,
+                            geo.words)
+    return _NO_SCRATCH
+
+
 def _scratch_for(kernel: str, dev, D: int, C: int, lib):
-    """(launch geometry, scratch entry, stream handle) of one launch."""
+    """(launch geometry, scratch entry, stream handle) of one segment-scan
+    launch."""
     geo = fs_geometry(kernel, D, C, *lib.fs_consts)
     stream = _stream_handle(dev)
-    if geo.counters or geo.words:
-        return geo, _SCRATCH.get((dev.index, stream), dev, geo.counters,
-                                 geo.words), stream
-    return geo, _NO_SCRATCH, stream
+    return geo, _scratch_entry("fs", dev, stream, geo), stream
 
 
 def _call(dev, fn, *args) -> int:

@@ -64,7 +64,8 @@ each kernel at every shape those paths launched
 it with (device time over CUDA-graph replays, inputs rotated through
 copies so each call reads them from HBM; one eager call at the merge
 shapes is timed before the paths); and checks that each wrapper call runs
-one kernel. Every phase raises on failure.
+one kernel and no other device operation, in each form. Every phase
+raises on failure.
 With --profile, it then runs the headline commit (commit_prepared +
 _materialize + _scalars) of each materialization path and one stacked
 apply and one api-a merge once more under torch.profiler, prints the
@@ -112,6 +113,7 @@ REPS = 25
 REPEATS = 50                   # bit-exact launches at each merge shape
 MAX_COPIES = 64                # input copies a kernel timing rotates through
 HOST_CALLS = 200               # back-to-back calls a host-time reading takes
+HOST_READS = 5                 # readings a host time is the median of
 N_MERGE = 6_291_456            # bucket(5,000,000 run elements, 256)
 RING_BATCHES = 6               # bench.py --pipeline's stream: 6 batches of
 RING_ACTORS = 2_000            # 2,000 actors x 1,000 ops on the base text
@@ -171,6 +173,11 @@ DMESH_REPS = 3                 # 15c: timed fresh runs after one warm-up
 #: segment-scan row lengths on each form boundary (warp <= 1,024 < block
 #: <= 8,192 < look-back) and a row of several tiles
 FORM_EDGES = (96, 1023, 1024, 1025, 8191, 8192, 8193, 3 * 8192 + 5)
+#: multi_scan row lengths on each form edge (warp <= 1,024 < block <=
+#: 8,192 < look-back) and inside the warp form's first round, and the row
+#: counts around the warp form's 8 rows a block
+MS_EDGES = (1, 31, 32, 33, 1023, 1024, 1025, 8191, 8192, 8193)
+MS_EDGE_ROWS = (1, 7, 8, 9)
 #: 15a's row cases, (D, C) over 4 elem shards: the cfg3 DocSet's rows (a
 #: shard 192 slots: warp form), a shard row past 1,024 (block form) and
 #: one past 8,192 (look-back form)
@@ -475,6 +482,7 @@ def check_kernels(torch, S):
         log(f"fused_segment_scans rows ({D}, {C}), per-row n_elems: "
             "bit-exact vs plain, two calls")
 
+    check_ms_forms(torch, S, rng, dev)
     check_forms(torch, S, rng, dev)
 
     # 50 launches at each merge shape, every one bit-exact
@@ -491,6 +499,41 @@ def check_kernels(torch, S):
                          want_fs):
             raise AssertionError(f"fused_segment_scans repeat {i} differs")
     log(f"{REPEATS} repeats at each merge shape: all bit-exact")
+
+
+def check_ms_forms(torch, S, rng, dev):
+    """multi_scan's three forms at their edges (a warp a row up to 1,024
+    columns, a block a row up to 8,192, the look-back beyond): MS_EDGES
+    columns x MS_EDGE_ROWS rows, on aligned views and on views 4 bytes off
+    16 (the scalar path), with small values and with values near the int32
+    limits whose sums wrap; bit-exact against `multi_scan_plain`, and the
+    host's form the one the library expects."""
+    lib = S.load()
+    seen = []
+    for n in MS_EDGES:
+        form = S.ms_geometry(1, n).form
+        if lib.amt_ms_form(n) != form:
+            raise AssertionError(f"multi_scan form of a {n}-column row: "
+                                 f"host {form}, library "
+                                 f"{lib.amt_ms_form(n)}")
+        for K in MS_EDGE_ROWS:
+            for lead in (0, 1):
+                for lo, hi in ((-50, 50), (2**30, 2**31 - 1)):
+                    buf = rng.integers(lo, hi, K * n + lead, dtype=np.int32)
+                    x = torch.from_numpy(buf).to(dev)[lead:].view(K, n)
+                    if hi > 2**30:
+                        x[1::2] = -x[1::2]         # wrap both ways
+                    if (x.data_ptr() % 16 != 0) != bool(lead):
+                        raise AssertionError("the unaligned case is aligned")
+                    if not torch.equal(S.multi_scan(x),
+                                       S.multi_scan_plain(x)):
+                        raise AssertionError(
+                            f"multi_scan differs at ({K}, {n}), offset "
+                            f"{4 * lead} bytes, values [{lo}, {hi})")
+        seen.append(f"{n}: {S.FORMS[form]}")
+    log(f"multi_scan forms bit-exact vs plain ({MS_EDGE_ROWS} rows; offsets "
+        "0 and 4 bytes; small and int32-wrapping values): "
+        f"{', '.join(seen)}")
 
 
 def check_forms(torch, S, rng, dev):
@@ -540,32 +583,40 @@ def check_forms(torch, S, rng, dev):
                     raise AssertionError(
                         f"{('fs_totals', 'carry-in fs_scan', 'fs_scan')[k]}"
                         f" differs at rows {D} x {n} slots, offset {lead}")
-        seen.append(f"{n}: {S.FS_FORMS[form]}")
+        seen.append(f"{n}: {S.FORMS[form]}")
     log("segment-scan forms bit-exact vs plain (fs_totals, carry-in and "
         f"plain fs_scan; a column and 7 rows; offsets 0 and 1): "
         f"{', '.join(seen)}")
 
 
 def check_kernels_per_call(torch, S):
-    """Each wrapper call runs one device kernel: `multi_scan` beside the
-    memset of its scratch, the three segment-scan wrappers with nothing
-    else at all (no memset, no fill), in each of their forms. Runs after
-    phases 1-15, since a profiler session left behind slows the host's
-    later launches, and before phases 16-17 and phase 7's CUDA graphs:
-    after either, a profiler session has shown no device activity at all
-    for an `fs_totals` call that ran. Returns the kernels per call."""
+    """Each wrapper call runs one device kernel and nothing else at all
+    (no memset, no fill), in each form: `multi_scan` at (6, 256), (6,
+    8,192) and the merge shape, the three segment-scan wrappers at a warp,
+    a block and a look-back shape. Runs after phases 1-15, since a
+    profiler session left behind slows the host's later launches, and
+    before phases 16-17 and phase 7's CUDA graphs: after either, a
+    profiler session has shown no device activity at all for an
+    `fs_totals` call that ran. Returns the kernels per call."""
     dev = torch.device("cuda")
-    x = torch.zeros((6, N_MERGE), dtype=torch.int32, device=dev)
-    ops = {"multi_scan": device_ops_per_call(torch, lambda: S.multi_scan(x))}
-    kernels = {"multi_scan": [o for o in ops["multi_scan"]
-                              if "memset" not in o.lower()]}
+    ops, kernels = {}, {}
+    for shape in ((6, 256), (6, 8192), (6, N_MERGE)):
+        x = torch.zeros(shape, dtype=torch.int32, device=dev)
+        form = S.FORMS[S.ms_geometry(*shape).form]
+        got = device_ops_per_call(torch, lambda: S.multi_scan(x))
+        ops[f"multi_scan {form}"] = got
+        kernels.setdefault("multi_scan", []).extend(got)
+        if len(got) != 1 or "ms_scan" not in got[0]:
+            raise AssertionError(f"multi_scan at {shape} ({form} form) ran "
+                                 f"{got}, not one kernel alone")
+        del x
     for shape in ((N_MERGE,), (1, 5000), (DOCSET_DOCS // 2, 192)):
         c = torch.zeros(shape, dtype=torch.bool, device=dev)
         ne = (6_000_000 if len(shape) == 1 else torch.full(
             shape[:1], shape[1] - 1, dtype=torch.int32, device=dev))
         carry = torch.zeros((2,) + shape[:-1] + (3,), dtype=torch.int32,
                             device=dev)
-        form = S.FS_FORMS[S.fs_geometry("fs_scan", *(
+        form = S.FORMS[S.fs_geometry("fs_scan", *(
             shape if len(shape) == 2 else (1,) + shape)).form]
         for name, fn in (
                 ("fused_segment_scans",
@@ -582,10 +633,7 @@ def check_kernels_per_call(torch, S):
                 raise AssertionError(f"{name} at {shape} ({form} form) ran "
                                      f"{got}, not one kernel alone")
     log(f"device operations per wrapper call: {ops}")
-    if len(kernels["multi_scan"]) != 1:
-        raise AssertionError(f"multi_scan ran {ops['multi_scan']}")
-    return {k: len(v) // (1 if k == "multi_scan" else 3)
-            for k, v in kernels.items()}
+    return {k: len(v) // 3 for k, v in kernels.items()}
 
 
 def _ms_bound(K, N):
@@ -595,7 +643,10 @@ def _ms_bound(K, N):
 
 def _fs_bound(shape):
     # reads chain + has (1 B each) and one n_elems per row, writes three
-    # int32 columns
+    # int32 columns; `shape` is (C,), (D, C) or a column length C (as
+    # scripts/sweep_scan_tiles.py passes it)
+    if isinstance(shape, int):
+        shape = (shape,)
     D, C = shape if len(shape) == 2 else (1, shape[0])
     return bound(2 * D * C + 4 * D + 3 * 4 * D * C, 3 * D * C)
 
@@ -643,32 +694,44 @@ def fs_calls(torch, S, chain, has, ne):
 def fs_form(S, shape) -> str:
     """The form the segment scans take at `shape` ((C,) or (D, C))."""
     D, C = shape if len(shape) == 2 else (1, shape[0])
-    return S.FS_FORMS[S.fs_geometry("fs_scan", D, C).form]
+    return S.FORMS[S.fs_geometry("fs_scan", D, C).form]
 
 
-def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
-    """Mean host microseconds of one fn() call over `calls` calls issued
-    back to back (the card drains after the clock stops)."""
+def host_us(torch, fn, calls: int = HOST_CALLS,
+            reads: int = HOST_READS) -> float:
+    """Host microseconds of one fn() call: the median of `reads` readings,
+    each the mean over `calls` calls issued back to back (the card drains
+    after the clock stops)."""
     fn()
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    dt = time.perf_counter() - t
-    torch.cuda.synchronize()
-    return dt / calls * 1e6
+    out = []
+    for _ in range(reads):
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(out))
 
 
 def wrapper_host_us(torch, S) -> dict:
-    """Host microseconds per call of the three segment-scan wrappers at
-    the mesh path's per-shard shapes (15b's 1,048,576-slot shard with an
-    int count, 15c's (500, 192) and 15d's (2, 96) with per-row counts)
-    and at the merge column, each as the mesh path calls it (the carry-in
-    scan as the last of 8 shards). Only the wrappers' public signatures
-    are used, so another checkout's package can be timed the same way
-    (`--wrapper-host`)."""
+    """Host microseconds per call of `multi_scan` at the per-object
+    rounds' (6, 256), phase 20's (3072, 256) and the merge shape, and of
+    the three segment-scan wrappers at the mesh path's per-shard shapes
+    (15b's 1,048,576-slot shard with an int count, 15c's (500, 192) and
+    15d's (2, 96) with per-row counts) and at the merge column, each as
+    the mesh path calls it (the carry-in scan as the last of 8 shards).
+    Only the wrappers' public signatures are used, so another checkout's
+    package can be timed the same way (`--wrapper-host`)."""
     dev = torch.device("cuda")
     out = {}
+    for label, shape in (("per-object round", (6, 256)),
+                         ("20 stacked round", (3072, 256)),
+                         ("merge channels", (6, N_MERGE))):
+        x = torch.zeros(shape, dtype=torch.int32, device=dev)
+        out[label] = {"shape": list(shape),
+                      "multi_scan": host_us(torch, lambda: S.multi_scan(x))}
+        del x
     for label, shape in (("15b shard", (1_048_576,)),
                          ("15c shard", (DOCSET_DOCS // 2, 192)),
                          ("15d shard", (2, 96)), ("merge column", (N_MERGE,))):
@@ -730,7 +793,8 @@ def time_kernels(torch, S, ms_shapes, fs_shapes, n_elems_of):
                   .abs().max())
         b_ms, b_by = _ms_bound(K, N)
         out["multi_scan"].append({
-            "shape": [K, N], "copies": len(xs), "max_abs_err": err,
+            "shape": [K, N], "form": S.FORMS[S.ms_geometry(K, N).form],
+            "copies": len(xs), "max_abs_err": err,
             "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, [plain]),
             "library_ms": time_ms(torch, [library]),
             "bound_ms": b_ms, "bound_by": b_by})
@@ -3580,7 +3644,7 @@ def mesh_kernel_checks(torch, M, dev, sizes=(N_MERGE, 1_048_576),
                         or not torch.equal(p, w):
                     raise AssertionError(f"sharded_fused_scans differs at "
                                          f"C={C} over {n} shards")
-            cases.append([C, n, S.FS_FORMS[S.fs_geometry(
+            cases.append([C, n, S.FORMS[S.fs_geometry(
                 "fs_scan", 1, C // n).form]])
     for D, C in rows:
         chain = torch.from_numpy(rng.random((D, C)) < 0.9).to(dev)
@@ -3597,7 +3661,7 @@ def mesh_kernel_checks(torch, M, dev, sizes=(N_MERGE, 1_048_576),
             if not torch.equal(g.gather(dev), p) or not torch.equal(p, w):
                 raise AssertionError(f"sharded_fused_scans rows differ at "
                                      f"({D}, {C}) over {row_shards} shards")
-        cases.append([[D, C], row_shards, S.FS_FORMS[S.fs_geometry(
+        cases.append([[D, C], row_shards, S.FORMS[S.fs_geometry(
             "fs_scan", D, C // row_shards).form]])
     log(f"15a sharded_fused_scans bit-exact vs plain and the unsharded "
         f"scans: {cases}")
@@ -6858,8 +6922,8 @@ def scan_profile(torch, M, out_dir: str, calls: int = 3) -> dict:
 
 def wrapper_host_main(torch, root: str) -> int:
     """`--wrapper-host ROOT`: build ROOT's scan kernels and print the host
-    microseconds per call of its segment-scan wrappers (wrapper_host_us),
-    the card, and one JSON line."""
+    microseconds per call of its scan wrappers (wrapper_host_us), the
+    card, and one JSON line."""
     sys.path.insert(0, root)
     try:
         from automerge_tpu_torch.ops import scan_kernels as S
@@ -6940,7 +7004,7 @@ def main() -> int:
                          "printing their record as the last line")
     ap.add_argument("--wrapper-host", metavar="ROOT", default=None,
                     help="only time the host work per call of the "
-                         "segment-scan wrappers of the package under ROOT "
+                         "scan wrappers of the package under ROOT "
                          "(this checkout's or another's) and print it as "
                          "the last line")
     args = ap.parse_args()
@@ -7348,9 +7412,8 @@ def main() -> int:
             "eager_bound_frac": rec["bound_ms"] / eager[name],
             "kernels_per_call": per_call[name],
             "shapes": times[name],
-            "host_us_per_call": ({k: v["fused_segment_scans"]
-                                  for k, v in host.items()}
-                                 if name == "fused_segment_scans" else None),
+            "host_us_per_call": {k: v[name] for k, v in host.items()
+                                 if name in v},
             "launches_by_shape": {
                 p: {"x".join(map(str, sh)): n for sh, n in d[name].items()}
                 for p, d in shapes_by_path.items()}})
@@ -7372,7 +7435,8 @@ def main() -> int:
             "shapes": sharded_times[name],
             "host_us_per_call": {
                 k: v["fs_totals" if name == "fs_totals"
-                     else "carry-in fs_scan"] for k, v in host.items()},
+                     else "carry-in fs_scan"] for k, v in host.items()
+                if "fs_totals" in v},
             "launches_by_shape": {
                 p: {"x".join(map(str, sh)): n
                     for sh, n in d.get(name, {}).items()}

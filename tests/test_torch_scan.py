@@ -36,7 +36,8 @@ def _columns(C, seed, p_chain=0.7, p_has=0.8):
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (6, 5), (6, 513), (6, 1025),
-                                   (2, 3000)])
+                                   (2, 3000), (6, 1024), (1, 1025),
+                                   (2, 8193)])
 def test_multi_scan_plain_matches_pallas(shape):
     x = _channels(*shape, seed=shape[0] * 7919 + shape[1])
     want = np.asarray(P.multi_scan(jnp.asarray(x), interpret=True))
@@ -123,9 +124,11 @@ def test_fused_segment_scans_row_equals_one_column():
             S.fused_segment_scans(ch, hv, bad)
 
 
-@pytest.mark.parametrize("D,N", [(4, 256), (2, 512), (1, 256)])
+@pytest.mark.parametrize("D,N", [(4, 256), (2, 512), (1, 256), (1, 1024),
+                                 (1, 1025), (1, 8193)])
 def test_multi_scan_plain_matches_pallas_short_rows(D, N):
-    """The stacked round's expansion shape: (D * 6, N) with short rows."""
+    """The stacked round's expansion shape: (D * 6, N) with short rows, and
+    (6, N) rows on each side of the warp and block forms' edges."""
     x = _channels(D * 6, N, seed=D + N)
     want = np.asarray(P.multi_scan(jnp.asarray(x), interpret=True))
     got = S.multi_scan_plain(torch.from_numpy(x))
@@ -197,6 +200,14 @@ def test_sweep_variants_edit_only_their_constants(i):
     assert (out == text) == (not consts and store is None)
 
 
+def test_sweep_bounds_take_a_column_length():
+    """scripts/sweep_scan_tiles.py passes the merge column's length, not a
+    shape, to chip_smoke's segment-scan bound."""
+    CS = _sweep().CS
+    assert CS._fs_bound(CS.N_MERGE) == CS._fs_bound((CS.N_MERGE,))
+    assert CS._fs_bound((1000, 768)) != CS._fs_bound(768)
+
+
 @pytest.mark.parametrize("length,tile,tiles", [
     (1, 4096, 1), (4095, 4096, 1), (4096, 4096, 1), (4097, 4096, 2),
     (6_291_456, 4096, 1536), (6_291_456, 8192, 768), (8195, 8192, 2)])
@@ -204,13 +215,18 @@ def test_n_tiles(length, tile, tiles):
     assert S.n_tiles(length, tile) == tiles
 
 
-@pytest.mark.parametrize("tiles,words", [(1, 1), (9216, 1), (768, 6),
-                                         (1, 6)])
-def test_scratch_words(tiles, words):
-    """One ticket word, then `words` status words per tile; the C entry
-    points refuse a smaller scratch."""
-    assert S.scratch_words(tiles, words) == 1 + tiles * words
+@pytest.mark.parametrize("rows,n,words", [
+    (1, 8193, 2), (6, 6_291_456, 4608), (3, 20_000, 9),
+    (1, 3 * 8192 + 5, 4)])
+def test_scratch_words(rows, n, words):
+    """multi_scan's look-back scratch: one status word a tile, after the
+    header of both families (ticket, arrivals, epoch) and no row
+    counters; the C entry point refuses a smaller scratch."""
     assert S.MS_STATUS_WORDS == 1 and S.FS_STATUS_WORDS == 6
+    geo = S.ms_geometry(rows, n)
+    assert S.FORMS[geo.form] == "lookback"
+    assert (geo.counters, geo.words) == (0, words)
+    assert S.fs_scratch_words(geo.counters, geo.words) == 2 + words
 
 
 def test_cpu_tensors_record_no_launch_shapes():
@@ -319,9 +335,8 @@ def test_kernels_repeat_bit_exact(cuda_device):
 
 @pytest.mark.cuda
 def test_one_kernel_launch_per_call(cuda_device):
-    """Each wrapper runs one kernel per call (multi_scan's scratch memset
-    aside; the segment scans run nothing else at all, as
-    test_each_call_is_one_kernel_and_no_memset checks)."""
+    """Each wrapper runs one kernel per call and nothing else (no memset:
+    test_each_call_is_one_kernel_and_no_memset checks every form)."""
     from torch.profiler import ProfilerActivity, profile
     x = torch.zeros((6, 10_000), dtype=torch.int32, device=cuda_device)
     c = torch.zeros(10_000, dtype=torch.bool, device=cuda_device)
@@ -334,10 +349,9 @@ def test_one_kernel_launch_per_call(cuda_device):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "memset" not in e.name.lower()]
-        assert len(kernels) == 1, [e.name for e in kernels]
+        ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(ops) == 1, [e.name for e in ops]
 
 
 @pytest.mark.cuda
@@ -410,7 +424,7 @@ def test_fs_geometry_at_the_form_boundaries(n, form, rows):
     tiles = rows * -(-n // S.FS_TILE)
     for kernel in ("fs_scan", "fs_totals"):
         g = S.fs_geometry(kernel, rows, n)
-        assert S.FS_FORMS[g.form] == form
+        assert S.FORMS[g.form] == form
         if form != "lookback":
             assert (g.counters, g.words) == (0, 0)
         elif kernel == "fs_scan":
@@ -423,9 +437,9 @@ def test_fs_geometry_follows_the_library_constants():
     """A variant build (scripts/sweep_scan_tiles.py) with another tile
     moves the boundaries with it; an empty launch or an unknown kernel
     raises."""
-    assert S.FS_FORMS[S.fs_geometry("fs_scan", 2, 3000, 2048,
+    assert S.FORMS[S.fs_geometry("fs_scan", 2, 3000, 2048,
                                     1024).form] == "lookback"
-    assert S.FS_FORMS[S.fs_geometry("fs_scan", 2, 2000, 2048,
+    assert S.FORMS[S.fs_geometry("fs_scan", 2, 2000, 2048,
                                     1024).form] == "block"
     for bad in (("fs_scan", 0, 10), ("fs_scan", 3, 0), ("scan", 1, 10)):
         with pytest.raises(ValueError):
@@ -678,7 +692,7 @@ def test_eight_streams_at_once(cuda_device):
         for g, w in zip(out, want):
             assert torch.equal(g, w)
     keys = {k for k in S._SCRATCH.buffers
-            if k[1] in {s.cuda_stream for s in streams}}
+            if k[1] in {s.cuda_stream for s in streams} and k[2] == "fs"}
     assert len(keys) == len({s.cuda_stream for s in streams})
 
 
@@ -686,19 +700,22 @@ def test_eight_streams_at_once(cuda_device):
 @pytest.mark.parametrize("D,n", [(None, 96), (None, 5000), (None, 100_003),
                                  (500, 192), (7, 1025), (3, 20_000)])
 def test_each_call_is_one_kernel_and_no_memset(cuda_device, D, n):
-    """Every call of the three wrappers runs exactly one device operation,
+    """Every call of the four wrappers runs exactly one device operation,
     its kernel: no memset, no fill, no copy (int counts by value, the
-    scratch persistent)."""
+    scratch persistent). multi_scan runs on (D or 6, n): the warp, block
+    and look-back forms among the cases."""
     from torch.profiler import ProfilerActivity, profile
     ch, hv = _form_inputs(D, n, 0, 3, cuda_device)
     ne = (n - 5 if D is None else torch.full(
         (D,), n - 5, dtype=torch.int32, device=cuda_device))
     carry = _carry(D, 2, n, 3, cuda_device)
+    x = torch.from_numpy(_channels(D or 6, n, seed=n)).to(cuda_device)
     for fn, kernel in (
             (lambda: S.fs_totals(ch, hv, ne, 0), "fs_totals"),
             (lambda: S.fused_segment_scans_carry(ch, hv, ne, 0, carry, 2),
              "fs_scan"),
-            (lambda: S.fused_segment_scans(ch, hv, ne, 0), "fs_scan")):
+            (lambda: S.fused_segment_scans(ch, hv, ne, 0), "fs_scan"),
+            (lambda: S.multi_scan(x), "ms_scan")):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -707,6 +724,223 @@ def test_each_call_is_one_kernel_and_no_memset(cuda_device, D, n):
         ops = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         assert len(ops) == 1 and kernel in ops[0], ops
+
+
+# ------------------------------------------------------ multi_scan's forms
+
+#: multi_scan row lengths on each form edge (warp <= 1,024 < block <=
+#: 8,192 < look-back) and inside the warp form's first round
+MS_EDGES = [1, 31, 32, 33, 1023, 1024, 1025, 8191, 8192, 8193]
+
+
+@pytest.mark.parametrize("n", MS_EDGES)
+@pytest.mark.parametrize("rows", [1, 7, 8, 9])
+def test_ms_geometry_at_the_form_boundaries(n, rows):
+    """The host's form choice for multi_scan: a warp a row up to 1,024
+    columns, a block a row up to 8,192, then the look-back over tiles,
+    the only form with a scratch (one status word a tile, no counters)."""
+    g = S.ms_geometry(rows, n)
+    form = "warp" if n <= 1024 else ("block" if n <= 8192 else "lookback")
+    assert S.FORMS[g.form] == form
+    words = rows * -(-n // S.MS_TILE) if form == "lookback" else 0
+    assert (g.counters, g.words) == (0, words)
+
+
+def test_ms_geometry_refuses_empty_launches_and_follows_the_library():
+    """No launch of no rows or no columns; a variant build with another
+    tile or warp row moves the edges with it."""
+    for bad in ((0, 10), (3, 0), (-1, 5)):
+        with pytest.raises(ValueError, match="no multi_scan launch"):
+            S.ms_geometry(*bad)
+    assert S.FORMS[S.ms_geometry(2, 3000, 2048, 256).form] == "lookback"
+    assert S.FORMS[S.ms_geometry(2, 2000, 2048, 256).form] == "block"
+    assert S.FORMS[S.ms_geometry(2, 256, 2048, 256).form] == "warp"
+    assert S.ms_geometry(2, 3000, 2048, 256).words == 4
+
+
+def test_scratch_cache_keeps_the_families_apart(monkeypatch):
+    """multi_scan and the segment scans on one stream: each family gets a
+    buffer of its own (they tag status words differently), growing one
+    leaves the other in place, and a form without look-back takes no
+    scratch and allocates nothing."""
+    alloc = _FakeAlloc()
+    monkeypatch.setattr(S, "_SCRATCH",
+                        S.ScratchCache(alloc, capturing=lambda: False))
+    dev = torch.device("cuda", 0)
+    fs = S._scratch_entry("fs", dev, 111,
+                          S.fs_geometry("fs_scan", 1, 100_003))
+    ms = S._scratch_entry("multi_scan", dev, 111,
+                          S.ms_geometry(6, 100_003))
+    assert fs[0] is not ms[0] and fs[3] != ms[3]
+    assert ms[1:3] == (0, 128)              # 6 x 13 tiles, to a power of 2
+    assert fs[1:3] == (0, 128)              # 13 tiles x 6 words
+    assert S._scratch_entry("multi_scan", dev, 111,
+                            S.ms_geometry(3, 20_000)) is ms    # fits
+    ms2 = S._scratch_entry("multi_scan", dev, 111,
+                           S.ms_geometry(6, 6_291_456))        # grows
+    assert ms2[1:3] == (0, 8192) and S._SCRATCH.retired == [ms[0]]
+    assert S._SCRATCH.buffers[(0, 111, "fs")] is fs
+    for geo in (S.ms_geometry(6, 256), S.ms_geometry(6, 8192),
+                S.fs_geometry("fs_totals", 500, 192)):
+        assert S._scratch_entry("multi_scan", dev, 111, geo) == \
+            S._NO_SCRATCH
+    assert len(alloc.calls) == 3
+    assert {k[2] for k in S._SCRATCH.buffers} == {"fs", "multi_scan"}
+
+
+def _ms_input(K, N, lead, seed, device, low=-7, high=8):
+    """A seeded int32 (K, N) view `lead` int32 into a longer tensor."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(low, high, K * N + lead).astype(np.int32)
+    return torch.from_numpy(buf).to(device)[lead:].view(K, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", MS_EDGES)
+@pytest.mark.parametrize("K", [1, 7, 8, 9])
+@pytest.mark.parametrize("lead", [0, 1])
+def test_multi_scan_forms_bit_exact_at_the_edges(cuda_device, n, K, lead):
+    """Each form at its edges, on aligned views and views 4 bytes off 16
+    (the scalar path), K rows around the warp form's 8 rows a block:
+    bit-exact, one launch at its shape, the host's form the library's."""
+    x = _ms_input(K, n, lead, n * 10 + K + lead, cuda_device)
+    assert (x.data_ptr() % 16 != 0) == bool(lead)
+    lib = S.load()
+    assert lib.amt_ms_form(n) == S.ms_geometry(K, n).form
+    S.reset_launches()
+    got = S.multi_scan(x)
+    torch.cuda.synchronize()
+    assert S.launch_shapes["multi_scan"] == {(K, n): 1}
+    assert torch.equal(got, S.multi_scan_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,n", [(6, 256), (5, 1), (6, 5000), (2, 33),
+                                 (6, 100_003)])
+def test_multi_scan_wraps_around_like_cumsum(cuda_device, K, n):
+    """Values near the int32 limits, every other row negative: the sums
+    wrap, in every form, as torch.cumsum(..., dtype=torch.int32) does."""
+    x = _ms_input(K, n, 0, n + K, cuda_device, 2**30, 2**31 - 1)
+    x[1::2] = -x[1::2]
+    got = S.multi_scan(x)
+    want = S.multi_scan_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    wide = x.long().cumsum(1)
+    assert n == 1 or not torch.equal(want.long(), wide)   # it did wrap
+    assert torch.equal(want.long(), (wide + 2**31) % 2**32 - 2**31)
+
+
+@pytest.mark.cuda
+def test_multi_scan_epoch_wrap_clears_stale_words(cuda_device):
+    """The launch that takes the last tag (2^31 - 1) clears every status
+    word and restarts the epoch at 0: planted words published under tag 1
+    are gone before the next launch, tagged 1, could read them."""
+    x = _ms_input(6, 100_003, 0, 7, cuda_device)
+    want = S.multi_scan_plain(x)
+    assert torch.equal(S.multi_scan(x), want)
+    torch.cuda.synchronize()
+    key = (cuda_device.index or 0, S._stream_handle(x.device), "multi_scan")
+    buf = S._SCRATCH.buffers[key][0]
+    hdr = int(buf[0])
+    assert hdr & 0xFFFFFFFF == 0 and hdr >> 32 >= 1     # ticket 0, epoch on
+    buf[0] = 0x7FFFFFFE << 32                # the next launch's tag is last
+    buf[2:] = (1 << 33) | (1 << 32) | 5      # prefixes of tag 1, value 5
+    assert torch.equal(S.multi_scan(x), want)
+    torch.cuda.synchronize()
+    assert int(buf[0]) == 0 and not buf[2:].any()
+    assert torch.equal(S.multi_scan(x), want)           # tag 1
+    assert int(buf[0]) == 1 << 32
+
+
+def _ms_fs_cases(device, count, seed):
+    """`count` calls, alternating multi_scan and fs_scan look-back calls
+    with short-row calls of both: (thunk, want) pairs."""
+    ms_shapes = [(6, 100_003), (6, 256), (3, 8193), (6, 20_000), (1000, 512),
+                 (6, 8192)]
+    fs_shapes = [(None, 100_003), (3, 3 * 8192 + 5), (500, 192),
+                 (None, 9000)]
+    cases = []
+    for i in range(count):
+        if i % 2 == 0:
+            K, n = ms_shapes[(i // 2) % len(ms_shapes)]
+            x = _ms_input(K, n, (i // 2) % 2, seed + i, device)
+            cases.append((lambda x=x: (S.multi_scan(x),),
+                          (S.multi_scan_plain(x),)))
+        else:
+            D, n = fs_shapes[(i // 2) % len(fs_shapes)]
+            ch, hv = _form_inputs(D, n, 0, seed + i, device)
+            ne = (n - i if D is None else torch.full(
+                (D,), n - i, dtype=torch.int32, device=device))
+            cases.append((lambda ch=ch, hv=hv, ne=ne:
+                          S.fused_segment_scans(ch, hv, ne, 1),
+                          S.fused_segment_scans_plain(ch, hv, ne, 1)))
+    return cases
+
+
+@pytest.mark.cuda
+def test_multi_scan_and_segment_scans_interleaved_on_one_stream(
+        cuda_device):
+    """50 calls on one stream, no sync between them: multi_scan look-back
+    launches between fs_scan look-back launches (a commit's expansion and
+    its self-contained read), short rows of both among them. Each family's
+    epoch and ticket carry every call right."""
+    cases = _ms_fs_cases(cuda_device, 50, 300)
+    outs = [fn() for fn, _ in cases]
+    torch.cuda.synchronize()
+    for i, (out, (_, want)) in enumerate(zip(outs, cases)):
+        for g, w in zip(out, want):
+            assert torch.equal(g, w), i
+
+
+@pytest.mark.cuda
+def test_replayed_graph_of_both_families_stays_bit_exact(cuda_device):
+    """A CUDA graph of 10 calls, multi_scan and fs_scan alternating in
+    every form, captured after one warm-up on its stream, replayed 20
+    times: every replay bit-exact."""
+    cases = _ms_fs_cases(cuda_device, 10, 500)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn, _ in cases:
+            fn()                            # sizes this stream's scratch
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [fn() for fn, _ in cases]
+    for r in range(20):
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, (_, want) in zip(outs, cases):
+            for g, w in zip(out, want):
+                assert torch.equal(g, w), r
+
+
+@pytest.mark.cuda
+def test_multi_scan_eight_streams_at_once(cuda_device):
+    """8 streams launching multi_scan look-back and short-row calls at
+    once, with no sync between them: each stream has its own buffer and
+    its own ticket."""
+    streams = [torch.cuda.Stream() for _ in range(8)]
+    xs = [_ms_input(6, 1_000_003 + i if i % 2 else 256, 0, 900 + i,
+                    cuda_device) for i in range(8)]
+    big = [_ms_input(6, 50_000 + 16 * i, 0, 950 + i, cuda_device)
+           for i in range(8)]
+    torch.cuda.synchronize()
+    outs = []
+    for st, x, y in zip(streams, xs, big):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append((S.multi_scan(x), S.multi_scan(y), S.multi_scan(x)))
+    torch.cuda.synchronize()
+    for (a, b, c), x, y in zip(outs, xs, big):
+        want = S.multi_scan_plain(x)
+        assert torch.equal(a, want) and torch.equal(c, want)
+        assert torch.equal(b, S.multi_scan_plain(y))
+    handles = {s.cuda_stream for s in streams}
+    keys = {k for k in S._SCRATCH.buffers
+            if k[1] in handles and k[2] == "multi_scan"}
+    assert len(keys) == len(handles)
 
 
 @pytest.mark.parametrize("w", [96, 1023, 1024, 1025, 8191, 8192, 8193])
