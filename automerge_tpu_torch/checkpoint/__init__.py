@@ -38,6 +38,7 @@ from __future__ import annotations
 import base64
 import json
 
+from .. import obs
 from .._common import less_or_equal
 from ..resilience.errors import CheckpointError  # noqa: F401  (re-export)
 from . import bundle as _bundle
@@ -209,9 +210,14 @@ def capture_engine(doc) -> bytes:
 
 def restore_engine(data: bytes, device=None):
     """Rebuild an engine doc from a :func:`capture_engine` bundle, its
-    tables on `device` (None: the CUDA card)."""
+    tables on `device` (None: the CUDA card). Traced as `ckpt/restore`,
+    with `ckpt/decode` (the bundle's parse and verification) and the
+    spans of `restore_engine_doc` inside it."""
     from .engine_codec import restore_engine_doc
+    _t0 = obs.now() if obs.ENABLED else 0
     manifest, arrays = _bundle.decode(data)
+    if obs.ENABLED:
+        obs.span("ckpt", "decode", _t0, args={"bytes": len(data)})
     if manifest.get("engine") != "engine-doc":
         raise CheckpointError(
             f"not an engine-doc checkpoint: {manifest.get('engine')!r}")
@@ -219,7 +225,10 @@ def restore_engine(data: bytes, device=None):
     if not isinstance(frag, dict):
         raise CheckpointError("engine-doc checkpoint is missing its doc "
                               "fragment")
-    return restore_engine_doc(frag, arrays, device=device)
+    doc = restore_engine_doc(frag, arrays, device=device)
+    if obs.ENABLED:
+        obs.span("ckpt", "restore", _t0, args={"doc": doc.obj_id})
+    return doc
 
 
 __all__ = [

@@ -339,7 +339,11 @@ def restore_engine_doc(frag: dict, arrays: dict, prefix: str = "",
 
     ``shared_all_deps``: backend-level restores pass the closure map
     rebuilt once from the core history (per-doc closure maps all converge
-    to the same content); engine-level bundles carry their own."""
+    to the same content); engine-level bundles carry their own.
+
+    Traced: `ckpt/index` (the range index), `ckpt/stage` (the padded
+    tables and their h2d copies, up to the wait for them) and, inside
+    it, `ckpt/mirror` (the segment-mirror rebuild the copies overlap)."""
     from ..engine.host_index import BatchRangeIndex
     from ..engine.map_doc import DeviceMapDoc
     from ..engine.segments import SegmentMirror
@@ -369,16 +373,21 @@ def restore_engine_doc(frag: dict, arrays: dict, prefix: str = "",
                             device=device)
         doc.all_ascii = bool(frag["all_ascii"])
         doc.n_elems = n_elems
+        _ti = obs.now() if obs.ENABLED else 0
         idx = BatchRangeIndex.from_rows(*(
             np.asarray(_require(arrays, prefix + name), np.int64)
             for name in ("idx_starts", "idx_lens", "idx_slots")))
+        if obs.ENABLED:
+            obs.span("ckpt", "index", _ti, args={"doc": obj_id})
         doc.index = idx
         if n_elems:
             n_live = n_elems + 1
             cap = max(bucket(n_live), doc._cap)
+            _ts = obs.now() if obs.ENABLED else 0
             host = _padded_host(arrays, prefix, _TEXT_KEYS, n_live, cap)
             staging = _Staging(doc, host)
             # host work while the copies run: the mirror rebuild
+            _tm = obs.now() if obs.ENABLED else 0
             try:
                 doc.seg_mirror = SegmentMirror.rebuild(
                     host["chain"], host["parent"], n_elems, idx.slot_to_key)
@@ -388,7 +397,12 @@ def restore_engine_doc(frag: dict, arrays: dict, prefix: str = "",
                 # kernels take over (same contract as the heal path)
                 doc.seg_mirror = None
                 doc._seg_bound = n_elems + 2
+            if obs.ENABLED:
+                obs.span("ckpt", "mirror", _tm, args={"doc": obj_id})
             staging.finish()
+            if obs.ENABLED:
+                obs.span("ckpt", "stage", _ts, args={"doc": obj_id,
+                                                     "cap": cap})
             doc._dev = staging.dev
             doc._host = {k: host[k] for k in _TEXT_MIRROR}
             doc._cap = cap
@@ -403,9 +417,13 @@ def restore_engine_doc(frag: dict, arrays: dict, prefix: str = "",
         if key_table:
             n_live = len(key_table)
             cap = max(bucket(n_live, 16), doc._cap)
+            _ts = obs.now() if obs.ENABLED else 0
             host = _padded_host(arrays, prefix, _MAP_KEYS, n_live, cap)
             staging = _Staging(doc, host)
             staging.finish()
+            if obs.ENABLED:
+                obs.span("ckpt", "stage", _ts, args={"doc": obj_id,
+                                                     "cap": cap})
             doc._dev = staging.dev
             doc._host = {k: host[k] for k in _MAP_MIRROR}
             doc._cap = cap

@@ -8,8 +8,13 @@ PCIe), so an accidental extra sync per batch is invisible on cpu and
 catastrophic at deployment. Counting is therefore first-class and
 ASSERTED, not profiled after the fact:
 
-- a **dispatch** is one jitted device program launched by the engine
-  (merge/materialize/residual/scatter/linearize kernels);
+- a **dispatch** is one engine program call (merge/materialize/
+  residual/scatter/linearize): one call of a wrapper in `ops/`, which
+  may launch several kernels and copies (a round program is tens of
+  eager launches), not one kernel launch. The keys keep the JAX
+  package's name, where a program is one jitted launch; the launches
+  of the hand-written kernels are counted by the device-truth registry
+  (`obs.device_truth`);
 - a **blocking sync** is one forced device->host completion — a d2h
   fetch the host logic consumes (`np.asarray` of a device array, scalar
   reads) or an explicit `block_until_ready`. Async h2d staging

@@ -815,12 +815,20 @@ class CausalDeviceDoc:
         return rounds, queue_after, prior_queue
 
     def apply_batch(self, batch):
-        """Merge a columnar change batch (causally gated, idempotent)."""
+        """Merge a columnar change batch (causally gated, idempotent).
+        Traced as `apply/batch`; inside it `plan/admission`, per round
+        `apply/intern`, `apply/bookkeeping` and the subclass's ingest
+        spans, then `apply/finish`."""
         self._busy += 1
+        _t0 = obs.now() if obs.ENABLED else 0
         try:
             return self._apply_batch(batch)
         finally:
             self._busy -= 1
+            if obs.ENABLED:
+                obs.span("apply", "batch", _t0, args={
+                    "doc": self.obj_id, "n_ops": getattr(batch, "n_ops", 0),
+                    "n_changes": batch.n_changes})
 
     def _apply_batch(self, batch):
         rounds, queue_after, prior_queue = self._schedule(batch)
@@ -844,9 +852,12 @@ class CausalDeviceDoc:
             self._gen += 1  # queue changed: invalidate outstanding plans
             self._plan_failed()
             raise
+        _tf = obs.now() if obs.ENABLED else 0
         self._invalidate()
         self.compact_tables()
         self._note_footprint()
+        if obs.ENABLED:
+            obs.span("apply", "finish", _tf, args={"doc": self.obj_id})
         return self
 
     @staticmethod
@@ -964,16 +975,24 @@ class CausalDeviceDoc:
             # leaves the causal state untouched (extra interned actors are
             # harmless — interning only renames ranks consistently, it adds
             # no document content).
+            _ti = obs.now() if obs.ENABLED else 0
             remap = self._intern_batch_actors(b)
             if remap is not None:
                 self._apply_remap(remap)
+            if obs.ENABLED:
+                obs.span("apply", "intern", _ti, args={
+                    "doc": self.obj_id, "remap": remap is not None})
 
             # _ingest needs clock/_all_deps populated for this round's
             # changes (the slow register path reads them), but a raising
             # _ingest must leave them untouched or a corrected redelivery
             # of the same (actor, seq) is silently skipped as a duplicate —
             # so snapshot and roll back on failure.
+            _tb = obs.now() if obs.ENABLED else 0
             snapshots = self._round_bookkeeping(b, rows_arr)
+            if obs.ENABLED:
+                obs.span("apply", "bookkeeping", _tb, args={
+                    "doc": self.obj_id, "n_rows": len(rows_arr)})
             if b.n_ops:
                 try:
                     self._ingest(b, mask)
@@ -1269,10 +1288,15 @@ class CausalDeviceDoc:
         `reg_state` = (value, has, win_actor, win_seq, win_counter) numpy
         rows aligned with `slots` — pre-gathered by the ingest kernel's
         packed slow_info output, so resolution costs zero extra device
-        round trips beyond the one write-back scatter."""
+        round trips beyond the one write-back scatter. Traced as
+        `apply/slow`."""
+        _t0 = obs.now() if obs.ENABLED else 0
         wb = self._resolve_slow_host(b, slots, kinds, values, actor_ranks,
                                      seqs, slot_cap, reg_state)
         self._scatter_slow(wb)
+        if obs.ENABLED:
+            obs.span("apply", "slow", _t0, args={"doc": self.obj_id,
+                                                 "n_slow": len(slots)})
 
     def _resolve_slow_host(self, b, slots, kinds, values, actor_ranks,
                            seqs, slot_cap: int, reg_state) -> np.ndarray:

@@ -42,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from .._common import HEAD_PARENT, make_elem_id
 from ..ops.ingest import TEXT_TABLE_FILLS
 from .base import resolve_device, transitive_closure
@@ -184,7 +185,24 @@ class DeviceTextDocSet:
         runs-only ready batches; the general stacked executor
         (engine/stacked.py) otherwise — every batch the fast tier can't
         serve graduates its doc and the whole graduated group executes as
-        ONE stacked multi-object apply per call."""
+        ONE stacked multi-object apply per call.
+
+        Traced as `docset/apply`; inside it `docset/plan` (the planning
+        of every document), `docset/general`, `docset/stack` (the staged
+        state committed, the descriptors packed) and `docset/expand`
+        (the uploads and the expansion; its `out_cap` argument shows a
+        capacity regrowth). The per-document spans of the planning
+        (`_plan_fast`'s stages, `plan/detect_runs`, `plan/index_merge`)
+        feed the aggregates only."""
+        _t0 = obs.now() if obs.ENABLED else 0
+        try:
+            return self._apply_batches(batches)
+        finally:
+            if obs.ENABLED:
+                obs.span("docset", "apply", _t0,
+                         args={"n_docs": len(batches)})
+
+    def _apply_batches(self, batches: dict):
         from ..ops.ingest import (DESC_ACTOR, DESC_CTR0, DESC_ELEM_BASE,
                                   DESC_HAS_VALUE, DESC_META,
                                   DESC_PARENT_SLOT, DESC_WIN_ACTOR,
@@ -194,24 +212,34 @@ class DeviceTextDocSet:
         self._codes_cache = None
         fast: list = []
         general: list = []            # (graduated doc, batch)
-        for obj_id, batch in batches.items():
-            d = self._idx[obj_id]
-            if d in self._overlay:
-                general.append((self._overlay[d], batch))
-                continue
-            plan_pack = self._plan_fast(d, batch)
-            if plan_pack == "skip":
-                continue
-            if plan_pack is None:
-                general.append((self._graduate(d), batch))
-            else:
-                fast.append(plan_pack)
+        _tp = obs.now() if obs.ENABLED else 0
+        with obs.aggregate_only():
+            for obj_id, batch in batches.items():
+                d = self._idx[obj_id]
+                if d in self._overlay:
+                    general.append((self._overlay[d], batch))
+                    continue
+                plan_pack = self._plan_fast(d, batch)
+                if plan_pack == "skip":
+                    continue
+                if plan_pack is None:
+                    general.append((self._graduate(d), batch))
+                else:
+                    fast.append(plan_pack)
+        if obs.ENABLED:
+            obs.span("docset", "plan", _tp, args={
+                "n_fast": len(fast), "n_general": len(general)})
         if general:
+            _tg = obs.now() if obs.ENABLED else 0
             self._apply_general(general)
+            if obs.ENABLED:
+                obs.span("docset", "general", _tg,
+                         args={"n_docs": len(general)})
         if not fast:
             return self
 
         # --- commit staged per-doc state now that every plan succeeded ---
+        _ts = obs.now() if obs.ENABLED else 0
         for p in fast:
             meta = self._meta[p["d"]]
             meta.index = p["staged_index"]
@@ -269,12 +297,18 @@ class DeviceTextDocSet:
                 touch[d, 0, : len(ps)] = ps
                 touch[d, 1, : len(ps)] = cs
                 touch[d, 2, : len(ps)] = as_
+        if obs.ENABLED:
+            obs.span("docset", "stack", _ts, args={"n_fast": len(fast),
+                                                   "R": R, "N": N})
+        _te = obs.now() if obs.ENABLED else 0
         if self.mesh is None:
             self._dev = self._expand_rows(
                 self._ensure_dev(), self._put(desc), self._put(blob),
                 None if touch is None else self._put(touch), out_cap)
         else:
             self._expand_on_mesh(desc, blob, touch, out_cap)
+        if obs.ENABLED:
+            obs.span("docset", "expand", _te, args={"out_cap": out_cap})
         self._cap = out_cap
 
         for p in fast:
@@ -351,7 +385,9 @@ class DeviceTextDocSet:
         """Host planning for the stacked path; None -> general engine.
 
         Pure: all state updates are staged in the returned pack and
-        committed by apply_batches only after every doc's plan succeeds."""
+        committed by apply_batches only after every doc's plan succeeds.
+        Traced per stage: `docset/lookup` (the run parents through the
+        merged index) and `docset/mirror`."""
         meta = self._meta[d]
         # fully-ready batch? the clock advances through the loop, so
         # sequential same-actor changes stay fast and any duplicate —
@@ -413,6 +449,7 @@ class DeviceTextDocSet:
                 f"Duplicate list element ID "
                 f"{make_elem_id(table[rank], k_ctr)} "
                 f"in {self.obj_ids[d]}") from None
+        _t0 = obs.now() if obs.ENABLED else 0
         is_head = pa[hpos] == HEAD_PARENT
         keys = pack_keys(batch_rank[np.where(is_head, 0, pa[hpos])],
                          pc[hpos].astype(np.int64))
@@ -421,6 +458,8 @@ class DeviceTextDocSet:
             raise ValueError(
                 f"ins references unknown parent element in {self.obj_ids[d]}")
         parent_slot = np.where(is_head, 0, slots)
+        if obs.ENABLED:
+            obs.span("docset", "lookup", _t0)
 
         # transitive dependency closure per change (the graduated doc's slow
         # path needs it to judge causal coverage); a dep may reference an
@@ -436,6 +475,7 @@ class DeviceTextDocSet:
         # host segment mirror (same round inputs as the stacked chain
         # breaks); failure degrades THIS doc to the self-contained
         # materialization, never the round itself
+        _t0 = obs.now() if obs.ENABLED else 0
         staged_mirror = None
         if meta.mirror is not None:
             try:
@@ -447,6 +487,8 @@ class DeviceTextDocSet:
                 logger.warning(
                     "segment-mirror planning failed for %s (doc-set row %d)",
                     self.obj_ids[d], d, exc_info=True)
+        if obs.ENABLED:
+            obs.span("docset", "mirror", _t0)
 
         return {
             "d": d, "n_runs": plan.n_runs, "n_pairs": plan.n_pairs,
@@ -470,7 +512,9 @@ class DeviceTextDocSet:
 
     def _rebuild_row_mirror(self, d: int):
         """Heal path: reconstruct row d's segment mirror from its fetched
-        chain/parent rows (None if that fails too)."""
+        chain/parent rows (None if that fails too). Traced as
+        `read/rebuild`."""
+        _t0 = obs.now() if obs.ENABLED else 0
         rows = self._rows(d)
         meta = self._meta[d]
         try:
@@ -481,6 +525,17 @@ class DeviceTextDocSet:
             logger.warning("mirror rebuild failed for doc-set row %d", d,
                            exc_info=True)
             meta.mirror = None
+        if obs.ENABLED:
+            obs.span("read", "rebuild", _t0, args={"row": d})
+
+    @staticmethod
+    def _fetch(t) -> np.ndarray:
+        """A blocking fetch of the read path, traced as `read/wait`."""
+        _t0 = obs.now() if obs.ENABLED else 0
+        out = t.cpu().numpy()
+        if obs.ENABLED:
+            obs.span("read", "wait", _t0)
+        return out
 
     def texts(self) -> dict:
         """Materialize every document: one stacked program + one fetch.
@@ -491,10 +546,16 @@ class DeviceTextDocSet:
         chain bits. A divergent or missing mirror is REBUILT from the real
         chain bits (the affected call serves through the self-contained
         program; the next call is planned again) and only drops to None if
-        the rebuild itself fails."""
+        the rebuild itself fails.
+
+        Traced as `read/texts`; inside it `read/plan` (the rows' segment
+        plans stacked), `read/wait` (each blocking fetch), `read/check`
+        (the rows' checksums against their mirrors), `read/rebuild` (the
+        heal path, a row at a time) and `read/decode`."""
         from ..ops.ingest import (bucket, materialize_codes_planned_r,
                                   materialize_codes_r)
 
+        _t0 = obs.now() if obs.ENABLED else 0
         out = {}
         stacked_idx = [d for d in range(self.n_docs)
                        if d not in self._overlay]
@@ -523,12 +584,15 @@ class DeviceTextDocSet:
                 def run_planned(S):
                     # overlay (graduated) rows ride along with an empty plan;
                     # their stacked tables are stale and their output ignored
+                    _tp = obs.now() if obs.ENABLED else 0
                     stacked = set(stacked_idx)
                     empty = SegmentMirror.empty()
                     plans = np.stack([
                         self._meta[d].mirror.plan(S, self._meta[d].n_elems)
                         if d in stacked else empty.plan(S, 0)
                         for d in range(self.n_docs)])
+                    if obs.ENABLED:
+                        obs.span("read", "plan", _tp, args={"S": S})
                     if self.mesh is not None:
                         return self._mesh_planned(cols, n_el, plans, S,
                                                   all_ascii)
@@ -546,13 +610,17 @@ class DeviceTextDocSet:
                     S = bucket(max(self._meta[d].mirror.n_segs
                                    for d in stacked_idx) + 2, 64)
                     codes, scalars = run_planned(S)
-                    scalars_np = scalars.cpu().numpy()  # (D, 5)
+                    scalars_np = self._fetch(scalars)  # (D, 5)
+                    _tc = obs.now() if obs.ENABLED else 0
                     bad = [d for d in stacked_idx
                            if int(scalars_np[d, 1]) != int(scalars_np[d, 2])
                            or int(scalars_np[d, 3])
                            != self._meta[d].mirror.head_checksum()
                            or int(scalars_np[d, 4])
                            != self._meta[d].mirror.aux_checksum()]
+                    if obs.ENABLED:
+                        obs.span("read", "check", _tc,
+                                 args={"n_bad": len(bad)})
                     if bad:
                         # rebuild diverged mirrors from the real chain bits
                         # (a small per-row fetch; None only if that fails),
@@ -569,16 +637,17 @@ class DeviceTextDocSet:
                     S = bucket(max(self._meta[d].seg_bound
                                    for d in stacked_idx) + 2, 64)
                     codes, scalars = run(S)
-                    scalars_np = scalars.cpu().numpy()  # (D, 2): n_vis, n_segs
+                    scalars_np = self._fetch(scalars)  # (D, 2): n_vis, n_segs
                     if (scalars_np[:, 1] + 2 > S).any():
                         S = bucket(int(scalars_np[:, 1].max()) + 2, 64)
                         codes, scalars = run(S)
-                        scalars_np = scalars.cpu().numpy()
+                        scalars_np = self._fetch(scalars)
                 for d in stacked_idx:
                     self._meta[d].seg_bound = int(scalars_np[d, 1])
-                self._codes_cache = (codes.cpu().numpy(), scalars_np[:, 0],
+                self._codes_cache = (self._fetch(codes), scalars_np[:, 0],
                                      all_ascii)
             fetched, n_vis, all_ascii = self._codes_cache
+            _td = obs.now() if obs.ENABLED else 0
             for d in stacked_idx:
                 row = fetched[d][: n_vis[d]]
                 if all_ascii:
@@ -586,8 +655,13 @@ class DeviceTextDocSet:
                 else:
                     out[self.obj_ids[d]] = "".join(
                         chr(v) for v in row.astype(np.uint32))
+            if obs.ENABLED:
+                obs.span("read", "decode", _td,
+                         args={"n_docs": len(stacked_idx)})
         for d, doc in self._overlay.items():
             out[self.obj_ids[d]] = doc.text()
+        if obs.ENABLED:
+            obs.span("read", "texts", _t0, args={"n_docs": self.n_docs})
         return out
 
     def _mesh_planned(self, cols, n_el, plans, S: int, as_u8: bool):

@@ -377,8 +377,12 @@ class DeviceTextDoc(CausalDeviceDoc):
 
     def _ingest(self, b: TextChangeBatch, mask):
         """One causally-ready round of one batch: host resolution + at most
-        two device programs (run expansion, residual ops)."""
+        two device programs (run expansion, residual ops). Traced as
+        `apply/plan_round`, then the spans of `_execute_plan`."""
+        _t0 = obs.now() if obs.ENABLED else 0
         plan, _ = self._plan_round(b, mask, self._plan_shadow())
+        if obs.ENABLED:
+            obs.span("apply", "plan_round", _t0, args={"doc": self.obj_id})
         if plan is not None:
             self._execute_plan(b, plan)
 
@@ -861,10 +865,14 @@ class DeviceTextDoc(CausalDeviceDoc):
         before any write (out of place, or in place before its first
         scatter) leaves the tables as they were and undoes the round's
         host bookkeeping, so the batch can be prepared and committed
-        again."""
+        again.
+
+        Traced as `apply/execute`, up to the slow register path, which
+        `_apply_slow` traces as `apply/slow`."""
         from ..ops import fused_round as F
         from ..ops.ingest import bucket
 
+        _t0 = obs.now() if obs.ENABLED else 0
         out_cap = plan.out_cap
         host_before = (self.index, self.seg_mirror, self._mat_keep_gen)
         self._begin_round_host(plan)
@@ -971,6 +979,10 @@ class DeviceTextDoc(CausalDeviceDoc):
             self._mat = (fused_mat[0], fused_mat[1])
             self._mat_S = fused_mat[2]
             self._mat_keep_gen = self._gen
+        if obs.ENABLED:
+            obs.span("apply", "execute", _t0, args={
+                "doc": self.obj_id, "n_runs": plan.n_runs,
+                "n_res": plan.n_res})
 
         if slow_info_np is not None and slow_info_np[0].any():
             res_kind, res_vals, res_rank, res_seq = plan.res_host
@@ -1045,17 +1057,22 @@ class DeviceTextDoc(CausalDeviceDoc):
                   dev["has_value"], dev["chain"], n,
                   S=S, as_u8=as_u8, L=L)
 
-    def _scalars(self) -> np.ndarray:
+    def _scalars(self, in_pull: bool = False) -> np.ndarray:
         """Fetch [n_vis, n_segs] of the cached materialization (the one
         device->host sync of the read path); verifies the S bucket actually
-        fit and re-runs bigger if the host bound was ever stale."""
+        fit and re-runs bigger if the host bound was ever stale. With
+        `in_pull` (text()'s calls) each fetch is traced as `pull/wait`."""
         if self._scal is None:
             from ..ops.ingest import bucket
             if self._mat is None:
                 self._materialize(with_pos=False)
             heals = 0
             while True:
+                _tw = obs.now() if in_pull and obs.ENABLED else 0
                 scalars = self._mat[-1].cpu().numpy()
+                if in_pull and obs.ENABLED:
+                    obs.span("pull", "wait", _tw, args={
+                        "doc": self.obj_id, "fetch": "scalars"})
                 self._count_sync(label="scalars_fetch",  # the read path's
                                  # one device sync
                                  d2h_bytes=scalars.nbytes)
@@ -1166,6 +1183,10 @@ class DeviceTextDoc(CausalDeviceDoc):
         return inv[h["has_value"][inv]]
 
     def text(self) -> str:
+        """The visible text. Traced as `pull/text`; inside it
+        `pull/plan` (host segment planning and the materialize launch),
+        `pull/wait` (each blocking fetch) and `pull/decode` (codes to
+        str)."""
         if not obs.ENABLED:
             return self._text_pull()
         _t0 = obs.now()
@@ -1192,25 +1213,39 @@ class DeviceTextDoc(CausalDeviceDoc):
                 out = self._text_incremental()
                 if out is not None:
                     return out
+            _tp = obs.now() if obs.ENABLED else 0
             self._materialize(with_pos=False)
-            n_vis = int(self._scalars()[0])   # may re-run w/ bigger S
+            if obs.ENABLED:
+                obs.span("pull", "plan", _tp, args={"doc": self.obj_id})
+            # may re-run with a bigger S
+            n_vis = int(self._scalars(in_pull=True)[0])
+            _tw = obs.now() if obs.ENABLED else 0
             codes_np = self._mat[-2].cpu().numpy()    # the O(doc) codes pull
+            if obs.ENABLED:
+                obs.span("pull", "wait", _tw, args={"doc": self.obj_id,
+                                                    "fetch": "codes"})
             self._count_sync(label="codes_pull",
                              d2h_bytes=codes_np.nbytes)
             values = codes_np[:n_vis]
-            self.pull_stats = {"mode": "full",
-                               "span_bytes": int(values.nbytes),
-                               "n_spans": 1}
-            if values.dtype == np.uint8:
-                text = values.tobytes().decode("ascii")
-                self._seed_text_cache(text)
-                return text
         else:
             order = self.visible_order()
             values = self._mirrors()["value"][order]
-            self.pull_stats = {"mode": "full",
-                               "span_bytes": int(values.nbytes),
-                               "n_spans": 1}
+        self.pull_stats = {"mode": "full",
+                           "span_bytes": int(values.nbytes), "n_spans": 1}
+        _td = obs.now() if obs.ENABLED else 0
+        text = self._decode_values(values)
+        if obs.ENABLED:
+            obs.span("pull", "decode", _td, args={"doc": self.obj_id})
+        if values.dtype == np.uint8:
+            # only the condensed path pulls uint8 codes
+            self._seed_text_cache(text)
+        return text
+
+    def _decode_values(self, values: np.ndarray) -> str:
+        """Visible values (code points, or -(pool index + 1) for a rich
+        value) -> the text."""
+        if values.dtype == np.uint8:
+            return values.tobytes().decode("ascii")
         if len(values) == 0:
             return ""
         if (values < 0).any():
@@ -1252,8 +1287,13 @@ class DeviceTextDoc(CausalDeviceDoc):
         else:
             n = self.n_elems
         self._count_dispatch(label="segment_visible_counts")
-        counts = segment_visible_counts(
-            dev["has_value"], n, segplan_dev, S=S, L=L).cpu().numpy()
+        counts = segment_visible_counts(dev["has_value"], n, segplan_dev,
+                                        S=S, L=L)
+        _tw = obs.now() if obs.ENABLED else 0
+        counts = counts.cpu().numpy()
+        if obs.ENABLED:
+            obs.span("pull", "wait", _tw, args={"doc": self.obj_id,
+                                                "fetch": "seg_vis"})
         self._count_sync(label="segment_visible_counts",
                          d2h_bytes=counts.nbytes)
         return counts
@@ -1272,8 +1312,11 @@ class DeviceTextDoc(CausalDeviceDoc):
         if n_segs == 0:
             return
         try:
+            _tp = obs.now() if obs.ENABLED else 0
             S = bucket(n_segs + 2, 64)
             segplan = mirror.plan(S, self.n_elems)
+            if obs.ENABLED:
+                obs.span("pull", "plan", _tp, args={"doc": self.obj_id})
             sv = self._fetch_seg_vis(self._to_dev(segplan), S)
             vis = sv[1: n_segs + 1].astype(np.int64)
             if int(vis.sum()) != len(text):
@@ -1307,8 +1350,12 @@ class DeviceTextDoc(CausalDeviceDoc):
         from ..ops.linearize import gather_spans
 
         cache = self._text_cache
+        _tp = obs.now() if obs.ENABLED else 0
         self._materialize(with_pos=False)
-        n_vis = int(self._scalars()[0])      # verifies/heals the mirror
+        if obs.ENABLED:
+            obs.span("pull", "plan", _tp, args={"doc": self.obj_id})
+        # verifies (heals) the mirror
+        n_vis = int(self._scalars(in_pull=True)[0])
         mirror = self.seg_mirror
         if mirror is None or not self.all_ascii:
             return None                      # healed into degraded mode
@@ -1319,10 +1366,13 @@ class DeviceTextDoc(CausalDeviceDoc):
         if n_segs == 0 or n_vis == 0:
             return None
         S = bucket(n_segs + 2, 64)
+        _tp = obs.now() if obs.ENABLED else 0
         try:
             segplan = mirror.plan(S, self.n_elems)
         except Exception:
             return None
+        if obs.ENABLED:
+            obs.span("pull", "plan", _tp, args={"doc": self.obj_id})
         sv = self._fetch_seg_vis(self._to_dev(segplan), S)
         vis = sv[1: n_segs + 1].astype(np.int64)
         if int(vis.sum()) != n_vis:
@@ -1383,16 +1433,21 @@ class DeviceTextDoc(CausalDeviceDoc):
             spans_np[0, :n_spans] = span_starts
             spans_np[1, :n_spans] = span_lens
             self._count_dispatch(label="gather_spans")
-            buf_full = gather_spans(codes, self._to_dev(spans_np),
-                                    P=P).cpu().numpy()
+            buf_full = gather_spans(codes, self._to_dev(spans_np), P=P)
+            _tw = obs.now() if obs.ENABLED else 0
+            buf_full = buf_full.cpu().numpy()
+            if obs.ENABLED:
+                obs.span("pull", "wait", _tw, args={"doc": self.obj_id,
+                                                    "fetch": "spans"})
             self._count_sync(label="gather_spans",
                              d2h_bytes=buf_full.nbytes)
             buf = buf_full[:total]
-            pulled = buf.tobytes().decode("ascii")
             span_bytes = int(buf.nbytes)
         else:
-            pulled = ""
+            buf = np.empty(0, np.uint8)
             span_bytes = 0
+        _td = obs.now() if obs.ENABLED else 0
+        pulled = buf.tobytes().decode("ascii")
         d_off = np.cumsum(span_lens) - span_lens
         buf_at = dict(zip(d_pos.tolist(), d_off.tolist()))
 
@@ -1408,6 +1463,8 @@ class DeviceTextDoc(CausalDeviceDoc):
                 s0 = int(old_start[old_idx[k]] + off_map[k])
                 pieces.append(old_text[s0: s0 + v])
         new_text = "".join(pieces)
+        if obs.ENABLED:
+            obs.span("pull", "decode", _td, args={"doc": self.obj_id})
         if len(new_text) != n_vis:
             return None
         self.pull_stats = {"mode": "incremental", "span_bytes": span_bytes,

@@ -14,7 +14,11 @@ Contract for instrumented call sites (the hot-path discipline):
                  args={"doc": self.obj_id, "n_ops": batch.n_ops})
 
 ``obs.ENABLED`` is a module attribute: when tracing is off, the emit
-path is one module-dict lookup and a falsy branch. Enable via
+path is one module-dict lookup and a falsy branch. A loop that would
+emit a span per document per round runs inside ``with
+obs.aggregate_only():``: its spans feed the exact aggregates
+(`metrics_snapshot()["spans"]`) and write no flight-recorder record, so
+they cannot wrap the ring over the spans around them. Enable via
 ``AMTPU_TRACE=1``, `obs.enable()`, or the scoped ``with obs.tracing():``.
 Read with `obs.recorder()` (a function, as in the JAX package: it
 shadows the `recorder` submodule), `obs.telemetry()`,
@@ -44,6 +48,9 @@ _recorder: Optional[FlightRecorder] = None
 _telemetry: Optional[Telemetry] = None
 
 now = time.perf_counter_ns   # monotonic ns — the span clock
+
+# per-thread scope of `aggregate_only` (read only while tracing is on)
+_scope = threading.local()
 
 
 def enabled() -> bool:
@@ -104,7 +111,8 @@ def span(cat: str, name: str, t0_ns: int, args: Optional[dict] = None,
         return
     end = t1_ns if t1_ns is not None else time.perf_counter_ns()
     dur = max(0, end - t0_ns)
-    rec.emit((t0_ns, dur, cat, name, threading.get_ident(), args))
+    if not getattr(_scope, "aggregate_only", False):
+        rec.emit((t0_ns, dur, cat, name, threading.get_ident(), args))
     tel = _telemetry
     if tel is not None:
         tel.observe_span(cat, name, dur, ts_ns=t0_ns)
@@ -116,11 +124,32 @@ def event(cat: str, name: str, args: Optional[dict] = None, n: int = 1):
     if rec is None:
         return
     ts = time.perf_counter_ns()
-    rec.emit((ts, EVENT_DUR, cat, name, threading.get_ident(), args))
+    if not getattr(_scope, "aggregate_only", False):
+        rec.emit((ts, EVENT_DUR, cat, name, threading.get_ident(), args))
     rec.bump((cat, name), n)
     tel = _telemetry
     if tel is not None:
         tel.observe_count(cat, name, n, ts_ns=ts)
+
+
+class aggregate_only:
+    """Scope, on this thread: spans and events inside it feed the exact
+    aggregates and counters but write no flight-recorder record. For
+    per-item spans of a loop (a span per document of a round): the
+    aggregates stay exact, and the ring keeps the per-call spans around
+    the loop. Nests; costs nothing to the emit path while tracing is
+    off."""
+
+    __slots__ = ("_was",)
+
+    def __enter__(self):
+        self._was = getattr(_scope, "aggregate_only", False)
+        _scope.aggregate_only = True
+        return self
+
+    def __exit__(self, *exc):
+        _scope.aggregate_only = self._was
+        return False
 
 
 @contextmanager
@@ -209,8 +238,10 @@ def write_trace(path: str, since_ns: int = 0) -> str:
     """Dump the retained records as Chrome trace-event JSON (Perfetto-
     loadable); returns `path`. See obs/export.py for the schema."""
     from .export import write_trace as _write
+    rec = _recorder
     return _write(path, snapshot(since_ns),
-                  t0_ns=None if _recorder is None else _recorder.t0_ns)
+                  t0_ns=None if rec is None else rec.t0_ns,
+                  t0_unix_ns=None if rec is None else rec.t0_unix_ns)
 
 
 # honor AMTPU_TRACE=1 at import: a run needs no code path to remember to

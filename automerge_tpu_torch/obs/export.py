@@ -13,6 +13,11 @@ The flight recorder's tuples map onto the Trace Event Format's complete
 Timestamps are microseconds relative to the recorder's session origin, so
 a trace opens at t=0 in https://ui.perfetto.dev regardless of process
 uptime. Thread names ride along as metadata ("M") events when known.
+Given the origin on the wall clock too (`obs.write_trace` passes the
+recorder's), the trace's ``otherData`` carries it on both clocks
+(``origin_perf_counter_ns``, ``origin_unix_ns``): add
+``origin_unix_ns / 1000`` to a span's ``ts`` to lay it beside a
+wall-clock trace such as torch.profiler's.
 
 `validate_chrome_trace` is the ONE schema check the tests and
 `chip_smoke.py` share: every span must carry
@@ -82,8 +87,10 @@ def lineage_flow_events(records, t0_ns: int, pid: int = 1) -> list:
 
 
 def to_chrome_trace(records, t0_ns: Optional[int] = None,
-                    pid: int = 1) -> dict:
-    """Records -> Chrome trace-event JSON object."""
+                    pid: int = 1, t0_unix_ns: Optional[int] = None) -> dict:
+    """Records -> Chrome trace-event JSON object. `t0_unix_ns`: the
+    origin `t0_ns` on the wall clock (time.time_ns), written into the
+    trace's ``otherData``."""
     if t0_ns is None:
         t0_ns = min((r[TS] for r in records), default=0)
     events = []
@@ -113,12 +120,17 @@ def to_chrome_trace(records, t0_ns: Optional[int] = None,
     meta += [{"ph": "M", "name": "thread_name", "pid": pid, "tid": t,
               "ts": 0, "args": {"name": f"thread-{t}"}}
              for t in sorted(tids)]
-    return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+    out = {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+    if t0_unix_ns is not None:
+        out["otherData"] = {"origin_perf_counter_ns": t0_ns,
+                            "origin_unix_ns": t0_unix_ns}
+    return out
 
 
-def write_trace(path: str, records, t0_ns: Optional[int] = None) -> str:
+def write_trace(path: str, records, t0_ns: Optional[int] = None,
+                t0_unix_ns: Optional[int] = None) -> str:
     with open(path, "w") as fh:
-        json.dump(to_chrome_trace(records, t0_ns), fh)
+        json.dump(to_chrome_trace(records, t0_ns, t0_unix_ns=t0_unix_ns), fh)
     return path
 
 

@@ -84,7 +84,12 @@ class FlightRecorder:
                             else default_capacity())
         self._mask = n_stripes - 1
         self._stripes = [_Stripe() for _ in range(n_stripes)]
-        self.t0_ns = time.perf_counter_ns()   # session origin (export base)
+        # the session origin (export base) on the span clock and on the
+        # wall clock, read together: a trace written from this recorder
+        # lines up with one stamped on the wall clock (torch.profiler's)
+        a = time.perf_counter_ns()
+        self.t0_unix_ns = time.time_ns()
+        self.t0_ns = (a + time.perf_counter_ns()) // 2
 
     # -- write side (hot; callers already checked the enable flag) -------
 
