@@ -49,7 +49,7 @@ from .base import resolve_device, transitive_closure
 from .columnar import TextChangeBatch
 from .host_index import BatchRangeIndex, DuplicateElemId, pack_keys, unpack_key
 from .pipeline import stage_h2d
-from .runs import detect_runs
+from .runs import detect_runs_docs
 from .segments import SegmentMirror
 from .text_doc import DeviceTextDoc, logger
 
@@ -191,9 +191,11 @@ class DeviceTextDocSet:
         of every document), `docset/general`, `docset/stack` (the staged
         state committed, the descriptors packed) and `docset/expand`
         (the uploads and the expansion; its `out_cap` argument shows a
-        capacity regrowth). The per-document spans of the planning
-        (`_plan_fast`'s stages, `plan/detect_runs`, `plan/index_merge`)
-        feed the aggregates only."""
+        capacity regrowth). Inside `docset/plan`, one `plan/detect_runs`
+        a call: the run detection of every document that passed
+        readiness, in one walk (its `n_docs`); the per-document spans
+        (`_plan_fast`'s stages, `plan/index_merge`) feed the aggregates
+        only."""
         _t0 = obs.now() if obs.ENABLED else 0
         try:
             return self._apply_batches(batches)
@@ -213,15 +215,24 @@ class DeviceTextDocSet:
         fast: list = []
         general: list = []            # (graduated doc, batch)
         _tp = obs.now() if obs.ENABLED else 0
+        # readiness per document, then the run detection of every ready
+        # one in ONE walk over the round's doc axis
+        order: list = []              # (d, batch, ready), in call order
+        for obj_id, batch in batches.items():
+            d = self._idx[obj_id]
+            ready = d not in self._overlay and self._ready(d, batch)
+            if ready != "skip":
+                order.append((d, batch, ready))
+        walked = [(d, b) for d, b, ready in order if ready]
+        plans = iter(detect_runs_docs(
+            [(b.op_kind, b.op_target_actor, b.op_target_ctr,
+              b.op_parent_actor, b.op_parent_ctr, b.op_value, b.op_change)
+             for _, b in walked],
+            [self._meta[d].n_elems for d, _ in walked]))
         with obs.aggregate_only():
-            for obj_id, batch in batches.items():
-                d = self._idx[obj_id]
-                if d in self._overlay:
-                    general.append((self._overlay[d], batch))
-                    continue
-                plan_pack = self._plan_fast(d, batch)
-                if plan_pack == "skip":
-                    continue
+            for d, batch, ready in order:
+                plan_pack = (self._plan_fast(d, batch, next(plans))
+                             if ready else None)
                 if plan_pack is None:
                     general.append((self._graduate(d), batch))
                 else:
@@ -381,17 +392,15 @@ class DeviceTextDocSet:
         for doc, batch in general:
             doc.apply_batch(batch)
 
-    def _plan_fast(self, d: int, b: TextChangeBatch):
-        """Host planning for the stacked path; None -> general engine.
-
-        Pure: all state updates are staged in the returned pack and
-        committed by apply_batches only after every doc's plan succeeds.
-        Traced per stage: `docset/lookup` (the run parents through the
-        merged index) and `docset/mirror`."""
+    def _ready(self, d: int, b: TextChangeBatch):
+        """Whether doc d's batch is fully causally ready for the fast
+        tier: True; "skip" for a redelivery of applied changes (a no-op);
+        False -> general engine (not ready, or a partial duplicate, which
+        the general path filters)."""
         meta = self._meta[d]
-        # fully-ready batch? the clock advances through the loop, so
-        # sequential same-actor changes stay fast and any duplicate —
-        # pre-applied or repeated within the batch — is detected
+        # the clock advances through the loop, so sequential same-actor
+        # changes stay fast and any duplicate — pre-applied or repeated
+        # within the batch — is detected
         clock = dict(meta.clock)
         dups = 0
         for row in range(b.n_changes):
@@ -403,17 +412,24 @@ class DeviceTextDocSet:
                 continue
             if not all(clock.get(a, 0) >= s for a, s in deps.items()
                        if a != actor):
-                return None
+                return False
             if clock.get(actor, 0) != seq - 1:
-                return None
+                return False
             clock[actor] = seq
         if dups == b.n_changes:
-            return "skip"         # redelivery of an applied batch: no-op
-        if dups:
-            return None           # partial duplicate: general path filters
-        plan = detect_runs(b.op_kind, b.op_target_actor, b.op_target_ctr,
-                           b.op_parent_actor, b.op_parent_ctr, b.op_value,
-                           b.op_change, meta.n_elems)
+            return "skip"
+        return not dups
+
+    def _plan_fast(self, d: int, b: TextChangeBatch, plan):
+        """Host planning for the stacked path of doc d's ready batch,
+        given its `plan` (its cut of the round's run walk); None ->
+        general engine.
+
+        Pure: all state updates are staged in the returned pack and
+        committed by apply_batches only after every doc's plan succeeds.
+        Traced per stage: `docset/lookup` (the run parents through the
+        merged index) and `docset/mirror`."""
+        meta = self._meta[d]
         if len(plan.rpos) or plan.n_runs == 0:
             return None
 

@@ -314,3 +314,191 @@ def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TSet(["x"])
+
+
+# --- the fast tier's one run walk over the round's doc axis ------------------
+
+MIXED = ["base0", "chain", "base1", "base2", "head", "resid", "notready",
+         "redeliv", "partial", "actors"]
+
+
+def mixed_rounds():
+    """Two rounds over MIXED. The second: runs-only documents on bases of
+    0, 2, 4 and 7 elements (the 4's run continues the 2's counters, as
+    one run would across the documents' boundary), runs at the head of a non-empty list, a residual
+    delete (graduates), a change one seq ahead of the clock (not ready), a
+    redelivered batch (skipped), a partial duplicate (general), and a new
+    actor sorting after a document's two (its own actor table)."""
+    redeliv = typing_change("w", 1, "re", obj="redeliv")
+    partial = typing_change("w", 1, "pa", obj="partial")
+    first = {
+        "base0": [typing_change("w", 1, "ab", obj="base0")],
+        "chain": [typing_change("w", 1, "abcd", obj="chain")],
+        "base1": [typing_change("w", 1, "abcdefg", obj="base1")],
+        "head": [typing_change("w", 1, "xyz", obj="head")],
+        "resid": [typing_change("w", 1, "hello", obj="resid")],
+        "notready": [typing_change("w", 1, "q", obj="notready")],
+        "redeliv": [redeliv],
+        "partial": [partial],
+        "actors": [typing_change("zeta", 1, "zz", obj="actors"),
+                   typing_change("alpha", 1, "aa", obj="actors")]}
+    resid = typing_change("w", 2, "lo", start_ctr=6, after="w:5",
+                          obj="resid")
+    resid["ops"].append({"action": "del", "obj": "resid", "key": "w:1"})
+    second = {
+        "base0": [typing_change("w", 2, "cd", start_ctr=3, after="w:2",
+                                obj="base0")],
+        "chain": [typing_change("w", 2, "ef", start_ctr=5, after="w:4",
+                                obj="chain")],
+        "base1": [typing_change("w", 2, "hi", start_ctr=8, after="w:7",
+                                obj="base1")],
+        "base2": [typing_change("v", 1, "new", obj="base2")],
+        "head": [typing_change("x", 1, "HH", obj="head", deps={"w": 1})],
+        "resid": [resid],
+        "notready": [typing_change("w", 3, "zz", start_ctr=2, after="w:1",
+                                   obj="notready")],
+        "redeliv": [redeliv],
+        "partial": [partial, typing_change("w", 2, "rt", start_ctr=3,
+                                           after="w:2", obj="partial")],
+        "actors": [typing_change("zz-late", 1, "mm", start_ctr=3,
+                                 after="zeta:2", obj="actors",
+                                 deps={"zeta": 1, "alpha": 1})]}
+    return first, second
+
+
+def spy_walks(monkeypatch):
+    """Record every doc-axis walk of the set: (columns, bases, plans)."""
+    from automerge_tpu_torch.engine import doc_set, runs
+    walks = []
+
+    def spy(columns, base_elems):
+        plans = runs.detect_runs_docs(columns, base_elems)
+        walks.append((columns, list(base_elems), plans))
+        return plans
+    monkeypatch.setattr(doc_set, "detect_runs_docs", spy)
+    return walks
+
+
+def assert_mirror_checksums_equal(jds, tds):
+    for d in range(jds.n_docs):
+        jm, tm = jds._meta[d].mirror, tds._meta[d].mirror
+        if d in jds._overlay or jm is None:
+            continue
+        assert tm.head_checksum() == jm.head_checksum(), d
+        assert tm.aux_checksum() == jm.aux_checksum(), d
+
+
+def test_one_walk_cuts_equal_per_document_detection(monkeypatch):
+    """Each document's cut of the round's one walk equals the numpy
+    reference on that document alone, bit for bit; only the ready
+    documents are walked; texts, graduations, index rows and mirrors
+    equal the JAX package's DocSet after the same rounds."""
+    from automerge_tpu_torch.engine.runs import _detect_runs_numpy
+    from test_torch_native import assert_plans_equal
+    walks = spy_walks(monkeypatch)
+    jds, tds = both(MIXED)
+    first, second = mixed_rounds()
+    feed(jds, tds, first)
+    bases = {o: tds._meta[tds._idx[o]].n_elems for o in MIXED}
+    feed(jds, tds, second)
+    assert len(walks) == 2
+    for columns, base_elems, plans in walks:
+        assert len(columns) == len(base_elems) == len(plans)
+        for cols, base, plan in zip(columns, base_elems, plans):
+            assert_plans_equal(plan, _detect_runs_numpy(*cols, base))
+    columns, base_elems, plans = walks[1]
+    walked = ["base0", "chain", "base1", "base2", "head", "resid", "actors"]
+    assert base_elems == [bases[o] for o in walked] == [2, 4, 7, 0, 3, 5, 4]
+    assert [p.n_ops for p in plans] == [
+        len(TBatch.from_changes(second[o], o).op_kind) for o in walked]
+    assert [p.n_runs for p in plans] == [1] * len(walked)
+    assert len(plans[walked.index("resid")].rpos) == 1
+    assert sorted(tds.obj_ids[d] for d in tds._overlay) == [
+        "notready", "partial", "resid"]
+    assert_sets_equal(jds, tds)
+    assert_mirror_checksums_equal(jds, tds)
+
+
+def test_sharded_walk_cuts_equal_the_unsharded(monkeypatch):
+    """Past `_SHARD_MIN_OPS` the round's walk shards across the planner
+    pool at change boundaries (document boundaries among them): the same
+    per-document plans, and the same sets."""
+    from automerge_tpu_torch import native
+    from automerge_tpu_torch.engine import runs
+    from test_torch_native import assert_plans_equal
+    first, second = mixed_rounds()
+    plain = spy_walks(monkeypatch)
+    jds, tds = both(MIXED)
+    for r in (first, second):
+        feed(jds, tds, r)
+    monkeypatch.setenv("AMTPU_PLAN_WORKERS", "3")
+    monkeypatch.setattr(runs, "_SHARD_MIN_OPS", 8)
+    monkeypatch.setattr("automerge_tpu_torch.engine.pipeline._POOL", None)
+    sharded = spy_walks(monkeypatch)
+    sds = TSet(MIXED, device="cpu")
+    native.reset_counts()
+    for r in (first, second):
+        sds.apply_batches({o: TBatch.from_changes(c, o)
+                           for o, c in r.items()})
+    assert native.walks["native"] > len(sharded) == len(plain) == 2
+    for (_, _, a), (_, _, b) in zip(plain, sharded):
+        assert len(a) == len(b)
+        for pa, pb in zip(a, b):
+            assert_plans_equal(pb, pa)
+    assert_sets_equal(jds, sds)
+    assert_mirror_checksums_equal(jds, sds)
+
+
+def _state(ds) -> list:
+    """Every row's clock, index rows, mirror arrays and element count."""
+    out = []
+    for m in ds._meta:
+        mirror = (None if m.mirror is None else
+                  [getattr(m.mirror, k).copy()
+                   for k in ("heads", "par", "hctr", "hactor")])
+        out.append((dict(m.clock), [r.copy() for r in m.index.rows()],
+                    mirror, m.n_elems))
+    return out
+
+
+def _assert_state_equal(a, b):
+    for (ca, ia, ma, na), (cb, ib, mb, nb) in zip(a, b, strict=True):
+        assert ca == cb and na == nb
+        for x, y in zip(ia, ib, strict=True):
+            np.testing.assert_array_equal(x, y)
+        assert (ma is None) == (mb is None)
+        for x, y in zip(ma or (), mb or (), strict=True):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("fault", ["duplicate", "unknown_parent"])
+def test_round_error_names_its_document_and_touches_no_state(fault):
+    """A duplicate element ID, or an unknown parent, in document k of a
+    round raises the JAX DocSet's message naming document k, and leaves
+    every document's clock, index, mirror and element count as they
+    were."""
+    ids = [f"e{i}" for i in range(5)]
+    k = 3
+    jds, tds = both(ids)
+    feed(jds, tds, {o: [typing_change("w", 1, "abc", obj=o)] for o in ids})
+    rnd = {o: [typing_change("w", 2, "de", start_ctr=4, after="w:3", obj=o)]
+           for o in ids}
+    if fault == "duplicate":
+        rnd[ids[k]] = [typing_change("w", 2, "de", start_ctr=2, after="w:3",
+                                     obj=ids[k])]
+        message = f"Duplicate list element ID w:2 in {ids[k]}"
+    else:
+        rnd[ids[k]] = [typing_change("w", 2, "de", start_ctr=4,
+                                     after="w:99", obj=ids[k])]
+        message = f"ins references unknown parent element in {ids[k]}"
+    before = _state(tds)
+    texts = tds.texts()
+    for ds, B in ((jds, JBatch), (tds, TBatch)):
+        with pytest.raises(ValueError) as err:
+            ds.apply_batches({o: B.from_changes(c, o)
+                              for o, c in rnd.items()})
+        assert str(err.value) == message
+    _assert_state_equal(_state(tds), before)
+    assert not tds._overlay
+    tds._codes_cache = None
+    assert tds.texts() == texts

@@ -228,6 +228,36 @@ def test_sharded_detection_matches_numpy(workers, monkeypatch):
     assert_plans_equal(mine, jruns.detect_runs(*cols, 1000))
 
 
+def _empty_cols():
+    return (np.empty(0, np.int8),) + tuple(
+        np.empty(0, t) for t in (np.int32,) * 4 + (np.int64, np.int32))
+
+
+@pytest.mark.parametrize("workers", ["1", "3"])
+@pytest.mark.parametrize("seed", range(3))
+def test_doc_axis_walk_matches_numpy_per_document(seed, workers,
+                                                  monkeypatch):
+    """`detect_runs_docs` over seeded documents (an empty one among them,
+    bases of their own): one call, one walk unsharded, each document's
+    cut equal to the numpy reference on it alone."""
+    monkeypatch.setenv("AMTPU_PLAN_WORKERS", workers)
+    monkeypatch.setattr(truns, "_SHARD_MIN_OPS", 64)
+    monkeypatch.setattr("automerge_tpu_torch.engine.pipeline._POOL", None)
+    docs = [random_ops(10 * seed + i) for i in range(5)]
+    docs.insert(2, (_empty_cols(), 7))
+    native.reset_counts()
+    truns.detections["calls"] = 0
+    plans = truns.detect_runs_docs([c for c, _ in docs],
+                                   [b for _, b in docs])
+    assert truns.detections["calls"] == 1
+    assert (native.walks["native"] > 1) == (workers == "3")
+    assert len(plans) == len(docs)
+    for (cols, base), plan in zip(docs, plans):
+        assert_plans_equal(plan, truns._detect_runs_numpy(*cols, base))
+    assert truns.detect_runs_docs([], []) == []
+    assert truns.detections["calls"] == 2
+
+
 @pytest.mark.parametrize("seed", range(2))
 def test_parallel_walker_stitch_matches_numpy(seed, monkeypatch):
     """Past the walker's own thread fan-out threshold (2^19 ops per chunk),

@@ -5,10 +5,11 @@ the reads (`pull/*` under `pull/text`, `read/*` under `DeviceTextDocSet
 sizes.
 
 Each span lies inside its parent on the parent's thread, and siblings'
-totals stay within the parent's. The DocSet's per-document spans run
-under `obs.aggregate_only()`: they count in the aggregates and write no
-flight-recorder record, so a small ring does not wrap. With tracing off
-no call site reads the clock.
+totals stay within the parent's. The DocSet's run detection is one
+`plan/detect_runs` a call, over every document it walks; its
+per-document spans run under `obs.aggregate_only()`: they count in the
+aggregates and write no flight-recorder record, so a small ring does not
+wrap. With tracing off no call site reads the clock.
 """
 
 import json
@@ -248,6 +249,13 @@ def _del_change(M, obj, pop, seq):
         actor_table=list(pop.actors), value_pool=[])
 
 
+def _walked_docs() -> list:
+    """`n_docs` of each `plan/detect_runs` record: the documents a walk
+    covered."""
+    return [r[5]["n_docs"] for r in obs.snapshot()
+            if r[2] == "plan" and r[3] == "detect_runs"]
+
+
 def test_docset_spans_nest_and_stage_spans_stay_out_of_the_ring():
     pop, ds = _docset()
     with obs.tracing():
@@ -261,8 +269,12 @@ def test_docset_spans_nest_and_stage_spans_stay_out_of_the_ring():
                                          "docset/expand"))
     assert_nested(recs, "read/texts", ("read/plan", "read/wait",
                                        "read/check", "read/decode"))
-    # one per document in the aggregates, none in the ring
-    for k in STAGES + ("plan.detect_runs", "plan.index_merge"):
+    # the run detection: one walk a call over every document, in the ring
+    assert_nested(recs, "docset/plan", ("plan/detect_runs",))
+    assert spans["plan.detect_runs"]["count"] == 1
+    assert _walked_docs() == [POP["docs"]]
+    # the stages: one per document in the aggregates, none in the ring
+    for k in STAGES + ("plan.index_merge",):
         assert spans[k]["count"] == POP["docs"], k
         assert not [r for r in recs if r[0] == k.replace(".", "/")], k
     assert_totals_within(spans, "docset.plan", STAGES + (
@@ -333,20 +345,29 @@ def test_expand_span_shows_a_capacity_regrowth():
 
 def test_docset_rounds_do_not_wrap_a_small_ring():
     """A stripe of 64 records holds every per-call span of six calls,
-    while the per-document spans (4 x 24 x 3 of them) count exactly."""
+    the run detection's one walk a round among them, while the
+    per-document spans (3 x 24 x 3 of them) count exactly."""
+    from automerge_tpu_torch.engine import runs
     from portbench.families import docset_rounds
     pop, ds = _docset()
     ds.apply_batches(pop.batches(M))
     gen = docset_rounds.AppendRounds(pop, {"writer": 0, "run": 4}, SEED)
+    calls = []
     with obs.tracing(capacity=64):
         obs.clear()
         for r in range(3):
+            before = runs.detections["calls"]
             ds.apply_batches(gen.batches(M, r))
+            calls.append(runs.detections["calls"] - before)
             ds.texts()
         snap = obs.metrics_snapshot()
+        walked = _walked_docs()
     assert snap["emitted"] == snap["retained"]
     assert snap["spans"]["docset.plan"]["count"] == 3
-    for k in STAGES + ("plan.detect_runs", "plan.index_merge"):
+    assert calls == [1, 1, 1]
+    assert snap["spans"]["plan.detect_runs"]["count"] == 3
+    assert walked == [POP["docs"]] * 3
+    for k in STAGES + ("plan.index_merge",):
         assert snap["spans"][k]["count"] == 3 * POP["docs"], k
 
 
