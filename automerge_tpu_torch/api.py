@@ -23,6 +23,7 @@ from __future__ import annotations
 import json
 
 from . import frontend as Frontend
+from . import obs
 from .backend import default as Backend
 from ._common import ROOT_ID
 from ._uuid import uuid  # noqa: F401  (re-exported, like the reference)
@@ -103,6 +104,7 @@ def load(data: str, options=None, checkpoint=None):
     name (the default binding otherwise). A delta save needs its base
     ``checkpoint``: the checkpoint restores, then the tail replays."""
     from .checkpoint import DELTA_FORMAT, load_delta
+    t0 = obs.now() if obs.ENABLED else 0
     payload = json.loads(data)
     # envelope validation (resilience.validation): non-dict payloads and a
     # missing/non-array `changes` raise a typed ProtocolError (a
@@ -110,11 +112,15 @@ def load(data: str, options=None, checkpoint=None):
     validate_save_payload(payload, require_changes=False)
     fmt = payload["format"]
     if fmt == DELTA_FORMAT:
-        return load_delta(payload, checkpoint, options)
-    if fmt != _SAVE_FORMAT:
+        doc = load_delta(payload, checkpoint, options)
+    elif fmt != _SAVE_FORMAT:
         raise ValueError(f"Unsupported save format: {fmt!r}")
-    validate_save_payload(payload, require_changes=True)
-    return _doc_from_changes(options, payload["changes"])
+    else:
+        validate_save_payload(payload, require_changes=True)
+        doc = _doc_from_changes(options, payload["changes"])
+    if obs.ENABLED:
+        obs.span("api", "load", t0)
+    return doc
 
 
 def restore(checkpoint, options=None):
@@ -168,10 +174,14 @@ def get_all_changes(doc) -> list:
 
 
 def apply_changes(doc, changes):
+    t0 = obs.now() if obs.ENABLED else 0
     old_state = Frontend.get_backend_state(doc)
     new_state, patch = Backend.apply_changes(old_state, changes)
     patch["state"] = new_state
-    return Frontend.apply_patch(doc, patch)
+    new_doc = Frontend.apply_patch(doc, patch)
+    if obs.ENABLED:
+        obs.span("api", "merge", t0)
+    return new_doc
 
 
 def get_missing_deps(doc) -> dict:
@@ -238,4 +248,8 @@ def to_json(doc):
         if isinstance(value, list):
             return [convert(v) for v in value]
         return value
-    return convert(doc)
+    t0 = obs.now() if obs.ENABLED else 0
+    out = convert(doc)
+    if obs.ENABLED:
+        obs.span("api", "to_json", t0)
+    return out

@@ -59,6 +59,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from .._common import ROOT_ID, transitive_deps
 from ..engine.base import resolve_device
 from ..resilience.validation import prevalidated, validate_changes
@@ -398,6 +399,7 @@ class _DeviceCore:
         # anything the fast path cannot serve first replays pending local
         # rounds into the engine so device state is current again
         self.flush_pending()
+        t0 = obs.now() if obs.ENABLED else 0
         local = changes[0] if (undoable and changes) else None
         queued_before = bool(self.queue)
         self.queue.extend(changes)
@@ -418,17 +420,28 @@ class _DeviceCore:
                 break
         if local is not None and local in applied:
             self._push_undo(self._capture_inverse(local))
+        if obs.ENABLED:
+            obs.span("backend", "admit", t0, args={
+                "changes": len(changes), "applied": len(applied)})
+            t0 = obs.now()
+        out = None
         if frame is not None and not queued_before and not self.queue \
                 and len(applied) == frame.n_changes:
             # whole-frame admission (no prior queue, no leftovers, no
             # duplicates): hand the decoded batch straight to the target
             # engine doc — the zero-copy ingest lane (INTERNALS §17)
             out = self._distribute_frame(applied, frame)
-            if out is not None:
-                touched, created = out
-                return self._emit_diffs(touched, created)
-        touched, created = self._distribute(applied, creations)
-        return self._emit_diffs(touched, created)
+        if out is None:
+            out = self._distribute(applied, creations)
+        touched, created = out
+        if obs.ENABLED:
+            obs.span("backend", "distribute", t0, args={
+                "objects": len(touched) + len(created)})
+            t0 = obs.now()
+        diffs = self._emit_diffs(touched, created)
+        if obs.ENABLED:
+            obs.span("backend", "diffs", t0, args={"diffs": len(diffs)})
+        return diffs
 
     def _distribute_frame(self, applied, frame):
         """Feed a one-object binary-frame delivery to its engine doc as

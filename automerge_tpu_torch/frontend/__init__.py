@@ -14,6 +14,7 @@ Supports both operation modes of the reference:
 
 from __future__ import annotations
 
+from .. import obs
 from .._common import ROOT_ID
 from .._uuid import uuid as _uuid
 from ..obs import lineage
@@ -122,6 +123,7 @@ def _make_change(doc, request_type, context, options):
 
 
 def _apply_patch_to_doc(doc, patch, state, from_backend):
+    t0 = obs.now() if obs.ENABLED else 0
     actor = get_actor_id(doc)
     inbound = copy_inbound(doc._inbound)
     updated: dict = {}
@@ -135,7 +137,11 @@ def _apply_patch_to_doc(doc, patch, state, from_backend):
         state["deps"] = patch["deps"]
         state["canUndo"] = patch["canUndo"]
         state["canRedo"] = patch["canRedo"]
-    return _update_root_object(doc, updated, inbound, state)
+    new_doc = _update_root_object(doc, updated, inbound, state)
+    if obs.ENABLED:
+        obs.span("frontend", "patch", t0,
+                 args={"diffs": len(patch["diffs"])})
+    return new_doc
 
 
 def _transform_request(request, patch):

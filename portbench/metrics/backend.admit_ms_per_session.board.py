@@ -1,0 +1,11 @@
+"""Backend: milliseconds of the program's backend/admit spans (causal
+readiness and admission of each delivered change, backend/device.py)
+per session of the window. The stage spans run in the load's replay of
+the base change and in the merge alike, so this counts both."""
+
+
+def read(r):
+    sessions = len(r.seconds("session"))
+    if "backend.admit" not in r.obs_spans or not sessions:
+        return None
+    return r.obs_seconds("backend.admit") * 1e3 / sessions
