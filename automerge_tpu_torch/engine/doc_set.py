@@ -17,7 +17,10 @@ launch on (D * 5, N). A document whose batch needs the general machinery
 `DeviceTextDoc` built from its table row; the graduated documents of one
 call then merge together through the stacked executor
 (engine/stacked.py `apply_stacked`) — correctness never depends on the
-fast path applying.
+fast path applying. The host plans a round over the doc axis too: one
+run walk over every ready document (engine/runs.py `detect_runs_axis`),
+then one native pass a stage (`_plan_axis`: index merge, parent lookup,
+segment-mirror update) over every document the fast tier takes.
 
 `texts()` materializes every stacked document at once: from each row's
 host segment mirror (the planned program), or, for a call where a mirror
@@ -39,19 +42,87 @@ keeps its per-document loop for mesh sets too).
 
 from __future__ import annotations
 
+import collections
+import weakref
+
 import numpy as np
 import torch
 
-from .. import obs
+from .. import native, obs
 from .._common import HEAD_PARENT, make_elem_id
 from ..ops.ingest import TEXT_TABLE_FILLS
+from . import learned_index as _learned
 from .base import resolve_device, transitive_closure
 from .columnar import TextChangeBatch
 from .host_index import BatchRangeIndex, DuplicateElemId, pack_keys, unpack_key
 from .pipeline import stage_h2d
-from .runs import detect_runs_docs
+from .runs import detect_runs_axis
 from .segments import SegmentMirror
 from .text_doc import DeviceTextDoc, logger
+
+#: the fast tier's doc-axis planning since the last reset: the rounds and
+#: documents the one pass (`_plan_axis`) planned, and the rounds it
+#: declined to the per-document planner (`_plan_fast`)
+axis_plans = {"rounds": 0, "docs": 0, "declined": 0}
+
+
+def reset_axis_plans():
+    for k in axis_plans:
+        axis_plans[k] = 0
+
+
+def _places(rows: np.ndarray, counts: np.ndarray) -> tuple:
+    """(row, column) of each item of groups concatenated in order: group
+    i goes to row rows[i], at columns 0 .. counts[i] - 1."""
+    start = np.cumsum(counts) - counts
+    return (np.repeat(rows, counts),
+            np.arange(int(counts.sum())) - np.repeat(start, counts))
+
+
+def _int_rows(arrays: list) -> list:
+    """Each of `arrays` as a list of Python ints, from one conversion."""
+    flat = np.concatenate(arrays).tolist() if arrays else []
+    out, o = [], 0
+    for a in arrays:
+        out.append(flat[o: o + len(a)])
+        o += len(a)
+    return out
+
+
+class _FastRound:
+    """The fast tier's plan of one round: per planned document (`docs`,
+    in call order) its staged state, then the run descriptors of all of
+    them and the value blob of all their pairs, concatenated in that
+    order. `staged[i]` is (index, mirror, clock, all_deps, ascii,
+    actors) of docs[i]."""
+
+    __slots__ = ("docs", "n_runs", "n_pairs", "n_breaks", "staged",
+                 "parent_slot", "ctr0", "actor", "win_actor", "win_seq",
+                 "elem_base", "blob")
+
+    _RUN_KEYS = ("parent_slot", "ctr0", "actor", "win_actor", "win_seq",
+                 "elem_base")
+
+    def __init__(self, docs, n_runs, n_pairs, n_breaks, staged, columns,
+                 blob):
+        self.docs, self.staged, self.blob = docs, staged, blob
+        self.n_runs = np.asarray(n_runs, np.int64)
+        self.n_pairs = np.asarray(n_pairs, np.int64)
+        self.n_breaks = np.asarray(n_breaks, np.int64)
+        for k, col in zip(self._RUN_KEYS, columns):
+            setattr(self, k, col)
+
+    @classmethod
+    def from_packs(cls, packs: list) -> "_FastRound":
+        """The per-document planner's packs (`_plan_fast`), stacked."""
+        return cls(
+            [p["d"] for p in packs], [p["n_runs"] for p in packs],
+            [p["n_pairs"] for p in packs], [p["n_breaks"] for p in packs],
+            [(p["staged_index"], p["staged_mirror"], p["staged_clock"],
+              p["staged_all_deps"], p["staged_ascii"], p["staged_actors"])
+             for p in packs],
+            [np.concatenate([p[k] for p in packs]) for k in cls._RUN_KEYS],
+            np.concatenate([p["blob"] for p in packs]))
 
 
 class _DocMeta:
@@ -93,6 +164,12 @@ class DeviceTextDocSet:
         self._dev = None                      # stacked (D, cap) tables
         self._overlay: dict = {}              # doc idx -> DeviceTextDoc
         self._codes_cache = None
+        # the doc-axis pass's bookkeeping: the index each row last had
+        # published read-only, the slabs its rows' state lives in, and
+        # the bytes of each row's state it made
+        self._published: list = [None] * self.n_docs
+        self._slabs: list = []                # weakrefs
+        self._state_bytes: list = [0] * self.n_docs
         if mesh is not None:
             if self.n_docs % mesh.shape["doc"]:
                 raise ValueError(
@@ -193,9 +270,11 @@ class DeviceTextDocSet:
         (the uploads and the expansion; its `out_cap` argument shows a
         capacity regrowth). Inside `docset/plan`, one `plan/detect_runs`
         a call: the run detection of every document that passed
-        readiness, in one walk (its `n_docs`); the per-document spans
-        (`_plan_fast`'s stages, `plan/index_merge`) feed the aggregates
-        only."""
+        readiness, in one walk (its `n_docs`); then one `plan/index_merge`,
+        `docset/lookup` and `docset/mirror` a call: the doc-axis pass's
+        stages over every document it plans (`docset/plan`'s `n_axis`).
+        Where the pass declines a round, the per-document planner's
+        spans (`_plan_fast`'s stages) feed the aggregates only."""
         _t0 = obs.now() if obs.ENABLED else 0
         try:
             return self._apply_batches(batches)
@@ -212,58 +291,62 @@ class DeviceTextDocSet:
                                   META_N_ELEMS, bucket)
 
         self._codes_cache = None
-        fast: list = []
-        general: list = []            # (graduated doc, batch)
         _tp = obs.now() if obs.ENABLED else 0
         # readiness per document, then the run detection of every ready
-        # one in ONE walk over the round's doc axis
+        # one in ONE walk over the round's doc axis, and their planning in
+        # one pass over it
         order: list = []              # (d, batch, ready), in call order
-        for obj_id, batch in batches.items():
+        seqs = _int_rows([b.seqs for b in batches.values()])
+        for (obj_id, batch), row_seqs in zip(batches.items(), seqs):
             d = self._idx[obj_id]
-            ready = d not in self._overlay and self._ready(d, batch)
+            ready = (d not in self._overlay
+                     and self._ready(d, batch, row_seqs))
             if ready != "skip":
                 order.append((d, batch, ready))
         walked = [(d, b) for d, b, ready in order if ready]
-        plans = iter(detect_runs_docs(
+        walk = detect_runs_axis(
             [(b.op_kind, b.op_target_actor, b.op_target_ctr,
               b.op_parent_actor, b.op_parent_ctr, b.op_value, b.op_change)
              for _, b in walked],
-            [self._meta[d].n_elems for d, _ in walked]))
-        with obs.aggregate_only():
-            for d, batch, ready in order:
-                plan_pack = (self._plan_fast(d, batch, next(plans))
-                             if ready else None)
-                if plan_pack is None:
-                    general.append((self._graduate(d), batch))
-                else:
-                    fast.append(plan_pack)
+            [self._meta[d].n_elems for d, _ in walked])
+        fast = self._plan_axis(walked, walk) if walked else None
+        n_axis = 0 if fast is None else len(fast.docs)
+        if fast is not None:
+            on_tier = set(fast.docs)
+            general = [(self._graduate(d), batch) for d, batch, _ in order
+                       if d not in on_tier]
+            fast = fast if fast.docs else None
+        else:
+            fast, general = self._plan_docs(order, walk)
         if obs.ENABLED:
             obs.span("docset", "plan", _tp, args={
-                "n_fast": len(fast), "n_general": len(general)})
+                "n_fast": 0 if fast is None else len(fast.docs),
+                "n_general": len(general), "n_axis": n_axis})
         if general:
             _tg = obs.now() if obs.ENABLED else 0
             self._apply_general(general)
             if obs.ENABLED:
                 obs.span("docset", "general", _tg,
                          args={"n_docs": len(general)})
-        if not fast:
+        if fast is None:
             return self
 
         # --- commit staged per-doc state now that every plan succeeded ---
         _ts = obs.now() if obs.ENABLED else 0
-        for p in fast:
-            meta = self._meta[p["d"]]
-            meta.index = p["staged_index"]
-            meta.mirror = p["staged_mirror"]
-            meta.clock.update(p["staged_clock"])
-            meta.all_deps.update(p["staged_all_deps"])
-            meta.all_ascii = meta.all_ascii and p["staged_ascii"]
-            if p["staged_actors"] is not None:
-                meta.actor_table, meta.actor_rank = p["staged_actors"]
+        for d, (index, mirror, clock, all_deps, ascii_, actors) in zip(
+                fast.docs, fast.staged):
+            meta = self._meta[d]
+            meta.index = self._published[d] = index
+            meta.mirror = mirror
+            meta.clock.update(clock)
+            meta.all_deps.update(all_deps)
+            meta.all_ascii = meta.all_ascii and ascii_
+            if actors is not None:
+                meta.actor_table, meta.actor_rank = actors
 
         # --- stack run descriptors over the doc axis and expand once ---
-        R = bucket(max(p["n_runs"] for p in fast), 64)
-        N = bucket(max(p["n_pairs"] for p in fast), 256)
+        R = bucket(int(fast.n_runs.max()), 64)
+        N = bucket(int(fast.n_pairs.max()), 256)
         # every doc's write window [n_elems+1, n_elems+1+N) must fit: the
         # dense expansion writes the whole padded window for ALL rows
         # (inactive docs write only past their live region)
@@ -279,38 +362,41 @@ class DeviceTextDocSet:
 
         # one (D, 9, R) descriptor upload in the run-descriptor layout
         # (ops/ingest.py DESC_*); META = [n_run_elems, base_slot]. Inactive
-        # rows write garbage past their live region (harmless).
+        # rows write garbage past their live region (harmless). Each run
+        # lands at (its doc, its place among the doc's runs), each pair
+        # likewise in the (D, N) blob.
+        docs = np.asarray(fast.docs, np.int64)
+        run_doc, run_col = _places(docs, fast.n_runs)
         desc = np.zeros((D, 9, R), np.int32)
         desc[:, DESC_ELEM_BASE] = N
         desc[:, DESC_META, META_BASE_SLOT] = [m.n_elems + 1
                                               for m in self._meta]
+        for r, k in ((DESC_PARENT_SLOT, "parent_slot"), (DESC_CTR0, "ctr0"),
+                     (DESC_ACTOR, "actor"), (DESC_WIN_ACTOR, "win_actor"),
+                     (DESC_WIN_SEQ, "win_seq"),
+                     (DESC_ELEM_BASE, "elem_base")):
+            desc[run_doc, r, run_col] = getattr(fast, k)
+        desc[run_doc, DESC_HAS_VALUE, run_col] = 1
+        desc[docs, DESC_META, META_N_ELEMS] = fast.n_pairs
         blob = np.zeros((D, N), np.int32)
-        rows = ((DESC_PARENT_SLOT, "parent_slot"), (DESC_CTR0, "ctr0"),
-                (DESC_ACTOR, "actor"), (DESC_WIN_ACTOR, "win_actor"),
-                (DESC_WIN_SEQ, "win_seq"), (DESC_ELEM_BASE, "elem_base"))
-        for p in fast:
-            d, nr = p["d"], p["n_runs"]
-            for r, k in rows:
-                desc[d, r, :nr] = p[k]
-            desc[d, DESC_HAS_VALUE, :nr] = 1
-            desc[d, DESC_META, META_N_ELEMS] = p["n_pairs"]
-            blob[d, : p["n_pairs"]] = p["blob"]
+        blob[_places(docs, fast.n_pairs)] = fast.blob
 
-        # chain breaks for touched parents (stacked, one scatter)
+        # chain breaks for touched parents (stacked, one scatter): every
+        # run of a document with a break
         touch = None
-        touches = [(p["d"], p["parent_slot"], p["ctr0"], p["actor"])
-                   for p in fast if p["n_breaks"]]
-        if touches:
-            T = bucket(max(len(t[1]) for t in touches), 64)
+        broken = fast.n_breaks > 0
+        if broken.any():
+            T = bucket(int(fast.n_runs[broken].max()), 64)
             touch = np.zeros((D, 3, T), np.int32)
             touch[:, 1:] = -1
-            for d, ps, cs, as_ in touches:
-                touch[d, 0, : len(ps)] = ps
-                touch[d, 1, : len(ps)] = cs
-                touch[d, 2, : len(ps)] = as_
+            on = np.repeat(broken, fast.n_runs)
+            at = (run_doc[on], run_col[on])
+            touch[at[0], 0, at[1]] = fast.parent_slot[on]
+            touch[at[0], 1, at[1]] = fast.ctr0[on]
+            touch[at[0], 2, at[1]] = fast.actor[on]
         if obs.ENABLED:
-            obs.span("docset", "stack", _ts, args={"n_fast": len(fast),
-                                                   "R": R, "N": N})
+            obs.span("docset", "stack", _ts, args={
+                "n_fast": len(fast.docs), "R": R, "N": N})
         _te = obs.now() if obs.ENABLED else 0
         if self.mesh is None:
             self._dev = self._expand_rows(
@@ -322,13 +408,14 @@ class DeviceTextDocSet:
             obs.span("docset", "expand", _te, args={"out_cap": out_cap})
         self._cap = out_cap
 
-        for p in fast:
-            meta = self._meta[p["d"]]
-            meta.n_elems += p["n_pairs"]
+        for d, n_pairs, n_runs in zip(fast.docs, fast.n_pairs.tolist(),
+                                      fast.n_runs.tolist()):
+            meta = self._meta[d]
+            meta.n_elems += n_pairs
             if meta.mirror is not None:
                 meta.seg_bound = max(meta.mirror.n_segs, 1)
             else:
-                meta.seg_bound += 3 * p["n_runs"] + 2
+                meta.seg_bound += 3 * n_runs + 2
         return self
 
     def _expand_rows(self, dev: dict, desc_t, blob_t, touch_t,
@@ -392,33 +479,343 @@ class DeviceTextDocSet:
         for doc, batch in general:
             doc.apply_batch(batch)
 
-    def _ready(self, d: int, b: TextChangeBatch):
+    def _ready(self, d: int, b: TextChangeBatch, seqs: list):
         """Whether doc d's batch is fully causally ready for the fast
         tier: True; "skip" for a redelivery of applied changes (a no-op);
         False -> general engine (not ready, or a partial duplicate, which
-        the general path filters)."""
-        meta = self._meta[d]
-        # the clock advances through the loop, so sequential same-actor
-        # changes stay fast and any duplicate — pre-applied or repeated
-        # within the batch — is detected
-        clock = dict(meta.clock)
+        the general path filters). `seqs` are the batch's seqs as ints."""
+        clock = self._meta[d].clock
+        # the clock advances through the loop (`ahead` over the document's
+        # clock), so sequential same-actor changes stay fast and any
+        # duplicate — pre-applied or repeated within the batch — is
+        # detected
+        ahead: dict = {}
         dups = 0
         for row in range(b.n_changes):
-            actor, seq = b.actors[row], int(b.seqs[row])
-            deps = dict(b.deps[row])
-            deps[actor] = seq - 1
-            if seq <= clock.get(actor, 0):
+            actor, seq = b.actors[row], seqs[row]
+            have = ahead.get(actor, clock.get(actor, 0))
+            if seq <= have:
                 dups += 1
                 continue
-            if not all(clock.get(a, 0) >= s for a, s in deps.items()
-                       if a != actor):
+            for a, s in b.deps[row].items():
+                if a != actor and ahead.get(a, clock.get(a, 0)) < s:
+                    return False
+            if have != seq - 1:
                 return False
-            if clock.get(actor, 0) != seq - 1:
-                return False
-            clock[actor] = seq
+            ahead[actor] = seq
         if dups == b.n_changes:
             return "skip"
         return not dups
+
+    def _plan_docs(self, order: list, walk):
+        """The per-document planner over the round: `_plan_fast` on each
+        ready document's cut of the walk; every other document graduates
+        as it comes. The reference the doc-axis pass (`_plan_axis`) is
+        held to, and the round's path where the pass declines it.
+        Returns (the round's plan or None, the graduated group)."""
+        plans = iter(walk.cut())
+        packs: list = []
+        general: list = []            # (graduated doc, batch)
+        with obs.aggregate_only():
+            for d, batch, ready in order:
+                pack = (self._plan_fast(d, batch, next(plans))
+                        if ready else None)
+                if pack is None:
+                    general.append((self._graduate(d), batch))
+                else:
+                    packs.append(pack)
+        return (_FastRound.from_packs(packs) if packs else None), general
+
+    #: pass slabs may hold this many bytes more than twice the rows' state
+    #: before the next pass moves every row's state into a fresh one
+    _SLAB_SLACK = 1 << 20
+
+    def _slabs_pinned(self) -> bool:
+        """Whether the pass's slabs still alive hold more than twice the
+        bytes of the state they serve (plus `_SLAB_SLACK`): rows left
+        behind by later rounds keep a whole slab alive."""
+        alive = [r for r in self._slabs if r() is not None]
+        self._slabs = alive
+        held = sum(r().nbytes for r in alive)
+        return held > 2 * sum(self._state_bytes) + self._SLAB_SLACK
+
+    def _plan_axis(self, walked: list, walk):
+        """The fast tier's planning of the round in ONE pass over the doc
+        axis, in a fixed number of numpy calls: every walked document
+        whose round is runs-only and whose new actors intern in order (an
+        order change sends it to the general path, as in `_plan_fast`)
+        is planned by one native pass (`native.AxisPass`) a stage:
+
+        - `plan/index_merge`: its run heads' key ranges checked and merged
+          into its index, tier for tier as `BatchRangeIndex.merge` does;
+        - `docset/lookup`: its run parents through its staged index, and
+          the run descriptors;
+        - the transitive closures of its changes (`transitive_closure`, a
+          change at a time);
+        - `docset/mirror`: its segment mirror, as
+          `SegmentMirror.apply_round` makes it.
+
+        Every document's staged state and descriptors equal
+        `_plan_fast`'s on that document alone. The new index tiers and
+        mirrors are views of one slab each a round (the index slab read
+        only); when the live slabs outgrow the state they hold
+        (`_slabs_pinned`), the pass also copies every other stacked row's
+        state into its slabs, so a row left behind keeps no old slab
+        alive. Returns the round's plan (its `docs` may be empty; the
+        walked documents not on it take the general path), or None when
+        the pass declines the round: an input `_plan_fast` raises or
+        degrades on (a duplicate element id, an unknown parent, a mirror
+        update that fails, ...), which the caller then plans per
+        document. Commits nothing but the moved rows' copies, and those
+        only when every stage succeeded."""
+        cols = walk.columns
+        if any(cols[k].dtype != np.int32 for k in (1, 2, 3, 4, 6)):
+            return self._declined()
+        n_runs_w = np.diff(walk.h_cut)
+        n_pairs_w = np.diff(walk.b_cut)
+        plannable = ((np.diff(walk.r_cut) == 0) & (n_runs_w > 0)).tolist()
+        sel: list = []                # walk position of each planned doc
+        docs: list = []
+        batches: list = []
+        interned: list = []           # staged (actor_table, actor_rank)
+        ranks: list = []
+        row_ranks: list = []
+        seqs: list = []
+        rank_off, crow_off = [0], [0]
+        tiers = ([], [], [])
+        tier_len: list = []
+        tier_off = [0]
+        mirrors = ([], [], [], [])
+        m_len: list = []
+        n_elems: list = []
+
+        def add_state(d, meta):
+            index = meta.index
+            if self._published[d] is not index:
+                # a merge publishes its every tier read-only
+                for run in index._runs:
+                    for arr in run:
+                        arr.setflags(write=False)
+            for run in index._runs:
+                for out, arr in zip(tiers, run):
+                    out.append(arr)
+                tier_len.append(len(run[0]))
+            tier_off.append(len(tier_len))
+            mirror = meta.mirror
+            if mirror is None:
+                m_len.append(-1)
+            else:
+                arrays = (mirror.heads, mirror.par, mirror.hctr,
+                          mirror.hactor)
+                n = len(arrays[0])
+                if any(len(a) != n for a in arrays):
+                    return False
+                for out, arr in zip(mirrors, arrays):
+                    out.append(arr)
+                m_len.append(n)
+            n_elems.append(meta.n_elems)
+            return True
+
+        for i, (d, b) in enumerate(walked):
+            if not plannable[i]:
+                continue
+            meta = self._meta[d]
+            actor_rank, staged = meta.actor_rank, None
+            missing = [a for a in b.actor_table if a not in actor_rank]
+            if missing:
+                merged = sorted(set(meta.actor_table).union(missing))
+                if meta.actor_table and \
+                        merged[: len(meta.actor_table)] != meta.actor_table:
+                    continue
+                actor_rank = {a: k for k, a in enumerate(merged)}
+                staged = (merged, actor_rank)
+            try:
+                row_ranks.extend(map(actor_rank.__getitem__, b.actors))
+            except KeyError:
+                return self._declined()    # an author the batch lacks
+            if len(b.seqs) != b.n_changes or not add_state(d, meta):
+                return self._declined()
+            ranks.extend(map(actor_rank.__getitem__, b.actor_table))
+            rank_off.append(len(ranks))
+            seqs.append(b.seqs)
+            crow_off.append(len(row_ranks))
+            sel.append(i)
+            docs.append(d)
+            batches.append(b)
+            interned.append(staged)
+        # the rows whose state moves into this round's slabs as it is
+        moved: list = []
+        if docs and self._slabs_pinned():
+            on = set(docs)
+            moved = [d for d in range(self.n_docs)
+                     if d not in on and d not in self._overlay]
+            for d in moved:
+                if not add_state(d, self._meta[d]):
+                    return self._declined()
+                rank_off.append(len(ranks))
+                crow_off.append(len(row_ranks))
+        n_docs = len(docs)
+        if not n_docs:
+            return _FastRound([], [], [], [], [], [None] * 6, None)
+
+        def cat(parts, dtype):
+            return (np.concatenate(parts).astype(dtype, copy=False)
+                    if parts else np.empty(0, dtype))
+
+        sel_a = np.asarray(sel, np.int64)
+        n_runs = n_runs_w[sel_a]
+        n_pairs = n_pairs_w[sel_a]
+        every = n_docs == walk.n_docs
+        run_off = np.zeros(n_docs + len(moved) + 1, np.int64)
+        np.cumsum(n_runs, out=run_off[1: n_docs + 1])
+        run_off[n_docs + 1:] = run_off[n_docs]
+        if every:
+            runs = slice(None)
+            blob = walk.plan.blob
+        else:
+            runs = (np.repeat(walk.h_cut[sel_a] - run_off[:n_docs], n_runs)
+                    + np.arange(run_off[-1]))
+            blob = walk.plan.blob[np.repeat(np.isin(
+                np.arange(walk.n_docs), sel_a), n_pairs_w)]
+        hpos = walk.plan.hpos[runs]
+        ta, tc, pa, pc = (cols[k][hpos] for k in (1, 2, 3, 4))
+        row = cols[6][hpos] - np.repeat(walk.row_shift[sel_a], n_runs)
+        row_seq = cat(seqs, np.int32)
+        relocate = np.full(n_docs + len(moved), bool(moved), np.uint8)
+        pass_ = native.AxisPass(n_docs + len(moved),
+                                BatchRangeIndex._COMPACT_TIERS, (
+            run_off, ta, tc, pa, pc, row,
+            np.ascontiguousarray(walk.plan.run_len[runs]),
+            np.ascontiguousarray(walk.head_slot[runs]),
+            np.asarray(rank_off, np.int64), np.asarray(ranks, np.int64),
+            np.asarray(crow_off, np.int64),
+            np.asarray(row_ranks, np.int32), row_seq,
+            np.asarray(tier_off, np.int64), np.asarray(tier_len, np.int64),
+            *(cat(t, np.int64) for t in tiers),
+            np.asarray(m_len, np.int64), *(cat(m, np.int64) for m in mirrors),
+            np.asarray(n_elems, np.int64),
+            np.append(n_pairs, np.zeros(len(moved), np.int64)), relocate))
+        try:
+            return self._run_axis(pass_, docs + moved, n_docs, batches,
+                                  interned, row_seq.tolist(), n_runs,
+                                  n_pairs, tc, blob,
+                                  [walk.lt128[i] for i in sel])
+        finally:
+            pass_.close()
+
+    def _declined(self):
+        axis_plans["declined"] += 1
+        return None
+
+    def _run_axis(self, pass_, rows: list, n_docs: int, batches: list,
+                  interned: list, seq_rows: list, n_runs, n_pairs, ctr0,
+                  blob, ascii_: list):
+        """`_plan_axis`'s stages on its native pass over `rows` (the
+        planned documents, then the rows whose state only moves)."""
+        _t0 = obs.now() if obs.ENABLED else 0
+        merged = pass_.merge()
+        if merged is None:
+            return self._declined()
+        keep, new_off, new_len, actor, slab = merged
+        slab.setflags(write=False)
+        self._slabs.append(weakref.ref(slab))
+        s, l, z = slab
+        keep, new_off, new_len = (keep.tolist(), new_off.tolist(),
+                                  new_len.tolist())
+        indexes = []
+        o = 0
+        for j, d in enumerate(rows):
+            old = self._meta[d].index
+            runs = old._runs[: keep[j]]
+            for k in range(new_off[j], new_off[j + 1]):
+                e = o + new_len[k]
+                runs += ((s[o:e], l[o:e], z[o:e]),)
+                o = e
+            index = BatchRangeIndex()
+            index._runs = runs
+            index.n_ranges = sum(len(r[0]) for r in runs)
+            if len(runs) == 1:
+                index._flat = runs[0]
+            if keep[j]:
+                index._model = old._model
+            indexes.append(index)
+        if obs.ENABLED:
+            obs.span("plan", "index_merge", _t0, args={
+                "structure": "batch_tiers", "n_docs": n_docs,
+                "n_new": len(ctr0), "n_moved": len(rows) - n_docs})
+
+        _t0 = obs.now() if obs.ENABLED else 0
+        looked = pass_.lookup()
+        if looked is None:
+            return self._declined()
+        parent_slot, win_actor, win_seq, elem_base, n_breaks = looked
+        # the probes the learned path counts: an index of one affine
+        # range is its ε=0 model, which the pass's probe is; one whose
+        # base run could hold a model was probed exactly
+        site = _learned.RANGE_SITE
+        if not site.demoted:
+            for index, k in zip(indexes, n_runs.tolist()):
+                base = index._runs[0][0]
+                if len(index._runs) == 1 and len(base) == 1:
+                    site.note(k, 0)
+                elif len(base) >= _learned._MIN_KEYS:
+                    site.note_exact()
+        if obs.ENABLED:
+            obs.span("docset", "lookup", _t0, args={"n_docs": n_docs})
+
+        # transitive dependency closure per change (the graduated doc's
+        # slow path needs it to judge causal coverage); a dep may
+        # reference an earlier change of the batch, so close over its
+        # staged entries as well
+        clocks, closures = [], []
+        c0 = 0
+        for d, b in zip(rows, batches):
+            n = b.n_changes
+            actors, row_seq = b.actors, seq_rows[c0: c0 + n]
+            c0 += n
+            clocks.append(dict(zip(actors, row_seq)))
+            all_deps = self._meta[d].all_deps
+            staged: dict = {}
+            if n > 1:
+                all_deps = collections.ChainMap(staged, all_deps)
+            for author, seq, deps in zip(actors, row_seq, b.deps):
+                staged[(author, seq)] = transitive_closure(all_deps, author,
+                                                           seq, deps)
+            closures.append(staged)
+
+        _t0 = obs.now() if obs.ENABLED else 0
+        mirrored = pass_.mirror()
+        if mirrored is None:
+            return self._declined()
+        m_len, slab = mirrored
+        self._slabs.append(weakref.ref(slab))
+        h, par, c, a = slab
+        mirrors = []
+        o = 0
+        for n in m_len.tolist():
+            if n < 0:
+                mirrors.append(None)
+                continue
+            e = o + n
+            mirrors.append(SegmentMirror(h[o:e], par[o:e], c[o:e], a[o:e]))
+            o = e
+        if obs.ENABLED:
+            obs.span("docset", "mirror", _t0, args={"n_docs": n_docs})
+
+        for d, index, mirror in zip(rows, indexes, mirrors):
+            self._state_bytes[d] = 24 * index.n_ranges + (
+                0 if mirror is None else 32 * len(mirror.heads))
+        for d, index, mirror in zip(rows[n_docs:], indexes[n_docs:],
+                                    mirrors[n_docs:]):
+            self._meta[d].index = index
+            self._meta[d].mirror = mirror
+            self._published[d] = index
+        axis_plans["rounds"] += 1
+        axis_plans["docs"] += n_docs
+        return _FastRound(
+            rows[:n_docs], n_runs, n_pairs, n_breaks[:n_docs],
+            list(zip(indexes, mirrors, clocks, closures, ascii_, interned)),
+            (parent_slot, ctr0, actor, win_actor, win_seq, elem_base), blob)
 
     def _plan_fast(self, d: int, b: TextChangeBatch, plan):
         """Host planning for the stacked path of doc d's ready batch,

@@ -10,11 +10,11 @@ descriptors + a value blob instead of 2 op rows per character
 Detection runs the native single-pass C++ walker
 (native/codec.cpp `amtpu_detect_runs`); `_detect_runs_numpy`, the
 vectorized numpy formulation, is the reference it is held to
-(tests/test_torch_native.py). `detect_runs_docs` is the DocSet's form:
-the rounds of many documents in one walk, cut into a plan a document.
-`detections["calls"]` counts `detect_runs` and `detect_runs_docs` calls,
-each of which walks natively once (`native.walks` counts the walks, one
-per shard).
+(tests/test_torch_native.py). `detect_runs_axis` is the DocSet's form:
+the rounds of many documents in one walk, which its `cut()` cuts into a
+plan a document. `detections["calls"]` counts `detect_runs` and
+`detect_runs_axis` calls, each of which walks natively once
+(`native.walks` counts the walks, one per shard).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import numpy as np
 from .._common import KIND_INS, KIND_SET
 from .. import native, obs
 
-#: detect_runs and detect_runs_docs calls since the last reset
+#: detect_runs and detect_runs_axis calls since the last reset
 #: (chip_smoke.py reads it)
 detections = {"calls": 0}
 
@@ -120,7 +120,66 @@ def detect_runs(kind, ta, tc, pa, pc, val64, op_row, base_elems: int
     return plan
 
 
-def detect_runs_docs(columns, base_elems) -> list:
+@dataclass
+class AxisWalk:
+    """One walk over a round's doc axis, uncut: the columns of every
+    document concatenated (each document's change rows shifted past those
+    of the documents before it) and walked once at base 0, with the cuts
+    that give each document its plan (`cut()`).
+
+    `plan` is the walk's own RoundPlan (op positions global, slots at
+    base 0); `head_slot` holds its run heads' slots rebased onto each
+    document's `base_elems`. Per document (arrays of n_docs + 1 offsets):
+    its ops `op_off`, runs `h_cut`, residual ops `r_cut` and pairs
+    `b_cut`; `row_shift` (n_docs) is the shift of its change rows, and
+    `lt128` / `lt256` its blob flags."""
+
+    plan: RoundPlan
+    columns: tuple
+    n_ops: list
+    n_ins: list
+    op_off: np.ndarray
+    h_cut: np.ndarray
+    r_cut: np.ndarray
+    b_cut: np.ndarray
+    row_shift: np.ndarray
+    delta: np.ndarray
+    head_slot: np.ndarray
+    lt128: list
+    lt256: list
+
+    @property
+    def n_docs(self) -> int:
+        return len(self.n_ops)
+
+    def cut(self) -> list:
+        """Each document's plan, as `detect_runs` makes it on the
+        document's columns alone: op positions its own, inserted-element
+        slots on its `base_elems`; the arrays are views of the walk's."""
+        plan, op_off = self.plan, self.op_off
+        n_runs, n_res = np.diff(self.h_cut), np.diff(self.r_cut)
+        hpos = plan.hpos - np.repeat(op_off[:-1], n_runs)
+        rpos = plan.rpos - np.repeat(op_off[:-1], n_res)
+        res_new_slot = np.where(plan.res_new_slot >= 0,
+                                plan.res_new_slot
+                                + np.repeat(self.delta, n_res),
+                                plan.res_new_slot)
+        plans = []
+        hc, rc, bc = (self.h_cut.tolist(), self.r_cut.tolist(),
+                      self.b_cut.tolist())
+        for i, (n_ops, n_ins) in enumerate(zip(self.n_ops, self.n_ins)):
+            h, r, b = slice(hc[i], hc[i + 1]), slice(rc[i], rc[i + 1]), \
+                slice(bc[i], bc[i + 1])
+            plans.append(RoundPlan(
+                n_ops=n_ops, n_ins=n_ins, hpos=hpos[h],
+                run_len=plan.run_len[h], head_slot=self.head_slot[h],
+                rpos=rpos[r], res_new_slot=res_new_slot[r],
+                blob=plan.blob[b], blob_lt_128=self.lt128[i],
+                blob_lt_256=self.lt256[i]))
+        return plans
+
+
+def detect_runs_axis(columns, base_elems) -> AxisWalk:
     """Partition the rounds of several documents with ONE walk.
 
     `columns` holds a (kind, ta, tc, pa, pc, val64, op_row) tuple a
@@ -129,11 +188,10 @@ def detect_runs_docs(columns, base_elems) -> list:
     shifted past those of the documents before it, and walked once at
     base 0 (sharded across the planning pool past `_SHARD_MIN_OPS`, as
     `detect_runs`). Every pair and continuation predicate compares
-    adjacent ops of equal change row, so no run crosses a document; the
-    plan is cut per document and rebased: op positions to the document's
-    own, inserted-element slots onto its `base_elems` (the contract of
-    `RoundPlan.rebase`). Each document's plan equals `detect_runs` on its
-    columns alone, bit for bit; its arrays are views of the walk's.
+    adjacent ops of equal change row, so no run crosses a document. The
+    walk comes back uncut (`AxisWalk`): its `cut()` gives each document
+    the plan `detect_runs` makes on its columns alone, bit for bit, and
+    the DocSet's doc-axis planner reads the walk's arrays directly.
 
     One call in `detections` and one `plan/detect_runs` span, whose
     `n_docs` is the number of documents walked."""
@@ -143,7 +201,7 @@ def detect_runs_docs(columns, base_elems) -> list:
     n = np.fromiter((len(c[0]) for c in columns), np.int64, n_docs)
     op_off = np.zeros(n_docs + 1, np.int64)
     np.cumsum(n, out=op_off[1:])
-    kind, ta, tc, pa, pc, val64, op_row = (
+    kind, ta, tc, pa, pc, val64, op_row = cols = tuple(
         np.concatenate([c[i] for c in columns]) if n_docs
         else np.empty(0, np.int32) for i in range(7))
     # each document's change rows shifted past the rows before it (the
@@ -155,7 +213,8 @@ def detect_runs_docs(columns, base_elems) -> list:
         starts = op_off[:-1][live]
         rows[live] = np.maximum.reduceat(op_row, starts) + 1
         ins[live] = np.add.reduceat(kind == KIND_INS, starts, dtype=np.int64)
-    op_row += np.repeat((np.cumsum(rows) - rows).astype(op_row.dtype), n)
+    row_shift = np.cumsum(rows) - rows
+    op_row += np.repeat(row_shift.astype(op_row.dtype), n)
     ins_before = np.zeros(n_docs + 1, np.int64)
     np.cumsum(ins, out=ins_before[1:])
 
@@ -165,40 +224,28 @@ def detect_runs_docs(columns, base_elems) -> list:
     if plan is None:
         plan = _detect_runs_single(kind, ta, tc, pa, pc, val64, op_row, 0)
 
-    # cut at the documents' op offsets, then rebase every cut at once
+    # the documents' cuts, and the run heads rebased onto their bases
     h_cut = np.searchsorted(plan.hpos, op_off)
     r_cut = np.searchsorted(plan.rpos, op_off)
     pair_off = np.zeros(plan.n_runs + 1, np.int64)
     np.cumsum(plan.run_len, out=pair_off[1:])
     b_cut = pair_off[h_cut]
     delta = np.asarray(base_elems, np.int64) - ins_before[:-1]
-    n_runs, n_res = np.diff(h_cut), np.diff(r_cut)
-    hpos = plan.hpos - np.repeat(op_off[:-1], n_runs)
-    head_slot = plan.head_slot + np.repeat(delta, n_runs)
-    rpos = plan.rpos - np.repeat(op_off[:-1], n_res)
-    res_new_slot = np.where(plan.res_new_slot >= 0,
-                            plan.res_new_slot + np.repeat(delta, n_res),
-                            plan.res_new_slot)
+    head_slot = plan.head_slot + np.repeat(delta, np.diff(h_cut))
     lt = []
     for bound in (128, 256):
         over = np.zeros(plan.n_pairs + 1, np.int64)
         np.cumsum(plan.blob >= bound, out=over[1:])
         lt.append((over[b_cut[1:]] == over[b_cut[:-1]]).tolist())
-
-    plans = []
-    hc, rc, bc = h_cut.tolist(), r_cut.tolist(), b_cut.tolist()
-    for i, (n_ops, n_ins) in enumerate(zip(n.tolist(), ins.tolist())):
-        h, r, b = slice(hc[i], hc[i + 1]), slice(rc[i], rc[i + 1]), \
-            slice(bc[i], bc[i + 1])
-        plans.append(RoundPlan(
-            n_ops=n_ops, n_ins=n_ins, hpos=hpos[h], run_len=plan.run_len[h],
-            head_slot=head_slot[h], rpos=rpos[r],
-            res_new_slot=res_new_slot[r], blob=plan.blob[b],
-            blob_lt_128=lt[0][i], blob_lt_256=lt[1][i]))
+    walk = AxisWalk(plan=plan, columns=cols, n_ops=n.tolist(),
+                    n_ins=ins.tolist(), op_off=op_off, h_cut=h_cut,
+                    r_cut=r_cut, b_cut=b_cut, row_shift=row_shift,
+                    delta=delta, head_slot=head_slot, lt128=lt[0],
+                    lt256=lt[1])
     if obs.ENABLED:
         obs.span("plan", "detect_runs", _t0, args={
             "n_ops": plan.n_ops, "n_runs": plan.n_runs, "n_docs": n_docs})
-    return plans
+    return walk
 
 
 def _detect_runs_single(kind, ta, tc, pa, pc, val64, op_row,

@@ -1,7 +1,7 @@
 """The host codec of the PyTorch engine: plain C++ over ctypes.
 
 `codec.cpp` (a copy of the JAX package's `automerge_tpu/native/codec.cpp`)
-holds two host passes of the ingest path:
+holds three host passes of the ingest path:
 
 - `decode_text_changes(data, obj_id)` — a JSON change list straight into
   a columnar `TextChangeBatch`. A payload outside the codec's scope (rich
@@ -12,6 +12,11 @@ holds two host passes of the ingest path:
   produced (engine/columnar.py).
 - `detect_runs_native(...)` — the single-pass typing-run walker,
   bit-identical to the numpy form (engine/runs.py `_detect_runs_numpy`).
+- `AxisPass` — a DocSet round's index merge, parent lookup and
+  segment-mirror update for every planned document, one native loop a
+  stage (engine/doc_set.py `_plan_axis`); it matches the per-document
+  planner (`_plan_fast`) bit for bit, and stops on any input that
+  planner would reject, which then plans the round itself.
 
 The library is built with `g++` at first use into `native/build/`; its
 file name carries a digest of the source and the flags, and it is written
@@ -166,6 +171,25 @@ def bind(path) -> ctypes.CDLL:
         arr(np.int32)]
     lib.amtpu_plan_free.restype = None
     lib.amtpu_plan_free.argtypes = [vp]
+    i64, i32 = arr(np.int64), arr(np.int32)
+    lib.amtpu_axis_begin.restype = vp
+    lib.amtpu_axis_begin.argtypes = (
+        [ctypes.c_int64, ctypes.c_int64, i64] + [i32] * 4 + [i64] * 6
+        + [i32] * 2 + [i64] * 12 + [arr(np.uint8)])
+    lib.amtpu_axis_merge.restype = ctypes.c_int64
+    lib.amtpu_axis_merge.argtypes = [vp, i64]
+    lib.amtpu_axis_merge_fill.restype = None
+    lib.amtpu_axis_merge_fill.argtypes = [vp] + [i64] * 7
+    lib.amtpu_axis_lookup.restype = ctypes.c_int64
+    lib.amtpu_axis_lookup.argtypes = [vp, i64, i32, i32, i64, i64]
+    lib.amtpu_axis_mirror.restype = ctypes.c_int64
+    lib.amtpu_axis_mirror.argtypes = [vp, i64]
+    lib.amtpu_axis_mirror_fill.restype = None
+    lib.amtpu_axis_mirror_fill.argtypes = [vp] + [i64] * 5
+    lib.amtpu_axis_bad_doc.restype = ctypes.c_int64
+    lib.amtpu_axis_bad_doc.argtypes = [vp]
+    lib.amtpu_axis_free.restype = None
+    lib.amtpu_axis_free.argtypes = [vp]
     return lib
 
 
@@ -219,6 +243,86 @@ def detect_runs_native(kind, ta, tc, pa, pc, val64, op_row,
         lib.amtpu_plan_free(h)
     count(walks, "native")
     return out
+
+
+class AxisPass:
+    """One round's DocSet planning over the doc axis (codec.cpp
+    `amtpu_axis_*`): the index merge, the run parents' lookup and the
+    segment-mirror update of every planned document, one native loop a
+    stage. Each stage returns its outputs, or None when it stopped on an
+    input the per-document planner has to judge (`status` then names the
+    AXIS_* code, `bad_doc` the document). `inputs` are the arrays of
+    `amtpu_axis_begin`, in its order; they are held until `close()`."""
+
+    STAGE_CODES = {1: "scope", 2: "duplicate", 3: "unknown_parent",
+                   4: "mirror"}
+
+    def __init__(self, n_docs: int, compact_tiers: int, inputs: tuple):
+        self._lib = load()
+        self.n_docs = n_docs
+        self.n_runs = int(inputs[0][-1])
+        self._inputs = inputs
+        self.status = 0
+        self.bad_doc = -1
+        self._h = self._lib.amtpu_axis_begin(n_docs, compact_tiers, *inputs)
+
+    def _failed(self, status: int) -> bool:
+        if status:
+            self.status = int(status)
+            self.bad_doc = int(self._lib.amtpu_axis_bad_doc(self._h))
+        return bool(status)
+
+    def merge(self):
+        """-> (keep, new_off, new_len, actor, slab): per doc the
+        resident tiers kept and its new tiers' range (new_off, D + 1),
+        per new tier its length, per run its key's actor rank, and the
+        new tiers' (starts, lens, slots) concatenated, as the rows of one
+        (3, n) slab."""
+        sizes = np.zeros(2, np.int64)
+        if self._failed(self._lib.amtpu_axis_merge(self._h, sizes)):
+            return None
+        n_tiers, n_ranges = sizes.tolist()
+        keep = np.empty(self.n_docs, np.int64)
+        new_off = np.empty(self.n_docs + 1, np.int64)
+        new_len = np.empty(n_tiers, np.int64)
+        actor = np.empty(self.n_runs, np.int64)
+        slab = np.empty((3, n_ranges), np.int64)
+        self._lib.amtpu_axis_merge_fill(self._h, keep, new_off, new_len,
+                                        actor, *slab)
+        return keep, new_off, new_len, actor, slab
+
+    def lookup(self):
+        """-> (parent_slot, win_actor, win_seq, elem_base) per run and
+        n_breaks per doc."""
+        n_runs = self.n_runs
+        parent_slot = np.empty(n_runs, np.int64)
+        win_actor = np.empty(n_runs, np.int32)
+        win_seq = np.empty(n_runs, np.int32)
+        elem_base = np.empty(n_runs, np.int64)
+        n_breaks = np.empty(self.n_docs, np.int64)
+        if self._failed(self._lib.amtpu_axis_lookup(
+                self._h, parent_slot, win_actor, win_seq, elem_base,
+                n_breaks)):
+            return None
+        return parent_slot, win_actor, win_seq, elem_base, n_breaks
+
+    def mirror(self):
+        """-> (m_len, slab): per doc its new mirror's length (-1: none),
+        and the new mirrors' (heads, par, hctr, hactor) concatenated, as
+        the rows of one (4, n) slab."""
+        sizes = np.zeros(1, np.int64)
+        if self._failed(self._lib.amtpu_axis_mirror(self._h, sizes)):
+            return None
+        m_len = np.empty(self.n_docs, np.int64)
+        slab = np.empty((4, int(sizes[0])), np.int64)
+        self._lib.amtpu_axis_mirror_fill(self._h, m_len, *slab)
+        return m_len, slab
+
+    def close(self):
+        if self._h is not None:
+            self._lib.amtpu_axis_free(self._h)
+            self._h = None
+            self._inputs = None
 
 
 def decode_text_changes(data, obj_id: str):

@@ -750,3 +750,485 @@ void amtpu_plan_fill(void* pv, int64_t* hpos, int64_t* run_len,
 void amtpu_plan_free(void* pv) { delete (RunPlan*)pv; }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// DocSet round planning over the doc axis (engine/doc_set.py `_plan_axis`).
+// For every planned document of one round: the three host stages its
+// per-document planner (`_plan_fast`) runs through numpy on arrays of a few
+// elements, here as one loop over the documents per stage, on concatenated
+// inputs:
+//
+//   merge   the round's run heads as (actor rank << 32 | ctr) key ranges,
+//           sorted, checked for overlap within the round and against every
+//           resident tier, coalesced, appended as one tier, then the
+//           size-doubling compaction: engine/host_index.py
+//           `BatchRangeIndex.merge`, tier for tier;
+//   lookup  every run parent in the document's staged tiers (the virtual
+//           head takes slot 0), the winners' ranks and seqs, the runs'
+//           element offsets;
+//   mirror  engine/segments.py `SegmentMirror.apply_round`: the new heads,
+//           the chain-break candidates q = par + 1 and their Lamport
+//           comparison through the staged tiers' slot -> key map.
+//
+// A document's resident tiers are probed by binary search and copied only
+// where the compaction merges them, so a round costs O(K log K + K T log R)
+// a document for K new ranges and T tiers of R ranges, plus the mirror's
+// copy; the slot -> key probes scan the tiers once, O(R log Q), and only
+// for a document with chain-break candidates. Anything the per-document
+// planner would reject or degrade on (an overlap, an unknown parent, a
+// counter or rank outside the int32 envelope, an index outside the batch's
+// tables, a slot missing from the index, unsorted mirror heads) stops the
+// stage with a nonzero status (AXIS_*); the caller then plans the round per
+// document, which raises or degrades exactly as it always did.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+enum : int64_t {
+    AXIS_OK = 0,
+    AXIS_SCOPE = 1,       // an index outside the tables, or the envelope
+    AXIS_DUPLICATE = 2,   // an element id overlaps another
+    AXIS_UNKNOWN = 3,     // a run parent the index does not hold
+    AXIS_MIRROR = 4,      // the mirror update cannot be made here
+};
+
+constexpr int64_t HEAD_PARENT_ACTOR = -1;   // _common.HEAD_PARENT
+
+struct RunRef {            // one sorted tier: resident, or made here
+    const int64_t *s, *l, *z;
+    int64_t n;
+};
+
+struct AxisPass {
+    // --- inputs (the caller keeps every array alive until free) ---
+    int64_t n_docs = 0, compact_tiers = 12;
+    const int64_t *run_off, *rank_off, *crow_off, *tier_off;   // n_docs + 1
+    const int32_t *ta, *tc, *pa, *pc;   // per run: the head op's columns
+    const int64_t *row, *run_len, *head_slot;   // per run
+    const int64_t* rank;                // per doc: batch actor -> rank
+    const int32_t *row_rank, *row_seq;  // per doc: change row -> rank, seq
+    const int64_t* tier_len;            // per resident tier
+    const int64_t *t_s, *t_l, *t_z;     // resident tiers, concatenated
+    const int64_t* m_len;               // per doc (-1: no mirror)
+    const int64_t *m_h, *m_p, *m_c, *m_a;   // mirrors, concatenated
+    const int64_t *n_elems, *n_pairs;   // per doc
+    const uint8_t* relocate;            // per doc: copy the kept tiers too
+    std::vector<int64_t> tier_data, mirror_data;   // data offsets
+    int64_t bad_doc = -1;
+
+    // --- merge ---
+    std::vector<int64_t> keep;          // per doc: resident tiers kept
+    std::vector<int64_t> new_off;       // per doc (n_docs + 1): new tiers
+    std::vector<int64_t> new_len, new_data;   // per new tier
+    std::vector<int64_t> o_s, o_l, o_z;       // new tiers' data
+    std::vector<int64_t> actor;         // per run: the key's actor half
+    // --- lookup ---
+    std::vector<int64_t> parent_slot;   // per run
+    // --- mirror ---
+    std::vector<int64_t> mo_len;        // per doc (-1: no mirror)
+    std::vector<int64_t> mo_h, mo_p, mo_c, mo_a;
+
+    RunRef resident(int64_t t) const {
+        int64_t o = tier_data[t];
+        return {t_s + o, t_l + o, t_z + o, tier_len[t]};
+    }
+    RunRef made(int64_t k) const {
+        int64_t o = new_data[k];
+        return {o_s.data() + o, o_l.data() + o, o_z.data() + o, new_len[k]};
+    }
+    // the staged index of doc i: its kept tiers, then the ones made here
+    void staged(int64_t i, std::vector<RunRef>& out) const {
+        out.clear();
+        for (int64_t t = tier_off[i]; t < tier_off[i] + keep[i]; ++t)
+            out.push_back(resident(t));
+        for (int64_t k = new_off[i]; k < new_off[i + 1]; ++k)
+            out.push_back(made(k));
+    }
+    int64_t fail(int64_t code, int64_t i) {
+        bad_doc = i;
+        return code;
+    }
+};
+
+// a sorted run, coalescing key- and slot-contiguous neighbours
+// (host_index._coalesce), appended to out
+struct Sink {
+    std::vector<int64_t> s, l, z;
+    void clear() { s.clear(); l.clear(); z.clear(); }
+    void push(int64_t ks, int64_t kl, int64_t kz) {
+        if (!s.empty() && s.back() + l.back() == ks &&
+            z.back() + l.back() == kz) {
+            l.back() += kl;
+            return;
+        }
+        s.push_back(ks);
+        l.push_back(kl);
+        z.push_back(kz);
+    }
+    RunRef ref() const { return {s.data(), l.data(), z.data(),
+                                 (int64_t)s.size()}; }
+};
+
+// two sorted, key-disjoint runs merged by start, a's first on a tie
+// (host_index._merge_runs)
+static void merge_into(const RunRef& a, const RunRef& b, Sink& out) {
+    out.clear();
+    int64_t i = 0, j = 0;
+    while (i < a.n || j < b.n) {
+        if (j >= b.n || (i < a.n && a.s[i] <= b.s[j])) {
+            out.push(a.s[i], a.l[i], a.z[i]);
+            ++i;
+        } else {
+            out.push(b.s[j], b.l[j], b.z[j]);
+            ++j;
+        }
+    }
+}
+
+// position of the last start <= key, or -1 (searchsorted side="right" - 1)
+static inline int64_t last_le(const int64_t* s, int64_t n, int64_t key) {
+    return (int64_t)(std::upper_bound(s, s + n, key) - s) - 1;
+}
+
+static bool is_sorted64(const int64_t* a, int64_t n) {
+    for (int64_t k = 1; k < n; ++k)
+        if (a[k] < a[k - 1]) return false;
+    return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+void* amtpu_axis_begin(
+    int64_t n_docs, int64_t compact_tiers, const int64_t* run_off,
+    const int32_t* ta, const int32_t* tc, const int32_t* pa,
+    const int32_t* pc, const int64_t* row, const int64_t* run_len,
+    const int64_t* head_slot, const int64_t* rank_off, const int64_t* rank,
+    const int64_t* crow_off, const int32_t* row_rank,
+    const int32_t* row_seq, const int64_t* tier_off,
+    const int64_t* tier_len, const int64_t* t_s, const int64_t* t_l,
+    const int64_t* t_z, const int64_t* m_len, const int64_t* m_h,
+    const int64_t* m_p, const int64_t* m_c, const int64_t* m_a,
+    const int64_t* n_elems, const int64_t* n_pairs,
+    const uint8_t* relocate) {
+    auto* p = new AxisPass();
+    p->n_docs = n_docs;
+    p->compact_tiers = compact_tiers;
+    p->run_off = run_off;
+    p->ta = ta; p->tc = tc; p->pa = pa; p->pc = pc;
+    p->row = row; p->run_len = run_len; p->head_slot = head_slot;
+    p->rank_off = rank_off; p->rank = rank;
+    p->crow_off = crow_off; p->row_rank = row_rank; p->row_seq = row_seq;
+    p->tier_off = tier_off; p->tier_len = tier_len;
+    p->t_s = t_s; p->t_l = t_l; p->t_z = t_z;
+    p->m_len = m_len;
+    p->m_h = m_h; p->m_p = m_p; p->m_c = m_c; p->m_a = m_a;
+    p->n_elems = n_elems; p->n_pairs = n_pairs; p->relocate = relocate;
+    int64_t n_tiers = tier_off[n_docs];
+    p->tier_data.resize(n_tiers + 1);
+    p->tier_data[0] = 0;
+    for (int64_t t = 0; t < n_tiers; ++t)
+        p->tier_data[t + 1] = p->tier_data[t] + tier_len[t];
+    p->mirror_data.resize(n_docs + 1);
+    p->mirror_data[0] = 0;
+    for (int64_t i = 0; i < n_docs; ++i)
+        p->mirror_data[i + 1] = p->mirror_data[i] +
+                                (m_len[i] > 0 ? m_len[i] : 0);
+    return p;
+}
+
+// The index merge of every document. `sizes` gets (new tiers, their
+// ranges). Returns AXIS_OK or the first failing status.
+int64_t amtpu_axis_merge(void* pv, int64_t* sizes) {
+    auto* p = (AxisPass*)pv;
+    const int64_t D = p->n_docs;
+    const int64_t n_runs = p->run_off[D];
+    p->keep.assign(D, 0);
+    p->new_off.assign(D + 1, 0);
+    p->new_len.clear();
+    p->new_data.clear();
+    p->o_s.clear(); p->o_l.clear(); p->o_z.clear();
+    p->actor.assign(n_runs, 0);
+    std::vector<int64_t> order;
+    std::vector<int64_t> ks, kl, kz;
+    std::vector<RunRef> stack;
+    Sink fresh, buf[2];
+    auto emit = [p](const RunRef& r) {
+        p->new_len.push_back(r.n);
+        p->new_data.push_back((int64_t)p->o_s.size());
+        p->o_s.insert(p->o_s.end(), r.s, r.s + r.n);
+        p->o_l.insert(p->o_l.end(), r.l, r.l + r.n);
+        p->o_z.insert(p->o_z.end(), r.z, r.z + r.n);
+    };
+    for (int64_t i = 0; i < D; ++i) {
+        const int64_t r0 = p->run_off[i], r1 = p->run_off[i + 1];
+        const int64_t K = r1 - r0;
+        const int64_t* rank = p->rank + p->rank_off[i];
+        const int64_t n_rank = p->rank_off[i + 1] - p->rank_off[i];
+        ks.resize(K); kl.resize(K); kz.resize(K);
+        for (int64_t j = 0; j < K; ++j) {
+            const int64_t r = r0 + j;
+            const int64_t a = p->ta[r], c = p->tc[r];
+            if (a < 0 || a >= n_rank || c < 0)
+                return p->fail(AXIS_SCOPE, i);
+            const int64_t rk = rank[a];
+            if (rk < 0 || rk > INT32_MAX) return p->fail(AXIS_SCOPE, i);
+            p->actor[r] = rk;
+            ks[j] = (rk << 32) | c;
+            kl[j] = p->run_len[r];
+            kz[j] = p->head_slot[r];
+        }
+        // sort by start (stable) and check the round's own overlap
+        order.resize(K);
+        for (int64_t j = 0; j < K; ++j) order[j] = j;
+        std::stable_sort(order.begin(), order.end(),
+                         [&](int64_t x, int64_t y) { return ks[x] < ks[y]; });
+        for (int64_t j = 0; j + 1 < K; ++j)
+            if (ks[order[j]] + kl[order[j]] > ks[order[j + 1]])
+                return p->fail(AXIS_DUPLICATE, i);
+        // against every resident tier
+        const int64_t t0 = p->tier_off[i], t1 = p->tier_off[i + 1];
+        for (int64_t t = t0; t < t1; ++t) {
+            const RunRef res = p->resident(t);
+            for (int64_t j = 0; j < K; ++j) {
+                const int64_t s = ks[j], e = s + kl[j];
+                const int64_t pos = last_le(res.s, res.n, s);
+                if (pos >= 0 && s < res.s[pos] + res.l[pos])
+                    return p->fail(AXIS_DUPLICATE, i);
+                const int64_t lo = pos + 1;
+                if (lo < res.n && res.s[lo] < e)
+                    return p->fail(AXIS_DUPLICATE, i);
+            }
+        }
+        // the tier stack, then the doubling compaction
+        stack.clear();
+        for (int64_t t = t0; t < t1; ++t) stack.push_back(p->resident(t));
+        int64_t keep = t1 - t0;
+        if (K) {
+            fresh.clear();
+            for (int64_t j = 0; j < K; ++j)
+                fresh.push(ks[order[j]], kl[order[j]], kz[order[j]]);
+            stack.push_back(fresh.ref());
+            int flip = 0;
+            while (stack.size() > 1 &&
+                   (stack.back().n >= stack[stack.size() - 2].n ||
+                    (int64_t)stack.size() > p->compact_tiers)) {
+                RunRef b = stack.back();
+                stack.pop_back();
+                RunRef a = stack.back();
+                stack.pop_back();
+                merge_into(a, b, buf[flip]);
+                stack.push_back(buf[flip].ref());
+                flip ^= 1;
+            }
+            keep = (int64_t)stack.size() - 1;
+        }
+        if (p->relocate[i]) {
+            for (const RunRef& r : stack) emit(r);
+            p->keep[i] = 0;
+        } else {
+            for (size_t k = keep; k < stack.size(); ++k) emit(stack[k]);
+            p->keep[i] = keep;
+        }
+        p->new_off[i + 1] = (int64_t)p->new_len.size();
+    }
+    sizes[0] = (int64_t)p->new_len.size();
+    sizes[1] = (int64_t)p->o_s.size();
+    return AXIS_OK;
+}
+
+void amtpu_axis_merge_fill(void* pv, int64_t* keep, int64_t* new_off,
+                           int64_t* new_len, int64_t* actor, int64_t* s,
+                           int64_t* l, int64_t* z) {
+    auto* p = (AxisPass*)pv;
+    const int64_t D = p->n_docs;
+    memcpy(keep, p->keep.data(), D * 8);
+    memcpy(new_off, p->new_off.data(), (D + 1) * 8);
+    memcpy(new_len, p->new_len.data(), p->new_len.size() * 8);
+    memcpy(actor, p->actor.data(), p->actor.size() * 8);
+    memcpy(s, p->o_s.data(), p->o_s.size() * 8);
+    memcpy(l, p->o_l.data(), p->o_l.size() * 8);
+    memcpy(z, p->o_z.data(), p->o_z.size() * 8);
+}
+
+// Every run parent through its document's staged index, and the runs'
+// descriptor columns. Per run: parent_slot, win_actor, win_seq and
+// elem_base; per doc: n_breaks. Returns AXIS_OK or the first failing
+// status.
+int64_t amtpu_axis_lookup(void* pv, int64_t* parent_slot, int32_t* win_actor,
+                          int32_t* win_seq, int64_t* elem_base,
+                          int64_t* n_breaks) {
+    auto* p = (AxisPass*)pv;
+    const int64_t D = p->n_docs;
+    p->parent_slot.assign(p->run_off[D], 0);
+    std::vector<RunRef> tiers;
+    for (int64_t i = 0; i < D; ++i) {
+        p->staged(i, tiers);
+        const int64_t* rank = p->rank + p->rank_off[i];
+        const int64_t n_rank = p->rank_off[i + 1] - p->rank_off[i];
+        const int64_t c0 = p->crow_off[i];
+        const int64_t n_rows = p->crow_off[i + 1] - c0;
+        int64_t breaks = 0, base = 0;
+        for (int64_t r = p->run_off[i]; r < p->run_off[i + 1]; ++r) {
+            const bool head = p->pa[r] == HEAD_PARENT_ACTOR;
+            const int64_t a = head ? 0 : p->pa[r], c = p->pc[r];
+            if (a < 0 || a >= n_rank || c < 0)
+                return p->fail(AXIS_SCOPE, i);
+            const int64_t rk = rank[a];
+            if (rk < 0 || rk > INT32_MAX) return p->fail(AXIS_SCOPE, i);
+            const int64_t key = (rk << 32) | c;
+            int64_t slot = 0;
+            bool found = false;
+            for (const RunRef& t : tiers) {
+                const int64_t pos = last_le(t.s, t.n, key);
+                if (pos >= 0 && key < t.s[pos] + t.l[pos]) {
+                    slot = t.z[pos] + (key - t.s[pos]);
+                    found = true;
+                }
+            }
+            if (!found && !head) return p->fail(AXIS_UNKNOWN, i);
+            const int64_t w = p->row[r];
+            if (w < 0 || w >= n_rows) return p->fail(AXIS_SCOPE, i);
+            p->parent_slot[r] = parent_slot[r] = head ? 0 : slot;
+            win_actor[r] = p->row_rank[c0 + w];
+            win_seq[r] = p->row_seq[c0 + w];
+            elem_base[r] = base;
+            base += p->run_len[r];
+            breaks += !head;
+        }
+        n_breaks[i] = breaks;
+    }
+    return AXIS_OK;
+}
+
+// The segment mirror of every document that has one. `sizes[0]` gets the
+// new mirrors' total length. Returns AXIS_OK or the first failing status.
+int64_t amtpu_axis_mirror(void* pv, int64_t* sizes) {
+    auto* p = (AxisPass*)pv;
+    const int64_t D = p->n_docs;
+    p->mo_len.assign(D, -1);
+    p->mo_h.clear(); p->mo_p.clear(); p->mo_c.clear(); p->mo_a.clear();
+    std::vector<RunRef> tiers;
+    std::vector<int64_t> ins_sorted, cq, cc, ca, qs, qkey, bq;
+    std::vector<int64_t> xh, xp, xc, xa;   // the round's heads, sorted
+    std::vector<uint8_t> hit;
+    for (int64_t i = 0; i < D; ++i) {
+        const int64_t m = p->m_len[i];
+        if (m < 0) continue;
+        const int64_t mo = p->mirror_data[i];
+        const int64_t *H = p->m_h + mo, *P = p->m_p + mo, *C = p->m_c + mo,
+                      *A = p->m_a + mo;
+        const int64_t r0 = p->run_off[i], r1 = p->run_off[i + 1];
+        if (!is_sorted64(H, m)) return p->fail(AXIS_MIRROR, i);
+        const int64_t n_after = p->n_elems[i] + p->n_pairs[i];
+        // chain-break candidates: q = par + 1 neither an old head nor a
+        // head minted this round
+        ins_sorted.assign(p->head_slot + r0, p->head_slot + r1);
+        const bool ins_in_order = is_sorted64(ins_sorted.data(), r1 - r0);
+        std::sort(ins_sorted.begin(), ins_sorted.end());
+        cq.clear(); cc.clear(); ca.clear();
+        for (int64_t r = r0; r < r1; ++r) {
+            const int64_t par = p->parent_slot[r], q = par + 1;
+            if (!(par >= 1 && q <= n_after)) continue;
+            if (std::binary_search(H, H + m, q)) continue;
+            if (std::binary_search(ins_sorted.begin(), ins_sorted.end(), q))
+                continue;
+            cq.push_back(q);
+            cc.push_back(p->tc[r]);
+            ca.push_back(p->actor[r]);
+        }
+        bq.clear();
+        if (!cq.empty()) {
+            // slot -> key through the staged tiers: one scan of their
+            // ranges against the sorted distinct queries
+            qs = cq;
+            std::sort(qs.begin(), qs.end());
+            qs.erase(std::unique(qs.begin(), qs.end()), qs.end());
+            qkey.assign(qs.size(), 0);
+            hit.assign(qs.size(), 0);
+            p->staged(i, tiers);
+            for (const RunRef& t : tiers)
+                for (int64_t k = 0; k < t.n; ++k) {
+                    auto it = std::lower_bound(qs.begin(), qs.end(), t.z[k]);
+                    for (; it != qs.end() && *it < t.z[k] + t.l[k]; ++it) {
+                        const size_t u = it - qs.begin();
+                        if (hit[u]) return p->fail(AXIS_MIRROR, i);
+                        hit[u] = 1;
+                        qkey[u] = t.s[k] + (*it - t.z[k]);
+                    }
+                }
+            for (uint8_t h : hit)
+                if (!h) return p->fail(AXIS_MIRROR, i);
+            for (size_t k = 0; k < cq.size(); ++k) {
+                const size_t u =
+                    std::lower_bound(qs.begin(), qs.end(), cq[k]) -
+                    qs.begin();
+                const int64_t qa = qkey[u] >> 32, qr = qkey[u] & 0xFFFFFFFFLL;
+                if (cc[k] > qr || (cc[k] == qr && ca[k] > qa))
+                    bq.push_back(cq[k]);
+            }
+            std::sort(bq.begin(), bq.end());
+            bq.erase(std::unique(bq.begin(), bq.end()), bq.end());
+        }
+        // the round's heads: the run heads, then the breaks (bq - 1 their
+        // parent slots, their keys from the same probe), stably by slot
+        const int64_t K = r1 - r0;
+        const size_t nx = K + bq.size();
+        xh.resize(nx); xp.resize(nx); xc.resize(nx); xa.resize(nx);
+        for (int64_t j = 0; j < K; ++j) {
+            xh[j] = p->head_slot[r0 + j];
+            xp[j] = p->parent_slot[r0 + j];
+            xc[j] = p->tc[r0 + j];
+            xa[j] = p->actor[r0 + j];
+        }
+        for (size_t k = 0; k < bq.size(); ++k) {
+            const size_t u =
+                std::lower_bound(qs.begin(), qs.end(), bq[k]) - qs.begin();
+            xh[K + k] = bq[k];
+            xp[K + k] = bq[k] - 1;
+            xc[K + k] = qkey[u] & 0xFFFFFFFFLL;
+            xa[K + k] = qkey[u] >> 32;
+        }
+        std::vector<int64_t> order(nx);
+        for (size_t k = 0; k < nx; ++k) order[k] = k;
+        if (!ins_in_order || (K && !bq.empty()))
+            std::stable_sort(order.begin(), order.end(),
+                             [&](int64_t x, int64_t y) {
+                                 return xh[x] < xh[y];
+                             });
+        // merged behind the old heads (sorted, first on a tie): the
+        // stable argsort of old ++ runs ++ breaks
+        p->mo_len[i] = m + (int64_t)nx;
+        size_t a = 0, b = 0;
+        while (a < (size_t)m || b < nx) {
+            if (b >= nx || (a < (size_t)m && H[a] <= xh[order[b]])) {
+                p->mo_h.push_back(H[a]); p->mo_p.push_back(P[a]);
+                p->mo_c.push_back(C[a]); p->mo_a.push_back(A[a]);
+                ++a;
+            } else {
+                const int64_t k = order[b++];
+                p->mo_h.push_back(xh[k]); p->mo_p.push_back(xp[k]);
+                p->mo_c.push_back(xc[k]); p->mo_a.push_back(xa[k]);
+            }
+        }
+    }
+    sizes[0] = (int64_t)p->mo_h.size();
+    return AXIS_OK;
+}
+
+void amtpu_axis_mirror_fill(void* pv, int64_t* mo_len, int64_t* h,
+                            int64_t* par, int64_t* c, int64_t* a) {
+    auto* p = (AxisPass*)pv;
+    memcpy(mo_len, p->mo_len.data(), p->n_docs * 8);
+    memcpy(h, p->mo_h.data(), p->mo_h.size() * 8);
+    memcpy(par, p->mo_p.data(), p->mo_p.size() * 8);
+    memcpy(c, p->mo_c.data(), p->mo_c.size() * 8);
+    memcpy(a, p->mo_a.data(), p->mo_a.size() * 8);
+}
+
+int64_t amtpu_axis_bad_doc(void* pv) { return ((AxisPass*)pv)->bad_doc; }
+
+void amtpu_axis_free(void* pv) { delete (AxisPass*)pv; }
+
+}  // extern "C"

@@ -372,10 +372,10 @@ def spy_walks(monkeypatch):
     walks = []
 
     def spy(columns, base_elems):
-        plans = runs.detect_runs_docs(columns, base_elems)
-        walks.append((columns, list(base_elems), plans))
-        return plans
-    monkeypatch.setattr(doc_set, "detect_runs_docs", spy)
+        walk = runs.detect_runs_axis(columns, base_elems)
+        walks.append((columns, list(base_elems), walk.cut()))
+        return walk
+    monkeypatch.setattr(doc_set, "detect_runs_axis", spy)
     return walks
 
 
@@ -502,3 +502,280 @@ def test_round_error_names_its_document_and_touches_no_state(fault):
     assert not tds._overlay
     tds._codes_cache = None
     assert tds.texts() == texts
+
+
+# --- the doc-axis pass ----------------------------------------------------------
+
+def _round_plans(ds, batches):
+    """The round as `_apply_batches` plans it, without committing: the
+    doc-axis pass's plan (None: declined) and `_plan_fast` on each walked
+    document alone ({doc: pack or None}, in walk order)."""
+    from automerge_tpu_torch.engine import runs
+    walked = []
+    for o, b in batches.items():
+        d = ds._idx[o]
+        if d not in ds._overlay and ds._ready(d, b, b.seqs.tolist()) is True:
+            walked.append((d, b))
+    cols = [(b.op_kind, b.op_target_actor, b.op_target_ctr,
+             b.op_parent_actor, b.op_parent_ctr, b.op_value, b.op_change)
+            for _, b in walked]
+    bases = [ds._meta[d].n_elems for d, _ in walked]
+    fast = ds._plan_axis(walked, runs.detect_runs_axis(cols, bases))
+    ref = {d: ds._plan_fast(d, b, plan) for (d, b), plan
+           in zip(walked, runs.detect_runs_axis(cols, bases).cut())}
+    return fast, ref
+
+
+def assert_axis_plan_equal(fast, ref):
+    """Every document the pass planned: its descriptors, blob, staged
+    index (tier for tier, read-only), mirror, clock, closures, ascii flag
+    and interning equal `_plan_fast`'s on it alone; the rest are the
+    documents `_plan_fast` sends to the general path."""
+    from automerge_tpu_torch.engine.doc_set import _FastRound
+    assert fast.docs == [d for d, p in ref.items() if p is not None]
+    r0 = b0 = 0
+    for i, d in enumerate(fast.docs):
+        p = ref[d]
+        nr, npr = p["n_runs"], p["n_pairs"]
+        assert (fast.n_runs[i], fast.n_pairs[i], fast.n_breaks[i]) == (
+            nr, npr, p["n_breaks"])
+        for k in _FastRound._RUN_KEYS:
+            got, want = getattr(fast, k)[r0: r0 + nr], np.asarray(p[k])
+            assert got.dtype == want.dtype, k
+            np.testing.assert_array_equal(got, want, err_msg=k)
+        np.testing.assert_array_equal(fast.blob[b0: b0 + npr], p["blob"])
+        assert fast.blob.dtype == p["blob"].dtype
+        r0, b0 = r0 + nr, b0 + npr
+        index, mirror, clock, deps, ascii_, actors = fast.staged[i]
+        want = p["staged_index"]
+        assert index.n_ranges == want.n_ranges
+        assert len(index._runs) == len(want._runs)
+        for got_run, want_run in zip(index._runs, want._runs):
+            for x, y in zip(got_run, want_run, strict=True):
+                assert x.dtype == y.dtype and not x.flags.writeable
+                np.testing.assert_array_equal(x, y)
+        for x, y in zip(index.rows(), want.rows(), strict=True):
+            np.testing.assert_array_equal(x, y)
+        assert (mirror is None) == (p["staged_mirror"] is None)
+        for k in ("heads", "par", "hctr", "hactor"):
+            if mirror is not None:
+                x, y = getattr(mirror, k), getattr(p["staged_mirror"], k)
+                assert x.dtype == y.dtype
+                np.testing.assert_array_equal(x, y, err_msg=k)
+        assert clock == p["staged_clock"]
+        assert deps == p["staged_all_deps"]
+        assert ascii_ == p["staged_ascii"]
+        assert actors == p["staged_actors"]
+    if fast.docs:
+        assert r0 == len(fast.ctr0) and b0 == len(fast.blob)
+
+
+AXIS_ACTORS = ("w0", "w1", "w2", "w3")
+
+
+def axis_rounds(seed, ids, n_rounds=24):
+    """Seeded rounds for the doc-axis pass. Round 0 interns every actor
+    of AXIS_ACTORS in every document, each typing one run from the head.
+    Later, per round and document, 1-3 distinct actors each send one
+    change of one or two typing runs, every run after a random element
+    of the earlier rounds or at the head; concurrent changes start at
+    the same counter, past every counter before, so a run inserted
+    inside a chain breaks it. Each change depends on the clock the round
+    started from."""
+    rng = np.random.default_rng(seed)
+    elems = {o: [] for o in ids}
+    top = {o: 0 for o in ids}
+    seqs = {o: {} for o in ids}
+    rounds = []
+    for rnd in range(n_rounds):
+        batches = {}
+        for o in ids:
+            clock = dict(seqs[o])
+            authors = (AXIS_ACTORS if rnd == 0 else rng.choice(
+                AXIS_ACTORS, size=int(rng.integers(1, 4)), replace=False))
+            changes, minted, high = [], [], top[o]
+            for actor in map(str, authors):
+                ctr, ops = top[o], []
+                for _ in range(1 if rnd == 0 else int(rng.integers(1, 3))):
+                    k = int(rng.integers(0, len(elems[o]) + 1))
+                    text = "".join(chr(97 + int(c)) for c in
+                                   rng.integers(0, 26, int(rng.integers(1, 6))))
+                    ops += typing_change(
+                        actor, 1, text, start_ctr=ctr + 1, obj=o,
+                        after=elems[o][k] if k < len(elems[o]) else None)["ops"]
+                    minted += [f"{actor}:{ctr + 1 + j}" for j in
+                               range(len(text))]
+                    ctr += len(text)
+                high = max(high, ctr)
+                seq = seqs[o].get(actor, 0) + 1
+                seqs[o][actor] = seq
+                changes.append({"actor": actor, "seq": seq, "ops": ops,
+                                "deps": {a: s for a, s in clock.items()
+                                         if a != actor}})
+            top[o] = high
+            elems[o] += minted
+            batches[o] = changes
+        rounds.append(batches)
+    return rounds
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_axis_pass_equals_per_document_planning(seed):
+    """On MIXED's rounds and on seeded rounds (HEAD parents, several runs
+    a document, chain breaks resolved through the staged index's slot
+    map, a late actor that keeps the order and one that changes it, a
+    redelivery, a row whose mirror is gone, documents of many tiers),
+    the doc-axis pass plans every fast-tier document exactly as
+    `_plan_fast` does on it alone, and the sets equal the JAX package's
+    DocSet after the same rounds."""
+    from automerge_tpu_torch.engine import doc_set
+    doc_set.reset_axis_plans()
+    jds, tds = both(MIXED)
+    for rnd in mixed_rounds():
+        fast, ref = _round_plans(tds, {o: TBatch.from_changes(c, o)
+                                       for o, c in rnd.items()})
+        assert_axis_plan_equal(fast, ref)
+        feed(jds, tds, rnd)
+    assert_sets_equal(jds, tds)
+
+    ids = [f"x{i}" for i in range(6)]
+    rounds = axis_rounds(seed, ids)
+    rounds[8]["x3"].append(typing_change(
+        "z-late", 1, "zz", start_ctr=500, obj="x3",
+        deps={a: 1 for a in AXIS_ACTORS}))
+    rounds[10]["x4"].append(typing_change(
+        "a-late", 1, "aa", start_ctr=600, obj="x4",
+        deps={a: 1 for a in AXIS_ACTORS}))
+    rounds.insert(12, {"x2": rounds[11]["x2"]})    # a redelivery
+    jds, tds = both(ids)
+    breaks = 0
+    for r, rnd in enumerate(rounds):
+        if r == 6:
+            tds._meta[1].mirror = None
+        before = [None if m.mirror is None else m.mirror.n_segs
+                  for m in tds._meta]
+        fast, ref = _round_plans(tds, {o: TBatch.from_changes(c, o)
+                                       for o, c in rnd.items()})
+        assert_axis_plan_equal(fast, ref)
+        if r == 10:
+            assert tds._idx["x4"] not in fast.docs     # the order change
+        if r == 12:
+            assert not ref and not fast.docs           # skipped
+        for i, d in enumerate(fast.docs):
+            m = fast.staged[i][1]
+            if m is not None and before[d] is not None:
+                breaks += m.n_segs - before[d] > fast.n_runs[i]
+        feed(jds, tds, rnd)
+        if 6 <= r < 20:
+            assert tds._meta[1].mirror is None
+    assert breaks > 0
+    assert sorted(tds.obj_ids[d] for d in tds._overlay) == ["x4"]
+    tiers = [len(m.index._runs) for m in tds._meta]
+    assert max(tiers) >= 3
+    assert max(len(m.index._runs[0][0]) for m in tds._meta) >= 16
+    assert doc_set.axis_plans["declined"] == 0
+    assert doc_set.axis_plans["rounds"] == 2 * (2 + len(rounds) - 1)
+    assert_sets_equal(jds, tds)
+    assert_mirror_checksums_equal(jds, tds)
+
+
+@pytest.mark.parametrize("first", ["duplicate", "unknown_parent"])
+def test_axis_pass_declines_a_faulty_round_to_the_per_document_error(first):
+    """Faults in documents 1 and 3 of a round (a duplicate element id,
+    an unknown parent; each kind first in turn): the pass declines the
+    round, the per-document planner raises the message `_plan_fast`
+    gives on document 1 alone, and no document's state moves."""
+    from automerge_tpu_torch.engine import doc_set, runs
+    ids = [f"e{i}" for i in range(5)]
+    tds = TSet(ids, device="cpu")
+    tds.apply_batches({o: TBatch.from_changes(
+        [typing_change("w", 1, "abc", obj=o)], o) for o in ids})
+    faults = {
+        "duplicate": lambda o: typing_change("w", 2, "de", start_ctr=2,
+                                             after="w:3", obj=o),
+        "unknown_parent": lambda o: typing_change("w", 2, "de", start_ctr=4,
+                                                  after="w:99", obj=o)}
+    second = next(k for k in faults if k != first)
+    rnd = {o: [typing_change("w", 2, "de", start_ctr=4, after="w:3", obj=o)]
+           for o in ids}
+    rnd[ids[1]], rnd[ids[3]] = [faults[first](ids[1])], \
+        [faults[second](ids[3])]
+    batches = {o: TBatch.from_changes(c, o) for o, c in rnd.items()}
+    b1 = batches[ids[1]]
+    plan = runs.detect_runs_axis(
+        [(b1.op_kind, b1.op_target_actor, b1.op_target_ctr,
+          b1.op_parent_actor, b1.op_parent_ctr, b1.op_value, b1.op_change)],
+        [tds._meta[1].n_elems]).cut()[0]
+    with pytest.raises(ValueError) as alone:
+        tds._plan_fast(1, b1, plan)
+    before = _state(tds)
+    doc_set.reset_axis_plans()
+    with pytest.raises(ValueError) as err:
+        tds.apply_batches(batches)
+    assert str(err.value) == str(alone.value)
+    assert ids[1] in str(err.value)
+    assert doc_set.axis_plans == {"rounds": 0, "docs": 0, "declined": 1}
+    _assert_state_equal(_state(tds), before)
+    assert not tds._overlay
+
+
+def test_axis_pass_declines_a_failed_mirror_to_the_degraded_row(caplog):
+    """A row whose index lacks a slot its round's chain-break probe
+    needs: the pass declines the round, the per-document planner logs
+    its warning and degrades only that row's mirror to None; the round
+    goes on, and the read serves every text as the JAX DocSet does."""
+    from automerge_tpu_torch.engine import doc_set
+    from automerge_tpu_torch.engine.host_index import BatchRangeIndex
+    ids = ["f0", "f1", "f2"]
+    jds, tds = both(ids)
+    feed(jds, tds, {o: [typing_change("w", 1, "abcd", obj=o)] for o in ids})
+    # f1's index without w:3 (slot 3): an insert after w:2 probes slot 3
+    tds._meta[1].index = BatchRangeIndex.from_rows(
+        [tds._meta[1].index.rows()[0][0], tds._meta[1].index.rows()[0][0]
+         + 3], [2, 1], [1, 4])
+    doc_set.reset_axis_plans()
+    rnd = {o: [typing_change("x", 1, "xy", start_ctr=10, after="w:2",
+                             obj=o, deps={"w": 1})] for o in ids}
+    with caplog.at_level("WARNING"):
+        tds.apply_batches({o: TBatch.from_changes(c, o)
+                           for o, c in rnd.items()})
+    assert doc_set.axis_plans["declined"] == 1
+    assert "segment-mirror planning failed for f1" in caplog.text
+    assert [m.mirror is None for m in tds._meta] == [False, True, False]
+    jds.apply_batches({o: JBatch.from_changes(c, o) for o, c in rnd.items()})
+    assert tds.texts() == jds.texts()
+
+
+def _held(ds) -> int:
+    """Bytes of the pass's slabs still alive."""
+    return sum(r().nbytes for r in ds._slabs if r() is not None)
+
+
+@pytest.mark.parametrize("slack", [0, None])
+def test_axis_pass_moves_rows_a_round_left_behind(slack):
+    """Rounds that leave documents behind one by one: each idle row
+    keeps the slab of its last round alive, with the other rows' states
+    of that round in it. With no slack the pass moves every row's state
+    into its own slabs once they hold more than twice the rows' state, so
+    the slabs stay bounded; with the default slack (far above this set)
+    nothing moves and they pile up. Either way the sets equal the JAX
+    package's DocSet."""
+    ids = [f"s{i:02d}" for i in range(12)]
+    jds, tds = both(ids)
+    if slack is not None:
+        tds._SLAB_SLACK = slack
+    feed(jds, tds, {o: [typing_change("w", 1, "abcdef" * 4, obj=o)]
+                    for o in ids})
+    held = []
+    for r in range(1, 12):
+        feed(jds, tds, {o: [typing_change(
+            "w", r + 1, "xy", start_ctr=23 + 2 * r, after=f"w:{r + 3}",
+            obj=o)] for o in ids[r:]})
+        held.append(_held(tds) / sum(tds._state_bytes))
+    assert not tds._overlay
+    if slack is None:
+        assert held[-1] > 4
+    else:
+        assert max(held) < 4
+    assert_sets_equal(jds, tds)
+    assert_mirror_checksums_equal(jds, tds)

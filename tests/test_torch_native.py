@@ -237,7 +237,7 @@ def _empty_cols():
 @pytest.mark.parametrize("seed", range(3))
 def test_doc_axis_walk_matches_numpy_per_document(seed, workers,
                                                   monkeypatch):
-    """`detect_runs_docs` over seeded documents (an empty one among them,
+    """`detect_runs_axis` over seeded documents (an empty one among them,
     bases of their own): one call, one walk unsharded, each document's
     cut equal to the numpy reference on it alone."""
     monkeypatch.setenv("AMTPU_PLAN_WORKERS", workers)
@@ -247,14 +247,14 @@ def test_doc_axis_walk_matches_numpy_per_document(seed, workers,
     docs.insert(2, (_empty_cols(), 7))
     native.reset_counts()
     truns.detections["calls"] = 0
-    plans = truns.detect_runs_docs([c for c, _ in docs],
-                                   [b for _, b in docs])
+    plans = truns.detect_runs_axis([c for c, _ in docs],
+                                   [b for _, b in docs]).cut()
     assert truns.detections["calls"] == 1
     assert (native.walks["native"] > 1) == (workers == "3")
     assert len(plans) == len(docs)
     for (cols, base), plan in zip(docs, plans):
         assert_plans_equal(plan, truns._detect_runs_numpy(*cols, base))
-    assert truns.detect_runs_docs([], []) == []
+    assert truns.detect_runs_axis([], []).cut() == []
     assert truns.detections["calls"] == 2
 
 
@@ -333,3 +333,226 @@ def test_library_name_carries_source_and_flags_digest(tmp_path,
     src.write_bytes(src.read_bytes() + b"\n// edit\n")
     assert native.library_path(["-O3"]) != a
     assert a.parent == native.BUILD_DIR
+
+
+# --- the DocSet's doc-axis pass -------------------------------------------------
+
+def _axis_round(rng, index, n, nxt, n_actors=4):
+    """One round's runs on a document of `n` elements whose index is
+    `index`: 1-5 runs by random actors (fresh counters, sometimes
+    key-contiguous with the actor's last run), each after the head, an
+    element of the document or an element of an earlier run of the
+    round. -> (staged reference index, per-run columns)."""
+    K = int(rng.integers(1, 6))
+    runs = {k: [] for k in ("actor", "ctr", "len", "slot", "pslot")}
+    slot = n + 1
+    for _ in range(K):
+        a = int(rng.integers(0, n_actors))
+        ctr = nxt[a] + int(rng.integers(0, 2))
+        length = int(rng.integers(1, 5))
+        nxt[a] = ctr + length
+        head = slot - 1 < 1 or rng.random() < 0.2
+        runs["pslot"].append(0 if head else int(rng.integers(1, slot)))
+        for k, v in (("actor", a), ("ctr", ctr), ("len", length),
+                     ("slot", slot)):
+            runs[k].append(v)
+        slot += length
+    cols = {k: np.asarray(v, np.int64) for k, v in runs.items()}
+    staged = index.merge(truns_pack(cols["actor"], cols["ctr"]),
+                         cols["len"], cols["slot"])
+    pa, pc = np.full(K, -1, np.int64), np.zeros(K, np.int64)
+    inner = cols["pslot"] > 0
+    if inner.any():
+        pa[inner], pc[inner] = staged.slot_to_key(cols["pslot"][inner])
+    cols["pa"], cols["pc"] = pa, pc
+    return staged, cols
+
+
+def truns_pack(actor, ctr):
+    from automerge_tpu_torch.engine.host_index import pack_keys
+    return pack_keys(np.asarray(actor, np.int64), np.asarray(ctr, np.int64))
+
+
+def _axis_docs(seed, n_docs=6):
+    """Seeded documents as the one-document code grows them: an index
+    (`BatchRangeIndex.merge`) and a mirror (`SegmentMirror.apply_round`,
+    None for one document) after 0-20 rounds, and one round to plan."""
+    from automerge_tpu_torch.engine.host_index import BatchRangeIndex
+    from automerge_tpu_torch.engine.segments import SegmentMirror
+    rng = np.random.default_rng(seed)
+    docs = []
+    for i in range(n_docs):
+        index, mirror, n, nxt = (BatchRangeIndex(), SegmentMirror.empty(),
+                                 0, [1, 1, 1, 1])
+        for _ in range(int(rng.integers(0, 21))):
+            index, c = _axis_round(rng, index, n, nxt)
+            after = n + int(c["len"].sum())
+            mirror = mirror.apply_round(c["slot"], c["pslot"], c["ctr"],
+                                        c["actor"], after, index.slot_to_key)
+            n = after
+        staged, c = _axis_round(rng, index, n, nxt)
+        docs.append({"index": index, "mirror": None if i == 2 else mirror,
+                     "n": n, "staged": staged, "cols": c,
+                     "row_rank": rng.integers(0, 9, len(c["len"])),
+                     "row_seq": rng.integers(1, 99, len(c["len"]))})
+    return docs
+
+
+def _axis_pass(docs, compact=12, relocate=False):
+    """The native pass over `docs` (one change a run; the batch's actor
+    table is the document's, rank for rank)."""
+    i64, i32 = np.int64, np.int32
+
+    def cat(parts, dt):
+        return (np.concatenate(parts).astype(dt) if parts
+                else np.empty(0, dt))
+    c = [d["cols"] for d in docs]
+    off = lambda sizes: np.concatenate(([0], np.cumsum(sizes))).astype(i64)
+    tiers = [r for d in docs for r in d["index"]._runs]
+    mirrors = [d["mirror"] for d in docs if d["mirror"] is not None]
+    inputs = (
+        off([len(x["len"]) for x in c]),
+        cat([x["actor"] for x in c], i32), cat([x["ctr"] for x in c], i32),
+        cat([x["pa"] for x in c], i32), cat([x["pc"] for x in c], i32),
+        cat([np.arange(len(x["len"])) for x in c], i64),
+        cat([x["len"] for x in c], i64), cat([x["slot"] for x in c], i64),
+        off([4] * len(docs)), np.tile(np.arange(4, dtype=i64), len(docs)),
+        off([len(x["len"]) for x in c]),
+        cat([d["row_rank"] for d in docs], i32),
+        cat([d["row_seq"] for d in docs], i32),
+        off([len(d["index"]._runs) for d in docs]),
+        np.asarray([len(r[0]) for r in tiers], i64),
+        *(cat([r[k] for r in tiers], i64) for k in range(3)),
+        np.asarray([-1 if d["mirror"] is None else len(d["mirror"].heads)
+                    for d in docs], i64),
+        *(cat([getattr(m, k) for m in mirrors], i64)
+          for k in ("heads", "par", "hctr", "hactor")),
+        np.asarray([d["n"] for d in docs], i64),
+        np.asarray([int(x["len"].sum()) for x in c], i64),
+        np.full(len(docs), relocate, np.uint8))
+    return native.AxisPass(len(docs), compact, inputs)
+
+
+@pytest.mark.parametrize("relocate", [False, True])
+@pytest.mark.parametrize("compact", [12, 2])
+@pytest.mark.parametrize("seed", range(4))
+def test_axis_pass_matches_the_one_document_stages(seed, compact, relocate,
+                                                   monkeypatch):
+    """`native.AxisPass` against the one-document numpy code on seeded
+    documents: its merge equals `BatchRangeIndex.merge` tier for tier
+    (the doubling compaction and the tier lid), its lookup equals the
+    staged index's exact probe, its mirror equals
+    `SegmentMirror.apply_round`; with `relocate` every tier comes back
+    as a copy."""
+    from automerge_tpu_torch.engine.host_index import BatchRangeIndex
+    from automerge_tpu_torch.engine.segments import SegmentMirror
+    monkeypatch.setattr(BatchRangeIndex, "_COMPACT_TIERS", compact)
+    docs = _axis_docs(seed)
+    for d in docs:      # the reference under the lid in force
+        c = d["cols"]
+        d["staged"] = d["index"].merge(truns_pack(c["actor"], c["ctr"]),
+                                       c["len"], c["slot"])
+    p = _axis_pass(docs, compact, relocate)
+    try:
+        keep, new_off, new_len, actor, slab = p.merge()
+        looked = p.lookup()
+        m_len, mslab = p.mirror()
+    finally:
+        p.close()
+    o = m_o = r0 = 0
+    parent_slot, win_actor, win_seq, elem_base, n_breaks = looked
+    for i, d in enumerate(docs):
+        c, want = d["cols"], d["staged"]
+        runs = d["index"]._runs[: keep[i]]
+        assert not relocate or keep[i] == 0
+        for k in range(new_off[i], new_off[i + 1]):
+            runs += (tuple(row[o: o + new_len[k]] for row in slab),)
+            o += new_len[k]
+        assert len(runs) == len(want._runs)
+        for got_run, want_run in zip(runs, want._runs):
+            for x, y in zip(got_run, want_run):
+                np.testing.assert_array_equal(x, y)
+        K = len(c["len"])
+        sl = slice(r0, r0 + K)
+        r0 += K
+        np.testing.assert_array_equal(actor[sl], c["actor"])
+        head = c["pa"] < 0
+        keys = truns_pack(np.where(head, 0, c["pa"]), c["pc"])
+        slots, found = want.lookup(keys)
+        assert (found | head).all()
+        np.testing.assert_array_equal(parent_slot[sl],
+                                      np.where(head, 0, slots))
+        np.testing.assert_array_equal(parent_slot[sl], c["pslot"])
+        np.testing.assert_array_equal(win_actor[sl], d["row_rank"])
+        np.testing.assert_array_equal(win_seq[sl], d["row_seq"])
+        np.testing.assert_array_equal(elem_base[sl],
+                                      np.cumsum(c["len"]) - c["len"])
+        assert n_breaks[i] == int((~head).sum())
+        if d["mirror"] is None:
+            assert m_len[i] == -1
+            continue
+        ref = d["mirror"].apply_round(
+            c["slot"], c["pslot"], c["ctr"], c["actor"],
+            d["n"] + int(c["len"].sum()), want.slot_to_key)
+        got = SegmentMirror(*(row[m_o: m_o + m_len[i]] for row in mslab))
+        m_o += m_len[i]
+        for k in ("heads", "par", "hctr", "hactor"):
+            np.testing.assert_array_equal(getattr(got, k), getattr(ref, k),
+                                          err_msg=k)
+    assert o == slab.shape[1] and m_o == mslab.shape[1]
+
+
+@pytest.mark.parametrize("fault", ["duplicate", "unknown_parent",
+                                   "mirror"])
+def test_axis_pass_stops_where_the_one_document_code_raises(fault):
+    """A planted overlap, an unknown parent, or a slot the index lacks
+    (the mirror's slot -> key probe) in document 3: the stage the
+    one-document code raises in returns None, naming document 3."""
+    from automerge_tpu_torch.engine.host_index import (BatchRangeIndex,
+                                                       DuplicateElemId)
+    docs = _axis_docs(7)
+    d = docs[3]
+    c = d["cols"]
+    if fault == "duplicate":
+        first = d["index"].rows()
+        c["actor"][0], c["ctr"][0] = first[0][0] >> 32, \
+            first[0][0] & 0xFFFFFFFF
+        with pytest.raises(DuplicateElemId):
+            d["index"].merge(truns_pack(c["actor"], c["ctr"]), c["len"],
+                             c["slot"])
+    elif fault == "unknown_parent":
+        c["pa"][0], c["pc"][0] = 1, 10 ** 6
+    else:
+        # a run after slot q - 1, where q continues a chain and the index
+        # lacks q: the mirror's probe of q cannot resolve it
+        q = min(set(range(2, d["n"] + 1)) - set(d["mirror"].heads.tolist()))
+        starts, lens, slots = d["index"].rows()
+        k = int(np.flatnonzero((slots <= q) & (q < slots + lens))[0])
+        cut = q - slots[k]
+        rows = [(starts[j], lens[j], slots[j]) for j in range(len(starts))
+                if j != k]
+        if cut:
+            rows.append((starts[k], cut, slots[k]))
+        if lens[k] - cut - 1:
+            rows.append((starts[k] + cut + 1, lens[k] - cut - 1, q + 1))
+        rows.sort()
+        d["index"] = BatchRangeIndex.from_rows(*map(np.asarray, zip(*rows)))
+        c["pslot"][0] = q - 1
+        (c["pa"][0],), (c["pc"][0],) = d["index"].slot_to_key(
+            np.asarray([q - 1]))
+        staged = d["index"].merge(truns_pack(c["actor"], c["ctr"]),
+                                  c["len"], c["slot"])
+        with pytest.raises(KeyError):
+            d["mirror"].apply_round(c["slot"], c["pslot"], c["ctr"],
+                                    c["actor"], d["n"] + int(c["len"].sum()),
+                                    staged.slot_to_key)
+    p = _axis_pass(docs)
+    try:
+        stages = [p.merge, p.lookup, p.mirror]
+        want = {"duplicate": 0, "unknown_parent": 1, "mirror": 2}[fault]
+        for k, stage in enumerate(stages[: want + 1]):
+            out = stage()
+            assert (out is None) == (k == want), k
+        assert p.STAGE_CODES[p.status] == fault and p.bad_doc == 3
+    finally:
+        p.close()

@@ -6,10 +6,13 @@ sizes.
 
 Each span lies inside its parent on the parent's thread, and siblings'
 totals stay within the parent's. The DocSet's run detection is one
-`plan/detect_runs` a call, over every document it walks; its
-per-document spans run under `obs.aggregate_only()`: they count in the
-aggregates and write no flight-recorder record, so a small ring does not
-wrap. With tracing off no call site reads the clock.
+`plan/detect_runs` a call, over every document it walks, and its
+planning one `plan/index_merge`, `docset/lookup` and `docset/mirror` a
+call, over every document the doc-axis pass plans. Per-document spans
+(the per-document planner's, where the pass declines a round) run under
+`obs.aggregate_only()`: they count in the aggregates and write no
+flight-recorder record, so a small ring does not wrap. With tracing off
+no call site reads the clock.
 """
 
 import json
@@ -256,13 +259,23 @@ def _walked_docs() -> list:
             if r[2] == "plan" and r[3] == "detect_runs"]
 
 
+def _axis_docs() -> list:
+    """`n_axis` of each `docset/plan` record: the documents the
+    doc-axis pass planned."""
+    return [r[5]["n_axis"] for r in obs.snapshot()
+            if r[2] == "docset" and r[3] == "plan"]
+
+
 def test_docset_spans_nest_and_stage_spans_stay_out_of_the_ring():
+    from automerge_tpu_torch.engine import doc_set
     pop, ds = _docset()
+    doc_set.reset_axis_plans()
     with obs.tracing():
         obs.clear()
         ds.apply_batches(pop.batches(M))
         texts = ds.texts()
         recs, snap = _records(), obs.metrics_snapshot()
+        axis = _axis_docs()
     assert set(texts) == set(pop.ids)
     spans = snap["spans"]
     assert_nested(recs, "docset/apply", ("docset/plan", "docset/stack",
@@ -273,16 +286,34 @@ def test_docset_spans_nest_and_stage_spans_stay_out_of_the_ring():
     assert_nested(recs, "docset/plan", ("plan/detect_runs",))
     assert spans["plan.detect_runs"]["count"] == 1
     assert _walked_docs() == [POP["docs"]]
-    # the stages: one per document in the aggregates, none in the ring
+    # the stages: one a call, over every document, by the doc-axis pass;
+    # in the ring, inside the planning after the walk
+    assert_nested(recs, "docset/plan", ("plan/detect_runs",) + tuple(
+        k.replace(".", "/") for k in STAGES + ("plan.index_merge",)))
     for k in STAGES + ("plan.index_merge",):
-        assert spans[k]["count"] == POP["docs"], k
-        assert not [r for r in recs if r[0] == k.replace(".", "/")], k
+        assert spans[k]["count"] == 1, k
+    assert axis == [POP["docs"]]
+    assert doc_set.axis_plans == {"rounds": 1, "docs": POP["docs"],
+                                  "declined": 0}
     assert_totals_within(spans, "docset.plan", STAGES + (
         "plan.detect_runs", "plan.index_merge"))
     assert_totals_within(spans, "docset.apply", (
         "docset.plan", "docset.stack", "docset.expand"))
     assert spans["docset.plan"]["count"] == 1
     assert snap["emitted"] == snap["retained"] == len(obs.snapshot())
+    # a round the pass declines: the per-document planner's stage spans,
+    # one per document in the aggregates, none in the ring
+    pop, ds = _docset()
+    ds._plan_axis = lambda walked, walk: None
+    with obs.tracing():
+        obs.clear()
+        ds.apply_batches(pop.batches(M))
+        recs, spans = _records(), obs.metrics_snapshot()["spans"]
+        axis = _axis_docs()
+    for k in STAGES + ("plan.index_merge",):
+        assert spans[k]["count"] == POP["docs"], k
+        assert not [r for r in recs if r[0] == k.replace(".", "/")], k
+    assert axis == [0]
 
 
 def test_docset_general_and_rebuild_spans():
@@ -344,15 +375,16 @@ def test_expand_span_shows_a_capacity_regrowth():
 
 
 def test_docset_rounds_do_not_wrap_a_small_ring():
-    """A stripe of 64 records holds every per-call span of six calls,
-    the run detection's one walk a round among them, while the
-    per-document spans (3 x 24 x 3 of them) count exactly."""
-    from automerge_tpu_torch.engine import runs
+    """A stripe of 64 records holds every per-call span of six calls:
+    the run detection's one walk a round among them, and the doc-axis
+    pass's three stage spans a round, each over every document."""
+    from automerge_tpu_torch.engine import doc_set, runs
     from portbench.families import docset_rounds
     pop, ds = _docset()
     ds.apply_batches(pop.batches(M))
     gen = docset_rounds.AppendRounds(pop, {"writer": 0, "run": 4}, SEED)
     calls = []
+    doc_set.reset_axis_plans()
     with obs.tracing(capacity=64):
         obs.clear()
         for r in range(3):
@@ -362,13 +394,17 @@ def test_docset_rounds_do_not_wrap_a_small_ring():
             ds.texts()
         snap = obs.metrics_snapshot()
         walked = _walked_docs()
+        axis = _axis_docs()
     assert snap["emitted"] == snap["retained"]
     assert snap["spans"]["docset.plan"]["count"] == 3
     assert calls == [1, 1, 1]
     assert snap["spans"]["plan.detect_runs"]["count"] == 3
     assert walked == [POP["docs"]] * 3
     for k in STAGES + ("plan.index_merge",):
-        assert snap["spans"][k]["count"] == 3 * POP["docs"], k
+        assert snap["spans"][k]["count"] == 3, k
+    assert axis == [POP["docs"]] * 3
+    assert doc_set.axis_plans == {"rounds": 3, "docs": 3 * POP["docs"],
+                                  "declined": 0}
 
 
 # --- the off path -------------------------------------------------------------
