@@ -204,8 +204,6 @@ class _RoundExec:
     ascii_clear: bool
     res_host: Optional[tuple]  # (kind, val64, actor_rank, seq) per residual
     seg_inc: int
-    touched_slots: Optional[np.ndarray] = None  # assign-targeted OLD slots
-    # (set/del/inc this round): the incremental text pull's dirty feed
     n_elems_dev: Any = None   # staged device mirror of n_elems_after
     mirror_after: Optional[SegmentMirror] = None  # host segment structure
     seg_plan: Any = None      # staged (4, S) segplan matrix (fused path)
@@ -247,15 +245,6 @@ class DeviceTextDoc(CausalDeviceDoc):
     # kernel. The mirror is maintained either way (it tightens _seg_bound).
     prefer_planned = True
 
-    # Incremental text pulls: `text()` keeps the last materialized string
-    # on the host plus a per-segment (head slot, visible count, text
-    # position) table; a later pull ships only CHANGED spans d2h —
-    # O(edits) bytes, not O(doc) — reconciling new/split/touched segments
-    # against the cache (see `_text_incremental`).
-    incremental_pull = True
-    incremental_pull_min = 4096   # below this, a full pull is cheaper than
-    # the extra seg-info fetch the cache costs
-
     _TABLE_KEYS = TEXT_TABLE_KEYS
     _TABLE_FILLS = TEXT_TABLE_FILLS
 
@@ -291,8 +280,6 @@ class DeviceTextDoc(CausalDeviceDoc):
         self._scal = None                     # fetched [n_vis, n_segs]
         self._n_elems_dev = None              # (count, device scalar) mirror
         self._pos_cache = None
-        self._text_cache = None               # host text + per-seg table
-        self._touched_old = []                # assign-target slots since cache
         self.pull_stats: Optional[dict] = None  # how the LAST text() pulled
 
     # ------------------------------------------------------------------
@@ -578,14 +565,13 @@ class DeviceTextDoc(CausalDeviceDoc):
                         "ins references unknown parent element "
                         f"{decode(int(head_parent_pre[1][i]))} "
                         f"in {self.obj_id}")
-            res_parent_slot = res_target_slot = res_is_assign = None
+            res_parent_slot = res_target_slot = None
         else:
             run_parent_slot, res_parent_slot, res_target_slot = \
                 _resolve_refs_learned(
                     merged_index, head_parent_pre, n_runs, rpos,
                     res_is_ins, n_res_ins, batch_rank, ta, tc, pa,
                     pc, decode, self.obj_id)
-            res_is_assign = ~res_is_ins if len(rpos) else None
         if obs.ENABLED:
             obs.span("plan", "rank_resolve", _tq, args={
                 "doc": self.obj_id, "what": "resolve_refs",
@@ -798,9 +784,6 @@ class DeviceTextDoc(CausalDeviceDoc):
                 seg_plan_dev = None
                 seg_S = 0
 
-        touched = None
-        if res_target_slot is not None and res_is_assign.any():
-            touched = np.unique(res_target_slot[res_is_assign])
         n_elems_dev = (st(np.array(n_elems_after, np.int32)) if stage
                        else None)
         staged_event = None
@@ -816,7 +799,6 @@ class DeviceTextDoc(CausalDeviceDoc):
             seg_inc=3 * (n_runs + n_res_ins) + 2,
             n_elems_dev=n_elems_dev,
             mirror_after=mirror_after, seg_plan=seg_plan_dev, seg_S=seg_S,
-            touched_slots=touched,
             n_index_merges=1 if new_starts else 0, pinned=pinned,
             staged_event=staged_event)
         return exec_plan, (n_elems_after, merged_index, out_cap,
@@ -830,29 +812,20 @@ class DeviceTextDoc(CausalDeviceDoc):
 
     def _finish_round_host(self, plan: "_RoundExec"):
         """Post-dispatch host bookkeeping of one committed round (counts,
-        ascii/caches, segment bound, dirty-span feed, invalidation) —
-        paired with `_begin_round_host`."""
+        ascii, segment bound, invalidation) — paired with
+        `_begin_round_host`."""
         self.n_elems = plan.n_elems_after
         # staged device mirror of the element count
         self._n_elems_dev = ((plan.n_elems_after, plan.n_elems_dev)
                              if plan.n_elems_dev is not None else None)
         if plan.ascii_clear:
             self.all_ascii = False
-            # incremental pulls are ascii-gated for good: drop the cache
-            # now or the dead entry would keep the touched-slot feed
-            # growing for the rest of the document's life
-            self._text_cache = None
-            self._touched_old = []
         # every inserted run/element can split at most one existing segment;
         # with a live mirror the exact count is known
         if plan.mirror_after is not None:
             self._seg_bound = max(plan.mirror_after.n_segs, 1)
         else:
             self._seg_bound += plan.seg_inc
-        if plan.touched_slots is not None and self._text_cache is not None:
-            # assign targets are pre-round slots: the text-cache spans they
-            # fall in must re-pull (visibility/content may have changed)
-            self._touched_old.append(plan.touched_slots)
         self._invalidate()
 
     def _execute_plan(self, b: TextChangeBatch, plan: "_RoundExec"):
@@ -1191,8 +1164,7 @@ class DeviceTextDoc(CausalDeviceDoc):
             return self._text_pull()
         _t0 = obs.now()
         out = self._text_pull()
-        # span args carry the pull mode + byte counts the incremental
-        # tier reports (pull_stats) — the d2h story per pull, in-trace
+        # span args carry the pull mode + byte counts (pull_stats)
         obs.span("pull", "text", _t0,
                  args={"doc": self.obj_id, **(self.pull_stats or {})})
         return out
@@ -1203,16 +1175,6 @@ class DeviceTextDoc(CausalDeviceDoc):
                                "n_spans": 0}
             return ""
         if self.use_condensed:
-            cache = self._text_cache
-            if cache is not None and cache["gen"] == self._gen:
-                # nothing mutated since the last pull: zero device work
-                self.pull_stats = {"mode": "cached", "span_bytes": 0,
-                                   "n_spans": 0}
-                return cache["text"]
-            if cache is not None and self._can_incremental():
-                out = self._text_incremental()
-                if out is not None:
-                    return out
             _tp = obs.now() if obs.ENABLED else 0
             self._materialize(with_pos=False)
             if obs.ENABLED:
@@ -1236,9 +1198,6 @@ class DeviceTextDoc(CausalDeviceDoc):
         text = self._decode_values(values)
         if obs.ENABLED:
             obs.span("pull", "decode", _td, args={"doc": self.obj_id})
-        if values.dtype == np.uint8:
-            # only the condensed path pulls uint8 codes
-            self._seed_text_cache(text)
         return text
 
     def _decode_values(self, values: np.ndarray) -> str:
@@ -1257,235 +1216,9 @@ class DeviceTextDoc(CausalDeviceDoc):
             return values.astype(np.uint8).tobytes().decode("ascii")
         return "".join(map(chr, values.astype(np.uint32)))
 
-    # ------------------------------------------------------------------
-    # incremental text pull (host cache + dirty spans)
-    # ------------------------------------------------------------------
-
-    def _can_incremental(self) -> bool:
-        return (self.incremental_pull and self.use_condensed
-                and self.seg_mirror is not None and self.all_ascii)
-
-    def _seg_positions(self, segplan: np.ndarray, vis: np.ndarray,
-                       n_segs: int) -> np.ndarray:
-        """Visible-text start offset of each segment (slot order), from
-        the mirror's position->segment permutation + per-seg vis counts."""
-        perm = segplan[1][:n_segs].astype(np.int64)   # position order, 1-based
-        vis_p = vis[perm - 1]
-        start_p = np.cumsum(vis_p) - vis_p
-        start = np.empty(n_segs, np.int64)
-        start[perm - 1] = start_p
-        return start
-
-    def _fetch_seg_vis(self, segplan_dev, S: int) -> np.ndarray:
-        """One S-sized d2h fetch: per-segment visible counts (slot order,
-        entries 1..n_segs)."""
-        from ..ops.ingest import segment_visible_counts
-        dev = self._ensure_dev()
-        _, L, _ = self._mat_params()
-        if self._n_elems_dev and self._n_elems_dev[0] == self.n_elems:
-            n = self._n_elems_dev[1]
-        else:
-            n = self.n_elems
-        self._count_dispatch(label="segment_visible_counts")
-        counts = segment_visible_counts(dev["has_value"], n, segplan_dev,
-                                        S=S, L=L)
-        _tw = obs.now() if obs.ENABLED else 0
-        counts = counts.cpu().numpy()
-        if obs.ENABLED:
-            obs.span("pull", "wait", _tw, args={"doc": self.obj_id,
-                                                "fetch": "seg_vis"})
-        self._count_sync(label="segment_visible_counts",
-                         d2h_bytes=counts.nbytes)
-        return counts
-
-    def _seed_text_cache(self, text: str):
-        """Record the per-segment table for the NEXT pull to diff against
-        (only worthwhile on docs big enough that pulls dominate)."""
-        self._text_cache = None
-        self._touched_old = []
-        if (not self._can_incremental()
-                or self.n_elems < self.incremental_pull_min):
-            return
-        from ..ops.ingest import bucket
-        mirror = self.seg_mirror
-        n_segs = mirror.n_segs
-        if n_segs == 0:
-            return
-        try:
-            _tp = obs.now() if obs.ENABLED else 0
-            S = bucket(n_segs + 2, 64)
-            segplan = mirror.plan(S, self.n_elems)
-            if obs.ENABLED:
-                obs.span("pull", "plan", _tp, args={"doc": self.obj_id})
-            sv = self._fetch_seg_vis(self._to_dev(segplan), S)
-            vis = sv[1: n_segs + 1].astype(np.int64)
-            if int(vis.sum()) != len(text):
-                return   # stale mirror relative to the pulled text
-            self._text_cache = dict(
-                text=text, heads=mirror.heads[1:].copy(), vis=vis,
-                start=self._seg_positions(segplan, vis, n_segs),
-                n_elems=self.n_elems, gen=self._gen)
-        except Exception:
-            logger.warning("text-cache seeding failed for %s; pulls stay "
-                           "full", self.obj_id, exc_info=True)
-            self._text_cache = None
-
-    def _text_incremental(self) -> Optional[str]:
-        """Pull only the spans that changed since the cached text.
-
-        Reconciliation: segments are slot-contiguous chain runs; inserts
-        only ever mint NEW heads (every run head / residual insert starts
-        chain-clear), so an old segment never absorbs new slots — it can
-        only SPLIT. A new segment is therefore (a) brand-new content
-        (head > cached n_elems): pull; (b) a piece of a cached segment
-        that a residual assign touched: pull; (c) an untouched piece of a
-        cached segment: its content is a substring of the cached text at
-        the piece's cumulative visible offset — no bytes move. All dirty
-        spans ship d2h as ONE `gather_spans` transfer of O(edits) bytes.
-        Returns None to fall back to the full pull (any inconsistency —
-        e.g. visibility moved without a recorded touch — degrades, never
-        corrupts; parity is pinned against the full path in
-        tests/test_incremental_pull.py)."""
-        from ..ops.ingest import bucket
-        from ..ops.linearize import gather_spans
-
-        cache = self._text_cache
-        _tp = obs.now() if obs.ENABLED else 0
-        self._materialize(with_pos=False)
-        if obs.ENABLED:
-            obs.span("pull", "plan", _tp, args={"doc": self.obj_id})
-        # verifies (heals) the mirror
-        n_vis = int(self._scalars(in_pull=True)[0])
-        mirror = self.seg_mirror
-        if mirror is None or not self.all_ascii:
-            return None                      # healed into degraded mode
-        codes = self._mat[-2]
-        if codes.dtype != torch.uint8:
-            return None
-        n_segs = mirror.n_segs
-        if n_segs == 0 or n_vis == 0:
-            return None
-        S = bucket(n_segs + 2, 64)
-        _tp = obs.now() if obs.ENABLED else 0
-        try:
-            segplan = mirror.plan(S, self.n_elems)
-        except Exception:
-            return None
-        if obs.ENABLED:
-            obs.span("pull", "plan", _tp, args={"doc": self.obj_id})
-        sv = self._fetch_seg_vis(self._to_dev(segplan), S)
-        vis = sv[1: n_segs + 1].astype(np.int64)
-        if int(vis.sum()) != n_vis:
-            return None
-        heads = mirror.heads[1:]
-        start = self._seg_positions(segplan, vis, n_segs)
-
-        old_heads = cache["heads"]
-        old_vis = cache["vis"]
-        old_start = cache["start"]
-        old_n = cache["n_elems"]
-        old_text = cache["text"]
-
-        touched = (np.unique(np.concatenate(self._touched_old))
-                   if self._touched_old else np.empty(0, np.int64))
-        t_seg = (np.unique(np.searchsorted(old_heads, touched,
-                                           side="right") - 1)
-                 if len(touched) else np.empty(0, np.int64))
-
-        is_old = heads <= old_n
-        old_idx = np.searchsorted(old_heads, heads, side="right") - 1
-        dirty = ~is_old
-        if len(t_seg):
-            dirty = dirty | (is_old & np.isin(old_idx, t_seg))
-
-        # piece offsets: new segments with old heads partition their old
-        # segment in slot order; an untouched old segment's total visible
-        # count must be conserved across its pieces, or something moved
-        # without a recorded touch -> full pull
-        off_map = np.zeros(n_segs, np.int64)
-        oh = np.flatnonzero(is_old)
-        if len(oh):
-            og = old_idx[oh]
-            pv = vis[oh]
-            cs = np.cumsum(pv) - pv
-            grp_start = np.concatenate(([True], og[1:] != og[:-1]))
-            base = np.repeat(cs[grp_start], np.diff(np.append(
-                np.flatnonzero(grp_start), len(og))))
-            off_map[oh] = cs - base
-            grp_end = np.append(grp_start[1:], True)
-            tot = (cs + pv)[grp_end] - cs[grp_start]
-            og_u = og[grp_start]
-            check = (~np.isin(og_u, t_seg) if len(t_seg)
-                     else np.ones(len(og_u), bool))
-            if (tot[check] != old_vis[og_u[check]]).any():
-                return None
-
-        order = np.argsort(start, kind="stable")   # position order
-        d_pos = order[dirty[order] & (vis[order] > 0)]
-        span_starts = start[d_pos]
-        span_lens = vis[d_pos]
-        n_spans = len(d_pos)
-        if n_spans:
-            total = int(span_lens.sum())
-            P = bucket(total, 256)
-            Db = bucket(n_spans, 64)
-            spans_np = np.zeros((2, Db), np.int32)
-            spans_np[0, :n_spans] = span_starts
-            spans_np[1, :n_spans] = span_lens
-            self._count_dispatch(label="gather_spans")
-            buf_full = gather_spans(codes, self._to_dev(spans_np), P=P)
-            _tw = obs.now() if obs.ENABLED else 0
-            buf_full = buf_full.cpu().numpy()
-            if obs.ENABLED:
-                obs.span("pull", "wait", _tw, args={"doc": self.obj_id,
-                                                    "fetch": "spans"})
-            self._count_sync(label="gather_spans",
-                             d2h_bytes=buf_full.nbytes)
-            buf = buf_full[:total]
-            span_bytes = int(buf.nbytes)
-        else:
-            buf = np.empty(0, np.uint8)
-            span_bytes = 0
-        _td = obs.now() if obs.ENABLED else 0
-        pulled = buf.tobytes().decode("ascii")
-        d_off = np.cumsum(span_lens) - span_lens
-        buf_at = dict(zip(d_pos.tolist(), d_off.tolist()))
-
-        pieces = []
-        for k in order.tolist():
-            v = int(vis[k])
-            if v == 0:
-                continue
-            if dirty[k]:
-                o = buf_at[k]
-                pieces.append(pulled[o: o + v])
-            else:
-                s0 = int(old_start[old_idx[k]] + off_map[k])
-                pieces.append(old_text[s0: s0 + v])
-        new_text = "".join(pieces)
-        if obs.ENABLED:
-            obs.span("pull", "decode", _td, args={"doc": self.obj_id})
-        if len(new_text) != n_vis:
-            return None
-        self.pull_stats = {"mode": "incremental", "span_bytes": span_bytes,
-                           "n_spans": int(n_spans),
-                           "info_bytes": int(sv.nbytes)}
-        self._text_cache = dict(text=new_text, heads=heads.copy(), vis=vis,
-                                start=start, n_elems=self.n_elems,
-                                gen=self._gen)
-        self._touched_old = []
-        return new_text
-
-    def _plan_failed(self):
-        # a raising round may have partially mutated device tables; the
-        # host text cache can no longer be trusted to diff against
-        self._text_cache = None
-        self._touched_old = []
-
     def _lose_device(self):
-        # the cached materialization and text derive from the lost tables
+        # the cached materialization derives from the lost tables
         self._mat_keep_gen = None
-        self._plan_failed()
         super()._lose_device()
 
     def values(self) -> list:

@@ -70,8 +70,6 @@ DISPATCH_LABEL_KERNELS = {
     "fused_scatter": (),
     "pack_rows": (),
     "rga_linearize": (),
-    "segment_visible_counts": (),
-    "gather_spans": (),
     "remap_actors": (),
     "remap_ranks": (),
     "stacked_gather": (),
@@ -88,8 +86,6 @@ SYNC_LABELS = frozenset({
     "scalars_fetch",          # read path's visible-count fetch
     "positions_fetch",        # RGA position pull
     "codes_pull",             # O(doc) codes buffer pull
-    "segment_visible_counts",  # incremental pull per-segment counts
-    "gather_spans",           # O(edits) span gather fetch
     "rga_linearize",          # position fetch after linearize
     "stacked_slow_info",      # stacked packed slow residue fetch
     "stacked_mirror_fetch",   # stacked packed mirror re-seed fetch

@@ -814,18 +814,6 @@ def materialize_codes_planned_r(parent, ctr, actor, value, has_value, chain,
                                        as_u8)
 
 
-def segment_visible_counts(has_value, n_elems, segplan, *, S: int,
-                           L: int = None):
-    """Per-segment VISIBLE character counts (S-sized) — the dirty-span
-    feed of the incremental text pull; `segplan` is the mirror's plan."""
-    hv = _slice_live((has_value,), L)[0]
-    idx = _arange(hv.shape[0], hv)
-    vis = hv & (idx >= 1) & (idx <= n_elems)
-    cumvis = _cumsum(vis.to(I32))
-    return _seg_visibility_r(*_row(vis, cumvis, segplan[0]), segplan[3, :1],
-                             n_elems, S)[-1][0]
-
-
 # ------------------------------------------------------ host interplay
 
 def remap_actors(actor, win_actor, remap, n_elems):

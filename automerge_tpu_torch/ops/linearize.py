@@ -1,11 +1,10 @@
 """RGA linearization helpers, in PyTorch.
 
-Counterpart of `gather_spans`, `pad_capacity`, `rga_linearize`,
-`stacked_linearize` and `rga_linearize_segments` of
-`automerge_tpu/ops/linearize.py`: the element-wise RGA linearization
-(sibling sort, pointer doubling for the successor chain, list ranking) of
-one document or of stacked (D, n) rows, the same over a condensed tree of
-chain segments, and the span gather of the incremental text pull.
+Counterpart of `pad_capacity`, `rga_linearize`, `stacked_linearize` and
+`rga_linearize_segments` of `automerge_tpu/ops/linearize.py`: the
+element-wise RGA linearization (sibling sort, pointer doubling for the
+successor chain, list ranking) of one document or of stacked (D, n) rows,
+and the same over a condensed tree of chain segments.
 """
 
 from __future__ import annotations
@@ -14,34 +13,9 @@ import math
 
 import torch
 
-from .ingest import I32, _lexsort_r, _row, _set_drop_r, _take, _take_r
+from .ingest import I32, _lexsort_r, _row, _set_drop_r, _take_r
 
 HEAD = 0  # index 0 is the virtual head of the list
-
-
-def gather_spans(codes, spans, *, P: int):
-    """Gather [start, start+len) spans of `codes` into ONE dense buffer of
-    bucketed length `P` — the device half of the incremental text pull.
-
-    `spans` is a packed (2, D) int32 matrix [starts, lens] (padding rows:
-    len 0). Output element j belongs to the span whose cumulative-length
-    interval contains j (zero-length padding collapses to duplicate
-    ends, which a right-side search skips); positions past the live
-    total return 0."""
-    starts, lens = spans[0], spans[1]
-    D = starts.shape[0]
-    ends = torch.cumsum(lens, 0, dtype=I32)
-    total = ends[D - 1]
-    begins = ends - lens
-    j = torch.arange(P, dtype=I32, device=codes.device)
-    span_of = torch.searchsorted(ends, j, right=True,
-                                 out_int32=True).clamp(0, D - 1)
-    pos = _take(starts, span_of) + (j - _take(begins, span_of))
-    C = codes.shape[0]
-    pos = torch.where(j < total, pos, 0).clamp(0, C - 1)
-    out = codes[pos.long()]
-    return torch.where(j < total, out, torch.zeros((), dtype=codes.dtype,
-                                                   device=codes.device))
 
 
 def _doubling_steps(n: int) -> int:

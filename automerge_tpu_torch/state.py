@@ -126,8 +126,6 @@ def load_text_doc_state(port_doc, state: dict):
     port_doc.seg_mirror = _mirror_from(state["seg_mirror"])
     port_doc.all_ascii = state["all_ascii"]
     port_doc._n_elems_dev = None
-    port_doc._text_cache = None
-    port_doc._touched_old = []
     port_doc._invalidate()
     return port_doc
 

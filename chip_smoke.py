@@ -14,8 +14,8 @@ and tile-edge sizes, on unaligned views, twice in a row on one shape (a
 reused scratch) and 50 times at each merge shape. It then drives the
 port's DeviceTextDoc through the headline text merge at full width (a
 1,000,000-char document taking a 10,000-actor x 1,000-op concurrent
-batch), the self-contained materialization, a residual round with the
-incremental pull, bench.py's `--pipeline` stream, a 1,000,000-key map
+batch), the self-contained materialization, a residual round and its
+pull, bench.py's `--pipeline` stream, a 1,000,000-key map
 document, the multi-document tier (phase 8: the stacked executor at
 bench.py measure_fused's and a cfg12 lane's populations, the DocSet at
 cfg3 with its mirror heal and graduation, each against a CPU run of the
@@ -2129,7 +2129,6 @@ def ckpt_engine(torch, M, card: str, device=None, base_n: int = BASE_LEN,
         d.apply_batch(M.TB.from_json(tail_json, obj))
         planned = d.text()
         d.seg_mirror = None           # the self-contained read
-        d._text_cache = None
         d._mat = None
         d._seg_bound = d.n_elems + 2
         contained = d.text()
@@ -2670,7 +2669,6 @@ def sync_storm(torch, M, card: str, device, n_base: int, n_changes: int,
                     ed = w.doc
                     texts.append(ed.text())
                     ed.seg_mirror = None
-                    ed._text_cache = None
                     ed._mat = None
                     ed._seg_bound = ed.n_elems + 2
                     texts.append(ed.text())
@@ -7171,7 +7169,7 @@ def main() -> int:
         raise AssertionError("self-contained text differs")
     log(f"self-contained ({card}): commit+sync_s {r2['commit_s']:.4f}")
 
-    # 6. residual rounds + incremental pull
+    # 6. residual rounds and the pull
     before = dict(accounting.LABELS["dispatch"].get("fused_mixed_round",
                                                     {"n": 0}))
     S.reset_launches()
@@ -7181,21 +7179,22 @@ def main() -> int:
     cpu_doc.apply_changes(residual_changes(BASE_LEN))
     mixed = (accounting.LABELS["dispatch"]["fused_mixed_round"]["n"]
              - before["n"])
-    inc = doc.text()
-    inc_stats = dict(doc.pull_stats)
-    doc._text_cache = None
-    full = doc.text()
+    pulled = doc.text()
+    pull_stats = dict(doc.pull_stats)
+    # a fresh document restored from the merged tables rebuilds its
+    # segment mirror from the chain bits
+    fresh = M.ckpt.restore_engine(M.ckpt.capture_engine(doc)).text()
     cpu_text = cpu_doc.text()
     log(f"residual round: fused_mixed_round dispatches {mixed}, launches "
-        f"{res_launches}, pull {inc_stats}, conflicts "
+        f"{res_launches}, pull {pull_stats}, conflicts "
         f"{len(doc.conflicts)}")
     if mixed < 1 or res_launches["multi_scan"] < 1:
         raise AssertionError("the residual round missed the mixed round")
-    if inc_stats.get("mode") != "incremental":
-        raise AssertionError(f"pull was not incremental: {inc_stats}")
-    if not (inc == full == cpu_text):
-        raise AssertionError("incremental pull differs from a full pull")
-    if len(inc) != n_expect + 2 - 5 or not doc.conflicts:
+    if pull_stats.get("mode") != "full":
+        raise AssertionError(f"pull was not full: {pull_stats}")
+    if not (pulled == fresh == cpu_text):
+        raise AssertionError("the pull differs from a fresh document's")
+    if len(pulled) != n_expect + 2 - 5 or not doc.conflicts:
         raise AssertionError("residual round result is wrong")
     if any("diverged" in m for m in heals.records):
         raise AssertionError(f"segment mirror healed: {heals.records}")

@@ -234,35 +234,6 @@ def _check_materialized(j_out, t_out, n, with_pos):
                                       np_of(j_out[0])[:n + 1])
 
 
-def test_segment_visible_counts_matches_jax():
-    jdoc, tdoc = mixed_state(3)
-    n = jdoc.n_elems
-    S, L, _ = jdoc._mat_params()
-    segplan = jdoc.seg_mirror.plan(S, n)
-    want = JK.segment_visible_counts(jdoc._ensure_dev()["has_value"], n,
-                                     jnp.asarray(segplan), S=S, L=L)
-    got = TK.segment_visible_counts(tdoc._ensure_dev()["has_value"], n,
-                                    torch.from_numpy(segplan), S=S, L=L)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-
-@pytest.mark.parametrize("seed", range(3))
-def test_gather_spans_matches_jax(seed):
-    rng = np.random.default_rng(seed)
-    codes = rng.integers(0, 128, 3000).astype(np.uint8)
-    D = 64
-    n = int(rng.integers(1, 40))
-    spans = np.zeros((2, D), np.int32)
-    spans[0, :n] = rng.integers(0, 2900, n)
-    spans[1, :n] = rng.integers(0, 60, n)       # zero lengths included
-    P = 4096
-    want = JL.gather_spans(jnp.asarray(codes), jnp.asarray(spans), P=P)
-    got = TL.gather_spans(torch.from_numpy(codes), torch.from_numpy(spans),
-                          P=P)
-    assert got.dtype == torch.uint8
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-
 def test_rga_linearize_matches_jax():
     jdoc, tdoc = mixed_state(4)
     h = jdoc._mirrors()

@@ -7,6 +7,8 @@ sharded. A payload outside the codec's scope is declined and decoded by
 the Python decoder; a failed build raises instead of falling back."""
 
 import json
+import os
+import time
 
 import numpy as np
 import pytest
@@ -66,9 +68,36 @@ def payloads():
     }
 
 
+@pytest.fixture(scope="module")
+def jax_codec():
+    """The JAX package's codec library, loaded. It builds in place: a
+    process of another test worker that loads while one builds finds a
+    half-written library and marks it failed for good. So wait until the
+    build settles and load again, a bounded number of times."""
+    deadline = time.monotonic() + 240
+    while True:
+        lib = jnative._load()
+        if lib is not None:
+            return lib
+        if time.monotonic() > deadline:
+            pytest.fail("the JAX package's native codec did not load")
+        # settled: the library and its flags stamp written, and the
+        # library unchanged for 2 s (or 30 s passed: build it here)
+        wait_until = min(deadline, time.monotonic() + 30)
+        while time.monotonic() < wait_until:
+            try:
+                if (os.path.exists(jnative._FLAGS_STAMP) and time.time()
+                        - os.path.getmtime(jnative._SO) > 2.0):
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+        jnative._lib_failed = False
+
+
 @pytest.mark.parametrize("indent", [None, 2])
 @pytest.mark.parametrize("name", sorted(payloads()))
-def test_decoder_matches_jax_native_and_python(name, indent):
+def test_decoder_matches_jax_native_and_python(name, indent, jax_codec):
     changes = payloads()[name]
     data = json.dumps(changes, indent=indent)
     mine = native.decode_text_changes(data, "t")

@@ -193,13 +193,12 @@ def test_residual_apply_batch_and_text_spans_nest(backlog):
 
 
 def test_incremental_pull_spans_nest(backlog):
-    """A second text() after a round pulls only the changed spans."""
+    """A second text() after a round: one plan, two fetches."""
     _, bundle = backlog
     runs = {"entry": "ring", "batches": 2, "actors": 20, "pairs": 10,
             "deletes": 0, "bare_inserts": 0, "target": {"zipf": 1.2}}
     bl = text_backlog.backlog(BASE, runs, SEED)
     doc = M.ckpt.restore_engine(bundle, CPU)
-    doc.incremental_pull_min = 0
     doc.apply_batch(text_backlog.backlog_batch(M, "text", bl, bl.batches[0]))
     doc.text()
     doc.apply_batch(text_backlog.backlog_batch(M, "text", bl, bl.batches[1]))
@@ -207,10 +206,11 @@ def test_incremental_pull_spans_nest(backlog):
         obs.clear()
         doc.text()
         recs, spans = _records(), obs.metrics_snapshot()["spans"]
-    assert doc.pull_stats["mode"] == "incremental"
+    assert doc.pull_stats["mode"] == "full"
     pull = ("pull/plan", "pull/wait", "pull/decode")
     assert_nested(recs, "pull/text", pull)
-    assert spans["pull.wait"]["count"] == 3     # scalars, seg_vis, spans
+    assert spans["pull.plan"]["count"] == 1
+    assert spans["pull.wait"]["count"] == 2     # scalars, codes
     assert_totals_within(spans, "pull.text",
                          [n.replace("/", ".") for n in pull])
 

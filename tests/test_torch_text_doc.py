@@ -24,6 +24,7 @@ from automerge_tpu import Text
 from automerge_tpu.engine import DeviceTextDoc as JDoc
 from automerge_tpu_torch.engine import DeviceTextDoc as TDoc
 from automerge_tpu_torch.engine import TextChangeBatch as TBatch
+from automerge_tpu_torch.engine.segments import SegmentMirror
 from automerge_tpu_torch.state import host_state, load_text_doc_state
 
 from test_engine_parity import text_changes_of
@@ -52,6 +53,13 @@ def assert_docs_equal(jdoc, tdoc):
     assert ts["syncs"] == js["syncs"]
     assert ts["dispatches"] == js["dispatches"]
     assert ts["last_commit"] == js["last_commit"]
+
+
+@pytest.fixture(autouse=True)
+def jax_full_pull(monkeypatch):
+    """The port has one pull: a full one. The JAX reference takes the
+    same, so the pull's dispatch and sync counts compare exactly."""
+    monkeypatch.setattr(JDoc, "incremental_pull", False)
 
 
 @pytest.fixture
@@ -87,7 +95,7 @@ def test_cfg5_shaped_stream_matches_jax(planned, no_heal):
         docs.append((d, base_text, text, dict(d.pull_stats)))
     (jd, jb, jt, jpull), (td, tb, tt, tpull) = docs
     assert (tb, tt) == (jb, jt)
-    assert tpull == jpull and tpull["mode"] == "incremental"
+    assert tpull == jpull and tpull["mode"] == "full"
     assert_docs_equal(jd, td)
 
 
@@ -156,54 +164,108 @@ def test_element_wise_linearization_matches(seed):
     assert tdoc.elem_ids() == jdoc.elem_ids()
 
 
+def residual_changes():
+    """Deletes, conflicting overwrites and concurrent inserts on the
+    base text, then values for the inserts."""
+    return [
+        [{"actor": "zdel", "seq": 1, "deps": {"base": 1}, "ops": [
+            {"action": "del", "obj": "t", "key": f"base:{t}"}
+            for t in (5, 6, 700, 5999)]},
+         {"actor": "zset-0", "seq": 1, "deps": {"base": 1}, "ops": [
+             {"action": "set", "obj": "t", "key": "base:42",
+              "value": "P"}]},
+         {"actor": "zset-1", "seq": 1, "deps": {"base": 1}, "ops": [
+             {"action": "set", "obj": "t", "key": "base:42",
+              "value": "Q"}]},
+         {"actor": "zins-0", "seq": 1, "deps": {"base": 1}, "ops": [
+             {"action": "ins", "obj": "t", "key": "base:9",
+              "elem": 9000}]},
+         {"actor": "zins-1", "seq": 1, "deps": {"base": 1}, "ops": [
+             {"action": "ins", "obj": "t", "key": "base:9",
+              "elem": 9000}]}],
+        [{"actor": f"zins-{k}", "seq": 2, "deps": {f"zins-{k}": 1},
+          "ops": [{"action": "set", "obj": "t", "key": f"zins-{k}:9000",
+                   "value": "XY"[k]}]}
+         for k in range(2)],
+    ]
+
+
 def test_incremental_pull_after_residual_rounds_matches_full():
     """Residual rounds (deletes, conflicting overwrites, concurrent
-    inserts) then the incremental pull: equal to a full re-pull and to
-    the JAX engine."""
+    inserts) between two pulls: the second pull equals the JAX engine's
+    and a freshly restored document's."""
+    from automerge_tpu_torch import checkpoint as TC
     n = 6000
     docs = []
     for cls, conv in ((JDoc, lambda b: b), (TDoc, as_port)):
         kw = {} if cls is JDoc else {"device": "cpu"}
         d = cls("t", **kw)
         d.eager_materialize = True
-        d.incremental_pull_min = 64
         d.apply_batch(conv(B.base_batch("t", n)))
         d.text()
         d.apply_batch(conv(B.merge_batch("t", 6, 20, n, seed=3)))
         d.text()
-        changes = [
-            {"actor": "zdel", "seq": 1, "deps": {"base": 1}, "ops": [
-                {"action": "del", "obj": "t", "key": f"base:{t}"}
-                for t in (5, 6, 700, 5999)]},
-            {"actor": "zset-0", "seq": 1, "deps": {"base": 1}, "ops": [
-                {"action": "set", "obj": "t", "key": "base:42",
-                 "value": "P"}]},
-            {"actor": "zset-1", "seq": 1, "deps": {"base": 1}, "ops": [
-                {"action": "set", "obj": "t", "key": "base:42",
-                 "value": "Q"}]},
-            {"actor": "zins-0", "seq": 1, "deps": {"base": 1}, "ops": [
-                {"action": "ins", "obj": "t", "key": "base:9",
-                 "elem": 9000}]},
-            {"actor": "zins-1", "seq": 1, "deps": {"base": 1}, "ops": [
-                {"action": "ins", "obj": "t", "key": "base:9",
-                 "elem": 9000}]},
-        ]
-        d.apply_changes(changes)
-        d.apply_changes([{"actor": f"zins-{k}", "seq": 2,
-                          "deps": {f"zins-{k}": 1}, "ops": [
-                              {"action": "set", "obj": "t",
-                               "key": f"zins-{k}:9000", "value": "XY"[k]}]}
-                         for k in range(2)])
-        inc = d.text()
-        mode = d.pull_stats["mode"]
-        d._text_cache = None
-        full = d.text()
-        docs.append((d, inc, mode, full))
-    (jd, ji, jm, jf), (td, ti, tm, tf) = docs
-    assert tm == jm == "incremental"
-    assert ti == tf == ji == jf
+        for changes in residual_changes():
+            d.apply_changes(changes)
+        docs.append((d, d.text(), d.pull_stats["mode"]))
+    (jd, jt, jm), (td, tt, tm) = docs
+    fresh = TC.restore_engine(TC.capture_engine(td), "cpu")
+    assert tm == jm == "full"
+    assert tt == jt == fresh.text()
     assert td.conflicts and td.conflicts == jd.conflicts
     assert_docs_equal(jd, td)
+
+
+def _non_ascii_changes():
+    return [[{"actor": "zuni", "seq": 1, "deps": {"base": 1}, "ops": [
+        {"action": "set", "obj": "t", "key": "base:17", "value": "\u00e9"},
+        {"action": "ins", "obj": "t", "key": "base:300", "elem": 9000},
+        {"action": "set", "obj": "t", "key": "zuni:9000",
+         "value": "\u2192"}]}]]
+
+
+ROUNDS = {   # base length, the round: a batch or windows of wire changes
+    "runs": (6000, lambda: B.merge_batch("t", 6, 20, 6000, seed=3)),
+    "residual": (6000, residual_changes),
+    "non_ascii": (6000, _non_ascii_changes),
+    "small": (1500, lambda: B.merge_batch("t", 5, 16, 1500, seed=4)),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(ROUNDS))
+def test_one_pull_plans_the_mirror_once(shape, monkeypatch, no_heal):
+    """A pull after a round plans the segment mirror once, and its
+    dispatches and syncs are the JAX engine's full pull's."""
+    n, make = ROUNDS[shape]
+    plans = []
+    plan = SegmentMirror.plan
+
+    def counted(self, *a, **k):
+        plans.append(a)
+        return plan(self, *a, **k)
+
+    monkeypatch.setattr(SegmentMirror, "plan", counted)
+    deltas, texts = [], []
+    for cls, conv in ((JDoc, lambda b: b), (TDoc, as_port)):
+        kw = {} if cls is JDoc else {"device": "cpu"}
+        d = cls("t", **kw)
+        d.apply_batch(conv(B.base_batch("t", n)))
+        rnd = make()
+        if isinstance(rnd, list):
+            for changes in rnd:
+                d.apply_changes(changes)
+        else:
+            d.apply_batch(conv(rnd))
+        before = dict(d.dispatch_stats)
+        del plans[:]
+        texts.append(d.text())
+        deltas.append({k: d.dispatch_stats[k] - before[k]
+                       for k in ("dispatches", "syncs", "d2h_bytes")})
+    assert len(plans) == 1
+    assert d.all_ascii == (shape != "non_ascii")
+    assert d.pull_stats["mode"] == "full"
+    assert texts[1] == texts[0]
+    assert deltas[1] == deltas[0]
 
 
 def test_state_carried_from_jax_continues_identically(no_heal):

@@ -55,6 +55,13 @@ def uuid_factories():
     t_uuid.reset()
 
 
+@pytest.fixture(autouse=True)
+def jax_full_pull(monkeypatch):
+    """The port has one pull: a full one. The JAX reference takes the
+    same, so the pull's dispatch and sync counts compare exactly."""
+    monkeypatch.setattr(JDoc, "incremental_pull", False)
+
+
 def j_opts(actor):
     return actor
 
