@@ -23,10 +23,11 @@ then one native pass a stage (`_plan_axis`: index merge, parent lookup,
 segment-mirror update) over every document the fast tier takes.
 
 `texts()` materializes every stacked document at once: from each row's
-host segment mirror (the planned program), or, for a call where a mirror
-is missing or diverged from the chain bits, through the self-contained
-program whose segment scans are ONE row-form `fused_segment_scans`
-launch over (D, C).
+host segment mirror (the planned program; one native pass over the doc
+axis plans every row and checksums its mirror), or, for a call where a
+mirror is missing or diverged from the chain bits, through the
+self-contained program whose segment scans are ONE row-form
+`fused_segment_scans` launch over (D, C).
 
 With a mesh (parallel/mesh.py: axes "doc", "elem"; the JAX package's
 `mesh=`), the tables are held as (doc, elem) blocks on the mesh's
@@ -69,6 +70,18 @@ axis_plans = {"rounds": 0, "docs": 0, "declined": 0}
 def reset_axis_plans():
     for k in axis_plans:
         axis_plans[k] = 0
+
+
+#: `texts()`'s reads since the last reset: the reads the doc-axis read
+#: pass (`native.segplan_axis`) planned and the planned program served, the
+#: stacked rows that pass planned, and the reads the self-contained program
+#: served because a mirror was missing or diverged
+axis_reads = {"planned": 0, "rows": 0, "self_contained": 0}
+
+
+def reset_axis_reads():
+    for k in axis_reads:
+        axis_reads[k] = 0
 
 
 def _places(rows: np.ndarray, counts: np.ndarray) -> tuple:
@@ -170,6 +183,11 @@ class DeviceTextDocSet:
         self._published: list = [None] * self.n_docs
         self._slabs: list = []                # weakrefs
         self._state_bytes: list = [0] * self.n_docs
+        # the newest mirror slab, when it was made of every row's mirror in
+        # row order: (weakref to the slab, its (4, D + 1) row offsets);
+        # `texts()` reads it as its columns while every row's mirror is a
+        # view of it
+        self._mirror_slab = None
         if mesh is not None:
             if self.n_docs % mesh.shape["doc"]:
                 raise ValueError(
@@ -801,6 +819,10 @@ class DeviceTextDocSet:
             o = e
         if obs.ENABLED:
             obs.span("docset", "mirror", _t0, args={"n_docs": n_docs})
+        self._mirror_slab = None
+        if rows == list(range(self.n_docs)) and (m_len >= 0).all():
+            off = np.concatenate(([0], np.cumsum(m_len)))
+            self._mirror_slab = (weakref.ref(slab), np.tile(off, (4, 1)))
 
         for d, index, mirror in zip(rows, indexes, mirrors):
             self._state_bytes[d] = 24 * index.n_ranges + (
@@ -961,10 +983,12 @@ class DeviceTextDocSet:
         program; the next call is planned again) and only drops to None if
         the rebuild itself fails.
 
-        Traced as `read/texts`; inside it `read/plan` (the rows' segment
-        plans stacked), `read/wait` (each blocking fetch), `read/check`
-        (the rows' checksums against their mirrors), `read/rebuild` (the
-        heal path, a row at a time) and `read/decode`."""
+        Traced as `read/texts`; inside it `read/plan` (every row's segment
+        plan and mirror checksums, one native pass over the doc axis:
+        `_plan_rows`), `read/wait` (each blocking fetch), `read/check`
+        (the device's checksums against the pass's, one comparison over
+        the rows), `read/rebuild` (the heal path, a row at a time) and
+        `read/decode`. Counted in `axis_reads`."""
         from ..ops.ingest import (bucket, materialize_codes_planned_r,
                                   materialize_codes_r)
 
@@ -994,24 +1018,6 @@ class DeviceTextDocSet:
                 planned = all(self._meta[d].mirror is not None
                               for d in stacked_idx)
 
-                def run_planned(S):
-                    # overlay (graduated) rows ride along with an empty plan;
-                    # their stacked tables are stale and their output ignored
-                    _tp = obs.now() if obs.ENABLED else 0
-                    stacked = set(stacked_idx)
-                    empty = SegmentMirror.empty()
-                    plans = np.stack([
-                        self._meta[d].mirror.plan(S, self._meta[d].n_elems)
-                        if d in stacked else empty.plan(S, 0)
-                        for d in range(self.n_docs)])
-                    if obs.ENABLED:
-                        obs.span("read", "plan", _tp, args={"S": S})
-                    if self.mesh is not None:
-                        return self._mesh_planned(cols, n_el, plans, S,
-                                                  all_ascii)
-                    return materialize_codes_planned_r(
-                        *cols, n_el, self._put(plans), S=S, as_u8=all_ascii)
-
                 def run(S):
                     if self.mesh is not None:
                         return self._mesh_self_contained(cols, n_el, S,
@@ -1020,17 +1026,27 @@ class DeviceTextDocSet:
                                                as_u8=all_ascii)
 
                 if planned:
-                    S = bucket(max(self._meta[d].mirror.n_segs
-                                   for d in stacked_idx) + 2, 64)
-                    codes, scalars = run_planned(S)
+                    _tp = obs.now() if obs.ENABLED else 0
+                    plans, checks, S = self._plan_rows()
+                    if obs.ENABLED:
+                        obs.span("read", "plan", _tp, args={
+                            "S": S, "n_rows": len(stacked_idx)})
+                    axis_reads["rows"] += len(stacked_idx)
+                    if self.mesh is not None:
+                        codes, scalars = self._mesh_planned(
+                            cols, n_el, plans, S, all_ascii)
+                    else:
+                        codes, scalars = materialize_codes_planned_r(
+                            *cols, n_el, self._put(plans), S=S,
+                            as_u8=all_ascii)
                     scalars_np = self._fetch(scalars)  # (D, 5)
                     _tc = obs.now() if obs.ENABLED else 0
-                    bad = [d for d in stacked_idx
-                           if int(scalars_np[d, 1]) != int(scalars_np[d, 2])
-                           or int(scalars_np[d, 3])
-                           != self._meta[d].mirror.head_checksum()
-                           or int(scalars_np[d, 4])
-                           != self._meta[d].mirror.aux_checksum()]
+                    rows = np.asarray(stacked_idx, np.int64)
+                    got = scalars_np[rows]
+                    want = checks[rows]
+                    bad = rows[(got[:, 1] != got[:, 2])
+                               | (got[:, 3] != want[:, 0])
+                               | (got[:, 4] != want[:, 1])].tolist()
                     if obs.ENABLED:
                         obs.span("read", "check", _tc,
                                  args={"n_bad": len(bad)})
@@ -1046,7 +1062,10 @@ class DeviceTextDocSet:
                             self._meta[d].seg_bound = max(
                                 int(scalars_np[d, 2]), 1)
                         planned = False
+                    else:
+                        axis_reads["planned"] += 1
                 if not planned:
+                    axis_reads["self_contained"] += 1
                     S = bucket(max(self._meta[d].seg_bound
                                    for d in stacked_idx) + 2, 64)
                     codes, scalars = run(S)
@@ -1076,6 +1095,53 @@ class DeviceTextDocSet:
         if obs.ENABLED:
             obs.span("read", "texts", _t0, args={"n_docs": self.n_docs})
         return out
+
+    def _plan_rows(self):
+        """Every row's segment plan and mirror checksums, by one native
+        pass over the doc axis (`native.segplan_axis`): -> (plans (D, 4,
+        S), checks (D, 2): head, aux; S). The overlay (graduated) rows ride
+        along with the empty mirror's plan; their stacked tables are stale
+        and their output ignored. A row whose mirror the pass cannot plan
+        (no true mirror: unsorted heads, a parent outside its tree) gets
+        the empty mirror's plan too, which `read/check` refutes, so the row
+        is healed. S is the largest mirror's length + 1 (n_segs + 2),
+        bucketed.
+
+        The pass reads the rows' mirror columns concatenated: the newest
+        mirror slab itself (`_mirror_slab`) while every row's mirror is a
+        view of it, else one copy a column."""
+        from ..ops.ingest import bucket
+        n_elems = [meta.n_elems for meta in self._meta]
+        ref = self._mirror_slab
+        slab = ref[0]() if ref is not None else None
+        if slab is not None and not self._overlay and all(
+                m.heads.base is slab and m.par.base is slab
+                and m.hctr.base is slab and m.hactor.base is slab
+                for m in (meta.mirror for meta in self._meta)):
+            offsets = ref[1]
+            columns = tuple(slab)
+        else:
+            empty = SegmentMirror.empty()
+            heads, par, hctr, hactor = [], [], [], []
+            for d, meta in enumerate(self._meta):
+                if d in self._overlay:
+                    m = empty
+                    n_elems[d] = 0
+                else:
+                    m = meta.mirror
+                heads.append(m.heads)
+                par.append(m.par)
+                hctr.append(m.hctr)
+                hactor.append(m.hactor)
+            parts = (heads, par, hctr, hactor)
+            offsets = np.zeros((4, self.n_docs + 1), np.int64)
+            for row, col in zip(offsets, parts):
+                np.cumsum(np.fromiter(map(len, col), np.int64, self.n_docs),
+                          out=row[1:])
+            columns = tuple(np.concatenate(c) for c in parts)
+        S = bucket(int(np.diff(offsets[0]).max()) + 1, 64)
+        plans, checks = native.segplan_axis(offsets, *columns, n_elems, S)
+        return plans, checks, S
 
     def _mesh_planned(self, cols, n_el, plans, S: int, as_u8: bool):
         """The planned materialization of a mesh set's rows, element-

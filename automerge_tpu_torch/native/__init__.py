@@ -1,7 +1,8 @@
 """The host codec of the PyTorch engine: plain C++ over ctypes.
 
-`codec.cpp` (a copy of the JAX package's `automerge_tpu/native/codec.cpp`)
-holds three host passes of the ingest path:
+`codec.cpp` (grown from a copy of the JAX package's
+`automerge_tpu/native/codec.cpp`) holds four host passes of the ingest
+and read paths:
 
 - `decode_text_changes(data, obj_id)` — a JSON change list straight into
   a columnar `TextChangeBatch`. A payload outside the codec's scope (rich
@@ -17,6 +18,9 @@ holds three host passes of the ingest path:
   stage (engine/doc_set.py `_plan_axis`); it matches the per-document
   planner (`_plan_fast`) bit for bit, and stops on any input that
   planner would reject, which then plans the round itself.
+- `segplan_axis` — a DocSet read's segment plans over the doc axis
+  (engine/doc_set.py `texts()`): every row's `SegmentMirror.plan` and its
+  two mirror checksums, bit for bit, in one loop.
 
 The library is built with `g++` at first use into `native/build/`; its
 file name carries a digest of the source and the flags, and it is written
@@ -190,6 +194,9 @@ def bind(path) -> ctypes.CDLL:
     lib.amtpu_axis_bad_doc.argtypes = [vp]
     lib.amtpu_axis_free.restype = None
     lib.amtpu_axis_free.argtypes = [vp]
+    lib.amtpu_axis_segplan.restype = ctypes.c_int64
+    lib.amtpu_axis_segplan.argtypes = (
+        [ctypes.c_int64, ctypes.c_int64] + [i64] * 6 + [i32] * 2 + [i64])
     return lib
 
 
@@ -323,6 +330,46 @@ class AxisPass:
             self._lib.amtpu_axis_free(self._h)
             self._h = None
             self._inputs = None
+
+
+def segplan_axis(offsets, heads, par, hctr, hactor, n_elems, S: int):
+    """Every row's `SegmentMirror.plan(S, n_elems)` and its
+    (`head_checksum()`, `aux_checksum()`), bit for bit, in one native pass
+    over the doc axis (codec.cpp `amtpu_axis_segplan`).
+
+    `heads`, `par`, `hctr`, `hactor`: the rows' mirror columns, each
+    concatenated; `offsets` (4, D + 1): each column's row offsets into its
+    concatenation; `n_elems` (D,). Returns (plans (D, 4, S) int32, checks
+    (D, 2) int32). A row no true mirror holds (unsorted heads, a parent
+    outside its tree, weights that do not rise along the walk) gets the
+    empty mirror's plan and checksums, which the device's segment count
+    refutes wherever the row has a segment. Raises ValueError where
+    `plan` raises (S < n_segs + 2, columns of unequal length or none)."""
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    cols = [np.ascontiguousarray(x, np.int64)
+            for x in (heads, par, hctr, hactor)]
+    n_elems = np.ascontiguousarray(n_elems, np.int64)
+    D = offsets.shape[1] - 1 if offsets.ndim == 2 else -1
+    if offsets.shape != (4, D + 1) or n_elems.shape != (D,):
+        raise ValueError(f"segplan_axis: offsets {offsets.shape} and "
+                         f"n_elems {n_elems.shape} describe no row set")
+    if (offsets[:, 0] != 0).any() or (np.diff(offsets, axis=1) < 0).any() \
+            or offsets[:, -1].tolist() != [len(c) for c in cols]:
+        raise ValueError("segplan_axis: offsets do not cut the columns")
+    plans = np.empty((D, 4, S), np.int32)
+    checks = np.empty((D, 2), np.int32)
+    bad = np.zeros(1, np.int64)
+    status = load().amtpu_axis_segplan(D, S, offsets, *cols, n_elems, plans,
+                                       checks, bad)
+    if status:
+        row = int(bad[0])
+        n = int(offsets[0, row + 1] - offsets[0, row])
+        raise ValueError({
+            1: f"segplan bucket S={S} < n_segs+2={n + 1} (row {row})",
+            2: f"segment mirror of row {row} has columns of unequal "
+               f"length or none",
+        }[int(status)])
+    return plans, checks
 
 
 def decode_text_changes(data, obj_id: str):

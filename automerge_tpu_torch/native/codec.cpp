@@ -1232,3 +1232,227 @@ int64_t amtpu_axis_bad_doc(void* pv) { return ((AxisPass*)pv)->bad_doc; }
 void amtpu_axis_free(void* pv) { delete (AxisPass*)pv; }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The DocSet read's segment plans over the doc axis (engine/doc_set.py
+// `texts()`). For every row: engine/segments.py `SegmentMirror.plan(S,
+// n_elems)`, the (4, S) int32 segplan, and the mirror's `head_checksum()`
+// and `aux_checksum()`, bit for bit, with int64 and uint32 arithmetic that
+// wraps as numpy's does.
+//
+// `plan` linearizes by pointer doubling (`_linearize_np`). A mirror's tree
+// has every head's parent segment before it (its parent slot precedes it),
+// and its heads are strictly sorted, so every weight is at least 1; here
+// each row is a tree walk instead: each parent's segment by a search from
+// the segment before, each segment's children listed in index order (and
+// sorted by (attach, ctr, actor) descending where there are two or more),
+// then one preorder walk that sums the weights. The order `plan` ranks by is that preorder, the start
+// positions its weight sums: O(n) for the mirrors the DocSet grows (a typing
+// run's head: its parent segment is the one before). A row the walk cannot
+// plan (unsorted heads, a parent outside the tree, weights that do not rise
+// along the walk) holds no true mirror: it gets the empty mirror's plan and
+// checksums, which the device's segment count from the chain bits refutes
+// wherever the row has a segment, so the caller heals the row. A row with
+// n_segs + 2 > S, or with columns of unequal length or none, stops the pass
+// (SEGPLAN_*), as `plan` raises on it.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+enum : int64_t {
+    SEGPLAN_OK = 0,
+    SEGPLAN_BUCKET = 1,    // n_segs + 2 > S
+    SEGPLAN_LENGTHS = 2,   // the row's columns differ in length, or are empty
+};
+
+// ops/ingest.py HASH_K1..K4 and mix32_np
+constexpr uint32_t HASH_K1 = 2654435761u, HASH_K2 = 2246822519u,
+                   HASH_K3 = 3266489917u, HASH_K4 = 668265263u;
+
+static inline uint32_t mix32(uint32_t x) {
+    x *= HASH_K1;
+    x ^= x >> 15;
+    x *= HASH_K2;
+    x ^= x >> 13;
+    return x;
+}
+
+static inline int64_t wadd(int64_t a, int64_t b) {
+    return (int64_t)((uint64_t)a + (uint64_t)b);
+}
+static inline int64_t wsub(int64_t a, int64_t b) {
+    return (int64_t)((uint64_t)a - (uint64_t)b);
+}
+static inline int64_t wneg(int64_t a) { return (int64_t)(0 - (uint64_t)a); }
+
+// the last j with H[j] <= x (-1 if none) in sorted H[0, n), galloping out
+// from g: searchsorted(H, x, side="right") - 1
+static inline int64_t last_le_from(const int64_t* H, int64_t n, int64_t x,
+                                   int64_t g) {
+    int64_t lo, hi, step = 1;
+    if (H[g] <= x) {
+        lo = g;
+        while (lo + step < n && H[lo + step] <= x) {
+            lo += step;
+            step <<= 1;
+        }
+        hi = std::min(lo + step, n);
+    } else {
+        hi = g;
+        while (hi - step >= 0 && H[hi - step] > x) {
+            hi -= step;
+            step <<= 1;
+        }
+        lo = std::max(hi - step, (int64_t)0);
+    }
+    return (int64_t)(std::upper_bound(H + lo, H + hi, x) - H) - 1;
+}
+
+struct SegScratch {
+    std::vector<int64_t> pnode, first_child, last_child, next_sib, multi,
+        kids;
+};
+
+// The tree walk of a mirror of n >= 2 entries, sorted heads H: each
+// segment's start position into r_starts, and the position -> segment
+// order into r_perm[0, n - 1). False where the row is no such tree (a
+// parent below H[0], or a parent segment not before its head) or where the
+// weights do not rise along the walk, so that `plan`'s stable argsort of
+// the starts need not be the walk.
+static bool walk_tree(int64_t n, const int64_t* H, const int64_t* P,
+                      const int64_t* C, const int64_t* A, int64_t n_elems,
+                      int32_t* r_perm, int32_t* r_starts, SegScratch& t) {
+    // each head's parent segment (the one before it, on a typing run),
+    // and the children of each segment as a list in index order; the
+    // parents with two or more children are listed in t.multi
+    t.pnode.resize(n);
+    t.first_child.assign(n, -1);
+    t.last_child.resize(n);
+    t.next_sib.resize(n);
+    t.multi.clear();
+    t.pnode[0] = 0;
+    for (int64_t k = 1; k < n; ++k) {
+        const int64_t x = P[k];
+        const int64_t p = H[k - 1] <= x && x < H[k]
+                              ? k - 1 : last_le_from(H, n, x, k - 1);
+        if (p < 0 || p >= k) return false;
+        t.pnode[k] = p;
+        t.next_sib[k] = -1;
+        const int64_t f = t.first_child[p];
+        if (f < 0) {
+            t.first_child[p] = k;
+        } else {
+            if (f == t.last_child[p]) t.multi.push_back(p);
+            t.next_sib[t.last_child[p]] = k;
+        }
+        t.last_child[p] = k;
+    }
+    // siblings by (attach, ctr, actor) descending, then index ascending
+    // (lexsort is stable); wrapped negation, as numpy negates
+    auto before = [&](int64_t x, int64_t y) {
+        const int64_t ax = wneg(wsub(P[x], H[t.pnode[x]]));
+        const int64_t ay = wneg(wsub(P[y], H[t.pnode[y]]));
+        if (ax != ay) return ax < ay;
+        const int64_t cx = wneg(C[x]), cy = wneg(C[y]);
+        if (cx != cy) return cx < cy;
+        const int64_t rx = wneg(A[x]), ry = wneg(A[y]);
+        if (rx != ry) return rx < ry;
+        return x < y;
+    };
+    for (const int64_t p : t.multi) {
+        t.kids.clear();
+        for (int64_t k = t.first_child[p]; k >= 0; k = t.next_sib[k])
+            t.kids.push_back(k);
+        std::sort(t.kids.begin(), t.kids.end(), before);
+        t.first_child[p] = t.kids[0];
+        for (size_t j = 0; j + 1 < t.kids.size(); ++j)
+            t.next_sib[t.kids[j]] = t.kids[j + 1];
+        t.next_sib[t.kids.back()] = -1;
+    }
+    // preorder from segment 0: a segment starts where the weights before
+    // it end (a segment's weight: the slots to the next head, the last
+    // one's to n_elems + 1)
+    r_starts[0] = 0;
+    int64_t v = 0, m = 0, acc = 0, prev = 0;
+    for (;;) {
+        int64_t u = t.first_child[v];
+        if (u < 0) {
+            u = v;
+            while (u && t.next_sib[u] < 0) u = t.pnode[u];
+            if (!u) return true;
+            u = t.next_sib[u];
+        }
+        v = u;
+        if (m && !(prev < acc)) return false;
+        prev = acc;
+        r_starts[v] = (int32_t)acc;
+        r_perm[m++] = (int32_t)v;
+        acc = wadd(acc, v < n - 1 ? wsub(H[v + 1], H[v])
+                                  : wsub(wadd(n_elems, 1), H[n - 1]));
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every row's segplan into plans (n_rows, 4, S) and its (head, aux)
+// checksums into checks (n_rows, 2); a row the walk cannot plan gets the
+// empty mirror's. `off` (4, n_rows + 1): each column's row offsets into its concatenation
+// (heads, par, hctr, hactor). Returns SEGPLAN_OK, or the first failing
+// row's status with the row in bad[0].
+int64_t amtpu_axis_segplan(int64_t n_rows, int64_t S, const int64_t* off,
+                           const int64_t* heads, const int64_t* par,
+                           const int64_t* hctr, const int64_t* hactor,
+                           const int64_t* n_elems, int32_t* plans,
+                           int32_t* checks, int64_t* bad) {
+    static const int64_t empty_heads[1] = {0};
+    SegScratch t;
+    bad[0] = -1;
+    for (int64_t i = 0; i < n_rows; ++i) {
+        int64_t n = off[i + 1] - off[i];
+        if (n < 1) return bad[0] = i, SEGPLAN_LENGTHS;
+        for (int c = 1; c < 4; ++c) {
+            const int64_t* oc = off + c * (n_rows + 1);
+            if (oc[i + 1] - oc[i] != n) return bad[0] = i, SEGPLAN_LENGTHS;
+        }
+        if (n + 1 > S) return bad[0] = i, SEGPLAN_BUCKET;
+        const int64_t* H = heads + off[i];
+        const int64_t* P = par + off[(n_rows + 1) + i];
+        const int64_t* C = hctr + off[2 * (n_rows + 1) + i];
+        const int64_t* A = hactor + off[3 * (n_rows + 1) + i];
+        int32_t* r_heads = plans + i * 4 * S;
+        int32_t* r_perm = r_heads + S;
+        int32_t* r_starts = r_heads + 2 * S;
+        int32_t* r_meta = r_heads + 3 * S;
+        if (n > 1 && !(is_sorted64(H, n) && walk_tree(n, H, P, C, A,
+                                                      n_elems[i], r_perm,
+                                                      r_starts, t))) {
+            n = 1;
+            H = empty_heads;
+        }
+        const int64_t n_segs = n - 1;
+        for (int64_t k = 0; k < n; ++k) r_heads[k] = (int32_t)H[k];
+        std::fill(r_heads + n, r_heads + S, 0);
+        if (n == 1) r_starts[0] = 0;
+        std::fill(r_starts + n, r_starts + S, 0);
+        r_perm[n_segs] = 0;
+        for (int64_t k = n; k < S; ++k) r_perm[k] = (int32_t)k;
+        std::fill(r_meta, r_meta + S, 0);
+        r_meta[0] = (int32_t)n_segs;
+        // the checksums: wrapping uint32 sums of the mixed heads, and of
+        // the mixed (parent, ctr, actor, head) keys
+        uint32_t hsum = 0, asum = 0;
+        for (int64_t k = 1; k < n; ++k) {
+            const uint32_t h = (uint32_t)H[k];
+            hsum += mix32(h);
+            asum += mix32((uint32_t)P[k] * HASH_K2 + (uint32_t)C[k] * HASH_K3 +
+                          (uint32_t)A[k] * HASH_K4 + h);
+        }
+        checks[2 * i] = (int32_t)hsum;
+        checks[2 * i + 1] = (int32_t)asum;
+    }
+    return SEGPLAN_OK;
+}
+
+}  // extern "C"

@@ -779,3 +779,104 @@ def test_axis_pass_moves_rows_a_round_left_behind(slack):
         assert max(held) < 4
     assert_sets_equal(jds, tds)
     assert_mirror_checksums_equal(jds, tds)
+
+
+def test_texts_plans_every_row_in_one_read_pass(monkeypatch, caplog):
+    """After a build and seeded append rounds: `texts()` equals the JAX
+    package's DocSet after each round; the plans it hands the planned
+    materialization equal the stacked per-row `SegmentMirror.plan`, at S
+    = the largest mirror's n_segs + 2, bucketed; `axis_reads` counts one
+    planned read a call. A planted divergent mirror (one row's `hctr`
+    altered) takes the heal path: the row is rebuilt from its chain bits,
+    the call is served by the self-contained program and counted under
+    `self_contained`, and the next call is planned again. A planted
+    mirror the pass cannot plan but whose checksums are the device's (two
+    segments swapped) takes the heal path too: the pass gives it the
+    empty mirror's plan, whose segment count the device refutes.
+    A set with a graduated (overlay) row reads through the pass too, its
+    row riding on the empty mirror's plan. The pass reads the round's
+    mirror slab in place while every row's mirror is a view of it, and
+    copies the rows' mirrors otherwise (the planted rows, the graduated
+    row): the plans are the same either way."""
+    from automerge_tpu_torch.engine import doc_set
+    from automerge_tpu_torch.engine.segments import SegmentMirror
+    from automerge_tpu_torch.ops import ingest
+    handed = []
+    planned_r = ingest.materialize_codes_planned_r
+
+    def spy(*args, **kw):
+        handed.append(args[7].cpu().numpy())
+        return planned_r(*args, **kw)
+    monkeypatch.setattr(ingest, "materialize_codes_planned_r", spy)
+
+    def row_plans(ds, S):
+        empty = SegmentMirror.empty()
+        return np.stack([
+            empty.plan(S, 0) if d in ds._overlay
+            else ds._meta[d].mirror.plan(S, ds._meta[d].n_elems)
+            for d in range(ds.n_docs)])
+
+    ids = [f"t{i}" for i in range(6)]
+    jds, tds = both(ids)
+    doc_set.reset_axis_reads()
+    rounds = axis_rounds(3, ids, n_rounds=8)
+    for r, rnd in enumerate(rounds):
+        feed(jds, tds, rnd)
+        slab = tds._mirror_slab[0]()           # every row, in order
+        assert all(m.mirror.hactor.base is slab for m in tds._meta)
+        assert tds.texts() == jds.texts(), r
+        S = handed[-1].shape[-1]
+        assert S == ingest.bucket(
+            max(m.mirror.n_segs for m in tds._meta) + 2, 64)
+        np.testing.assert_array_equal(handed[-1], row_plans(tds, S))
+    n = len(rounds)
+    assert len(handed) == n
+    assert max(m.mirror.n_segs for m in tds._meta) > 4
+    assert doc_set.axis_reads == {"planned": n, "rows": n * len(ids),
+                                  "self_contained": 0}
+
+    good = tds.texts()
+    m = tds._meta[2].mirror.copy()
+    m.hctr[1] += 1
+    tds._meta[2].mirror = m
+    tds._codes_cache = None
+    assert tds.texts() == good            # healed, self-contained
+    assert "segment mirror diverged for doc-set rows [2]" in caplog.text
+    assert len(handed) == n + 1
+    assert doc_set.axis_reads == {"planned": n, "rows": (n + 1) * len(ids),
+                                  "self_contained": 1}
+    assert_sets_equal(jds, tds)           # the rebuilt mirror is the true one
+    tds._codes_cache = None
+    assert tds.texts() == good            # planned again
+    assert len(handed) == n + 2
+    assert doc_set.axis_reads["planned"] == n + 1
+    assert doc_set.axis_reads["self_contained"] == 1
+
+    m = tds._meta[3].mirror.copy()
+    assert m.n_segs >= 2
+    sums = (m.head_checksum(), m.aux_checksum())
+    for col in (m.heads, m.par, m.hctr, m.hactor):
+        col[[1, 2]] = col[[2, 1]]
+    assert (m.head_checksum(), m.aux_checksum()) == sums
+    tds._meta[3].mirror = m
+    tds._codes_cache = None
+    assert tds.texts() == good            # off the walk: healed
+    assert "segment mirror diverged for doc-set rows [3]" in caplog.text
+    assert (np.diff(tds._meta[3].mirror.heads) > 0).all()
+    assert len(handed) == n + 3
+    assert doc_set.axis_reads["planned"] == n + 1
+    assert doc_set.axis_reads["self_contained"] == 2
+
+    clock = dict(tds._meta[tds._idx["t4"]].clock)
+    ch = {"actor": "w0", "seq": clock["w0"] + 1, "deps": clock, "ops":
+          [{"action": "del", "obj": "t4", "key": "w0:1"}]}
+    before = tds.texts()["t4"]
+    feed(jds, tds, {"t4": [ch]})
+    assert sorted(tds._overlay) == [tds._idx["t4"]]
+    assert tds.texts() == jds.texts()
+    assert len(tds.texts()["t4"]) == len(before) - 1
+    np.testing.assert_array_equal(handed[-1],
+                                  row_plans(tds, handed[-1].shape[-1]))
+    assert doc_set.axis_reads["planned"] == n + 2
+    assert doc_set.axis_reads["self_contained"] == 2
+    assert_sets_equal(jds, tds)

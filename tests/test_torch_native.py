@@ -585,3 +585,151 @@ def test_axis_pass_stops_where_the_one_document_code_raises(fault):
         assert p.STAGE_CODES[p.status] == fault and p.bad_doc == 3
     finally:
         p.close()
+
+
+# --- the DocSet read's pass over the doc axis -----------------------------------
+
+def _seg_mirror(rng, n_segs, siblings=0.0, breaks=0.0):
+    """A seeded mirror of `n_segs` segments: sorted head slots after the
+    virtual head, each head's parent an earlier slot, with share
+    `siblings` at one shared parent slot (one parent segment, one attach
+    offset) and share `breaks` at head - 1 (a chain break's parent);
+    small counters and ranks, so sort keys tie often."""
+    from automerge_tpu_torch.engine.segments import SegmentMirror
+    heads = np.concatenate(([0], np.sort(rng.choice(
+        np.arange(1, 8 * n_segs + 8), n_segs, replace=False))))
+    par = np.zeros(n_segs + 1, np.int64)
+    hub = int(rng.integers(0, heads[1])) if n_segs else 0
+    for k in range(1, n_segs + 1):
+        r = rng.random()
+        if r < breaks and heads[k] > 1:
+            par[k] = heads[k] - 1
+        elif r < breaks + siblings:
+            par[k] = min(hub, heads[k] - 1)
+        else:
+            par[k] = rng.integers(0, heads[k])
+    hctr, hactor = rng.integers(1, 6, n_segs + 1), rng.integers(0, 4,
+                                                               n_segs + 1)
+    hctr[0] = hactor[0] = 0
+    return SegmentMirror(heads.astype(np.int64), par,
+                         hctr.astype(np.int64), hactor.astype(np.int64))
+
+
+def _seg_rows(case, seed):
+    """-> (mirrors, n_elems, S) for one case of the read pass's test."""
+    from automerge_tpu_torch.engine.segments import SegmentMirror
+    rng = np.random.default_rng(seed)
+    sizes = {"random": rng.integers(0, 30, 40),
+             "empty_and_one": rng.integers(0, 2, 24),
+             "siblings": rng.integers(2, 40, 16),
+             "chain_breaks": rng.integers(2, 40, 16),
+             "full_bucket": np.append(rng.integers(0, 61, 12), 62),
+             "n_elems": rng.integers(0, 20, 30),
+             "long_rows": rng.integers(400, 480, 40)}[case]
+    share = {"siblings": (0.9, 0.0), "chain_breaks": (0.0, 0.9)}.get(
+        case, (0.2, 0.2))
+    mirrors = [_seg_mirror(rng, int(n), *share) for n in sizes]
+    if case == "empty_and_one":
+        mirrors += [SegmentMirror.empty()] * 3
+    tail = rng.integers(1, 6, len(mirrors))
+    if case == "n_elems":
+        tail = np.where(np.arange(len(mirrors)) % 2, tail,
+                        rng.integers(2 ** 20, 2 ** 30, len(mirrors)))
+    n_elems = [int(m.heads[-1] + t) if m.n_segs else 0
+               for m, t in zip(mirrors, tail)]
+    top = max(m.n_segs for m in mirrors) + 2
+    return mirrors, n_elems, top if case == "full_bucket" else top + 7
+
+
+def _segplan(mirrors, n_elems, S):
+    keys = ("heads", "par", "hctr", "hactor")
+    offsets = np.zeros((4, len(mirrors) + 1), np.int64)
+    for row, k in zip(offsets, keys):
+        row[1:] = np.cumsum([len(getattr(m, k)) for m in mirrors])
+    return native.segplan_axis(
+        offsets, *(np.concatenate([getattr(m, k) for m in mirrors])
+                   for k in keys), n_elems, S)
+
+
+@pytest.mark.parametrize("case", ["random", "empty_and_one", "siblings",
+                                  "chain_breaks", "full_bucket", "n_elems",
+                                  "long_rows"])
+@pytest.mark.parametrize("seed", range(3))
+def test_segplan_axis_matches_the_row_plans(case, seed):
+    """`native.segplan_axis` against `SegmentMirror.plan(S, n_elems)`,
+    `head_checksum()` and `aux_checksum()`, row for row, on seeded
+    mirrors: empty and one-segment rows, many siblings at one parent and
+    attach offset, chain-break heads, a row at n_segs + 2 == S, large
+    and small `n_elems` in one call, rows of hundreds of segments."""
+    mirrors, n_elems, S = _seg_rows(case, seed)
+    plans, checks = _segplan(mirrors, n_elems, S)
+    assert plans.shape == (len(mirrors), 4, S) and plans.dtype == np.int32
+    for d, (m, n) in enumerate(zip(mirrors, n_elems)):
+        np.testing.assert_array_equal(plans[d], m.plan(S, n), err_msg=d)
+        assert checks[d].tolist() == [m.head_checksum(), m.aux_checksum()]
+    if case == "full_bucket":
+        assert mirrors[-1].n_segs + 2 == S
+
+
+@pytest.mark.parametrize("fault", ["no_tree", "unsorted", "below_first_head",
+                                   "falling_weights"])
+@pytest.mark.parametrize("seed", range(3))
+def test_segplan_axis_gives_the_rows_off_the_walk_the_empty_plan(fault, seed):
+    """Rows no true mirror holds, among true ones: a parent at or past its
+    own head, two segments swapped (unsorted heads, the checksums
+    unchanged), a parent below the first head, or weights that do not
+    rise along the walk (the last segment first among its siblings, with
+    no or negative weight). The pass gives those rows the empty mirror's
+    plan and checksums (n_segs 0, which the device's count of the row's
+    segments refutes); every other row still equals its row plan."""
+    from automerge_tpu_torch.engine.segments import SegmentMirror
+    mirrors, n_elems, S = _seg_rows("random", seed)
+    rng = np.random.default_rng(seed + 100)
+    faulty = [d for d, m in enumerate(mirrors) if m.n_segs >= 2][::3]
+    for d in faulty:
+        m = mirrors[d].copy()
+        k = int(rng.integers(1, m.n_segs))
+        if fault == "no_tree":
+            m.par[k] = m.heads[k] + rng.integers(0, 3)
+        elif fault == "unsorted":
+            for col in (m.heads, m.par, m.hctr, m.hactor):
+                col[[k, k + 1]] = col[[k + 1, k]]
+        elif fault == "below_first_head":
+            m.par[k] = -1 - rng.integers(0, 3)
+        else:
+            m.par[-1], m.hctr[-1] = m.heads[1] - 1, 99
+            n_elems[d] = int(m.heads[-1]) - 1 - int(rng.integers(0, 3))
+        mirrors[d] = m
+    plans, checks = _segplan(mirrors, n_elems, S)
+    assert faulty
+    empty = SegmentMirror.empty().plan(S, 0)
+    for d, (m, n) in enumerate(zip(mirrors, n_elems)):
+        if d in faulty:
+            np.testing.assert_array_equal(plans[d], empty, err_msg=d)
+            assert checks[d].tolist() == [0, 0]
+        else:
+            np.testing.assert_array_equal(plans[d], m.plan(S, n), err_msg=d)
+            assert checks[d].tolist() == [m.head_checksum(),
+                                          m.aux_checksum()]
+
+
+@pytest.mark.parametrize("case", ["random", "long_rows"])
+@pytest.mark.parametrize("fault", ["bucket", "unequal"])
+def test_segplan_axis_raises_where_the_row_plan_raises(fault, case):
+    """S below a row's n_segs + 2, or a row whose columns differ in
+    length: `plan` raises on that row, and so does the pass, naming the
+    first such row."""
+    from automerge_tpu_torch.engine.segments import SegmentMirror
+    mirrors, n_elems, S = _seg_rows(case, 5)
+    big = max(range(len(mirrors)), key=lambda d: mirrors[d].n_segs)
+    if fault == "unequal":
+        big = len(mirrors) - 1 - big
+    if fault == "bucket":
+        S = mirrors[big].n_segs + 1
+    else:
+        m = mirrors[big]
+        mirrors[big] = SegmentMirror(m.heads, m.par, m.hctr[:-1], m.hactor)
+    with pytest.raises(ValueError):
+        mirrors[big].plan(S, n_elems[big])
+    with pytest.raises(ValueError, match=rf"row {big}\b"):
+        _segplan(mirrors, n_elems, S)

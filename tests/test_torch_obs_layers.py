@@ -316,6 +316,29 @@ def test_docset_spans_nest_and_stage_spans_stay_out_of_the_ring():
     assert axis == [0]
 
 
+def test_docset_read_spans_once_a_planned_call():
+    """On the planned path each `texts()` call emits one `read/plan` (the
+    doc-axis read pass, with its args: S and the rows planned) and one
+    `read/check`."""
+    from automerge_tpu_torch.engine import doc_set
+    pop, ds = _docset()
+    ds.apply_batches(pop.batches(M))
+    doc_set.reset_axis_reads()
+    with obs.tracing():
+        obs.clear()
+        for _ in range(3):
+            ds._codes_cache = None
+            ds.texts()
+        recs, spans = obs.snapshot(), obs.metrics_snapshot()["spans"]
+    assert_nested(_records(), "read/texts", ("read/plan", "read/check"))
+    plan = [r[5] for r in recs if r[2] == "read" and r[3] == "plan"]
+    assert plan == [{"S": 64, "n_rows": POP["docs"]}] * 3
+    assert len([r for r in recs if r[2] == "read" and r[3] == "check"]) == 3
+    assert spans["read.plan"]["count"] == spans["read.check"]["count"] == 3
+    assert doc_set.axis_reads == {"planned": 3, "rows": 3 * POP["docs"],
+                                  "self_contained": 0}
+
+
 def test_docset_general_and_rebuild_spans():
     pop, ds = _docset()
     ds.apply_batches(pop.batches(M))
