@@ -410,7 +410,9 @@ class SyncService:
             # stack exit — the tick's cross-tenant amortization
             for room in list(self._rooms.values()):
                 stack.enter_context(room.hub.batched())
-            for i, sess in enumerate(self._admission_order()):
+            t_admit = obs.now() if obs.ENABLED else 0
+            order = self._admission_order()
+            for i, sess in enumerate(order):
                 if sess.pending_dead:
                     continue
                 backlog = len(sess.inbox)
@@ -448,6 +450,10 @@ class SyncService:
                     obs.event("svc", "shed",
                               args={"msgs": shed, "tick": self._tick_no},
                               n=shed)
+            if t_admit:
+                obs.span("svc", "admit", t_admit, args={
+                    "tenants": len(order),
+                    "frames": self.stats["admitted_msgs"] - msgs0})
             # grouped admission: ONE gate delivery (one backend apply /
             # columnar decode) per (room, doc) for the whole tick —
             # executed under the room's shard-lane device context when
@@ -457,8 +463,13 @@ class SyncService:
             # lane workers concurrently, still inside the deferred-
             # flush stack — the one-flush-per-room amortization is
             # preserved at the barrier
+            t_deliver = obs.now() if obs.ENABLED else 0
             self._deliver_groups(groups)
+            if t_deliver:
+                obs.span("svc", "deliver", t_deliver,
+                         args={"groups": len(groups)})
             # retransmission (may declare peers dead via on_dead)
+            t_chan = obs.now() if obs.ENABLED else 0
             for sess in list(self._tenants.values()):
                 if not sess.pending_dead:
                     sess.channel.tick()
@@ -466,6 +477,8 @@ class SyncService:
             for sess in [s for s in list(self._tenants.values())
                          if s.pending_dead]:
                 self.evict(sess.tenant_id, sess.pending_dead)
+            if t_chan:
+                obs.span("svc", "chan", t_chan)
         self._track_bounds()
         if self._doc_mesh is not None:
             # the residency tier's tick-loop paging hooks: drain the

@@ -239,10 +239,13 @@ class SyncHub:
             self._flush_wanted = True
             return
         from ..engine.wire_format import split_outgoing
+        t_flush = obs.now() if obs.ENABLED else 0
         extracted: dict = {}
         encoded: dict = {}
         contexts: dict = {}   # same (doc, clock) key -> trace context
-        for peer_id, doc_id in self._matrix.pending():
+        pending = self._matrix.pending()
+        n_msgs = n_changes = 0
+        for peer_id, doc_id in pending:
             if peer_id not in self._peers:
                 continue
             if (peer_id, doc_id) not in self._revealed:
@@ -287,10 +290,14 @@ class SyncHub:
                 msg["trace"] = ctx
             parts = encoded.get(key)
             if parts is None:
+                t_frame = obs.now() if obs.ENABLED else 0
                 gtok = self.group_mint() \
                     if self.group_mint is not None else None
                 parts = encoded[key] = split_outgoing(changes, trace=ctx,
                                                       group=gtok)
+                if t_frame:
+                    obs.span("hub", "frame", t_frame,
+                             args={"changes": len(changes)})
             prefix, frame = parts
             if frame is not None:
                 # the frame manifest carries the full context (prefix
@@ -325,6 +332,13 @@ class SyncHub:
                             if tail_ctx:
                                 msg["trace"] = tail_ctx
             self._peers[peer_id].send_msg(msg)
+            n_msgs += 1
+            n_changes += len(changes)
+        if t_flush:
+            obs.span("hub", "flush", t_flush,
+                     args={"peers": len(self._peers), "pairs": len(pending)})
+            obs.counter("sync", "hub.fanout_msgs", n_msgs)
+            obs.counter("sync", "hub.fanout_changes", n_changes)
 
     def _doc_checkpoint(self, doc_id: str, state):
         """(base64 bundle, tail changes) for a doc, cached per doc and
